@@ -1,0 +1,30 @@
+"""Parameter import from the JAX package's layout.
+
+The JAX nerfacto parameters, as nested dicts and lists with NumPy leaves
+(``{"fields": {"fourier_B", "base_mlp": {"w", "b"}, "rgb_mlp"},
+"proposal_networks": [{"fourier_B", "mlp"}, ...]}``), map leaf for leaf onto
+the port's: the port keeps B as (3, H) and every weight as (in, out), the
+layout the kernels read, so no leaf is transposed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nerf_kbs_tpu_torch.device import resolve_device
+
+
+def params_from_jax(tree, device=None):
+    """The same tree with every leaf a float32 tensor on ``device`` (CUDA
+    unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return torch.tensor(np.asarray(node, np.float32), device=dev)
+
+    return conv(tree)

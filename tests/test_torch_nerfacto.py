@@ -1,0 +1,222 @@
+"""Port vs JAX package: nerfacto eval forward, the chunked renderer and the
+viewer, on the CPU in f32; plus the port's import isolation and its
+no-fallback device rule. JAX runs its fused Pallas path in interpret mode
+(NKT_FUSED=1)."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_kbs_tpu.cameras import cameras as jcam
+from nerf_kbs_tpu.data.outputs import DataparserOutputs as JOutputs
+from nerf_kbs_tpu.methods import nerfacto_tpu_method as j_method
+from nerf_kbs_tpu.models import nerfacto as jnerf
+from nerf_kbs_tpu_torch.cameras import cameras as tcam
+from nerf_kbs_tpu_torch.convert import params_from_jax
+from nerf_kbs_tpu_torch.data.outputs import DataparserOutputs as TOutputs
+from nerf_kbs_tpu_torch.data.synthetic import orbit_cameras
+from nerf_kbs_tpu_torch.engine.render import Renderer, render_trajectory
+from nerf_kbs_tpu_torch.engine.viewer import ViewerServer
+from nerf_kbs_tpu_torch.methods import nerfacto_tpu_method as t_method
+from nerf_kbs_tpu_torch.models import nerfacto as tnerf
+
+REPO = Path(__file__).resolve().parents[1]
+# composited outputs in f32: same math, other summation orders
+ATOL = 1e-4
+OUT_KEYS = ("rgb", "accumulation", "depth", "expected_depth", "prop_depth_0",
+            "prop_depth_1", "weights", "directions_norm")
+
+SMALL = dict(
+    num_images=3, field_type="fourier", fourier_num_levels=2, fourier_features_per_level=8,
+    proposal_fourier_features_per_level=4, proposal_num_levels=2, hidden_dim=16,
+    hidden_dim_color=16, base_res=4, max_res=32, proposal_max_res=(16, 32),
+    num_proposal_samples_per_ray=(16, 8), num_nerf_samples_per_ray=8,
+)
+
+
+@pytest.fixture
+def fused(monkeypatch):
+    monkeypatch.setenv("NKT_FUSED", "1")
+
+
+def _pair(**kw):
+    return jnerf.NerfactoConfig(**kw), tnerf.NerfactoConfig(**kw)
+
+
+def _params(jcfg):
+    jp = jnerf.init(jax.random.PRNGKey(0), jcfg)
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _rays(n, seed=0):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = (rng.normal(size=(n, 3)) * 0.1).astype(np.float32)
+    cam = rng.integers(0, 3, (n, 1)).astype(np.int32)
+    kw = dict(pixel_area=np.full((n, 1), 1e-4, np.float32), directions_norm=np.ones((n, 1),
+              np.float32))
+    jr = jcam.RayBundle(origins=jnp.asarray(o), directions=jnp.asarray(d),
+                        camera_indices=jnp.asarray(cam),
+                        **{k: jnp.asarray(v) for k, v in kw.items()})
+    tr = tcam.RayBundle(origins=torch.as_tensor(o), directions=torch.as_tensor(d),
+                        camera_indices=torch.as_tensor(cam),
+                        **{k: torch.as_tensor(v) for k, v in kw.items()})
+    return jr, tr
+
+
+def _compare(tout, jout, keys=OUT_KEYS):
+    for k in keys:
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]), atol=ATOL, rtol=1e-4,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("basis,background,app_dim", [
+    ("tri", "last_sample", 0), ("sincos", "white", 4), ("tri", "black", 0),
+])
+def test_forward_small_matches_jax(fused, basis, background, app_dim):
+    jcfg, tcfg = _pair(**SMALL, fourier_basis=basis, background_color=background,
+                       appearance_embedding_dim=app_dim)
+    jp, tp = _params(jcfg)
+    jr, tr = _rays(24)
+    jout = jnerf.forward(jp, jcfg, jr, key=None, step=1200, train=False)
+    tout = tnerf.forward(tp, tcfg, tr, step=1200, train=False)
+    _compare(tout, jout)
+
+
+def test_forward_full_width_matches_jax(fused):
+    """nerfacto-tpu at its full widths (H = 128, base (256, 128, 128, 16),
+    rgb (31, 64, 64, 3), proposals H = 40, (96, 32) -> 48 samples), f32."""
+    jcfg = j_method().model
+    tcfg = t_method().model
+    assert tcfg == tnerf.NerfactoConfig(**{f.name: getattr(jcfg, f.name)
+                                          for f in dataclasses.fields(tcfg)})
+    jp, tp = _params(jcfg)
+    assert [tuple(w.shape) for w in tp["fields"]["base_mlp"]["w"]] == [
+        (256, 128), (128, 128), (128, 16)]
+    assert [tuple(w.shape) for w in tp["fields"]["rgb_mlp"]["w"]] == [(31, 64), (64, 64), (64, 3)]
+    assert tuple(tp["proposal_networks"][0]["fourier_B"].shape) == (3, 40)
+    jr, tr = _rays(16, seed=1)
+    jout = jnerf.forward(jp, jcfg, jr, key=None, step=30000, train=False)
+    tout = tnerf.forward(tp, tcfg, tr, step=30000, train=False)
+    assert tout["weights"].shape == (16, 48)
+    _compare(tout, jout)
+
+
+def test_method_config_bf16_and_chunk():
+    spec = t_method()
+    assert spec.eval_num_rays_per_chunk == 1 << 15
+    assert spec.model_config().compute_dtype == "bfloat16"
+    assert spec.model_config().field.base_mlp.dims == (256, 128, 128, 16)
+    assert spec.model_config().field.rgb_mlp.dims == (31, 64, 64, 3)
+    assert spec.model_config().proposal_field(0).mlp.dims == (80, 16, 1)
+
+
+def test_render_camera_matches_jax_forward(fused):
+    jcfg, tcfg = _pair(**SMALL)
+    jp, tp = _params(jcfg)
+    cams_np = orbit_cameras(3, h=12, w=16)
+    box = np.array([[-1.0] * 3, [1.0] * 3])
+    jc = JOutputs([], cams_np, box).cameras()
+    idx = np.stack(np.meshgrid([1], np.arange(12), np.arange(16), indexing="ij"),
+                   -1).reshape(-1, 3).astype(np.int32)
+    jout = jnerf.forward(jp, jcfg, jcam.generate_rays(jc, jnp.asarray(idx)), key=None,
+                         step=700, train=False)
+    # 192 pixels in chunks of 50: the last chunk is padded
+    r = Renderer(tp, tcfg, TOutputs([], cams_np, box).cameras("cpu"), step=700,
+                 eval_num_rays_per_chunk=50, device="cpu")
+    out = r.render_camera(1)
+    for k in ("rgb", "depth", "expected_depth", "accumulation", "directions_norm"):
+        want = np.asarray(jout[k]).reshape(12, 16, -1)
+        assert out[k].shape == want.shape, k
+        np.testing.assert_allclose(out[k], want, atol=ATOL, rtol=1e-4, err_msg=k)
+
+
+def _small_renderer():
+    cfg = tnerf.NerfactoConfig(**SMALL)
+    cams = TOutputs([], orbit_cameras(2, h=6, w=8), np.zeros((2, 3))).cameras("cpu")
+    return Renderer(tnerf.init(cfg, seed=0, device="cpu"), cfg, cams, step=100,
+                    eval_num_rays_per_chunk=32, device="cpu")
+
+
+def test_viewer_serves_pngs():
+    viewer = ViewerServer(_small_renderer(), port=0).start()
+    base = f"http://127.0.0.1:{viewer.port}"
+    try:
+        for path in ("/render?cam=1", "/render?cam=0&kind=depth", "/orbit?theta=0.5&size=8"):
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                assert resp.headers["Content-Type"] == "image/png"
+                assert resp.read()[:8] == b"\x89PNG\r\n\x1a\n"
+        with urllib.request.urlopen(base + "/status", timeout=60) as resp:
+            assert json.loads(resp.read())["num_cameras"] == 2
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(base + "/render?cam=7", timeout=60)
+        assert e.value.code == 400
+        e.value.close()
+    finally:
+        viewer.close()
+
+
+def test_render_trajectory_writes_frames(tmp_path):
+    paths = render_trajectory(_small_renderer(), str(tmp_path), frames_per_segment=2)
+    assert len(paths) == 3
+    assert (tmp_path / "depth_00002.png").read_bytes()[:4] == b"\x89PNG"
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, nerf_kbs_tpu_torch\n"
+        "import nerf_kbs_tpu_torch.engine.viewer, nerf_kbs_tpu_torch.convert\n"
+        "import nerf_kbs_tpu_torch.methods, nerf_kbs_tpu_torch.ops._kernels\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'nerf_kbs_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tnerf.NerfactoConfig(**SMALL)
+    cams_np = orbit_cameras(2, h=4, w=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tnerf.init(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TOutputs([], cams_np, np.zeros((2, 3))).cameras()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_jax({"w": np.zeros(2)})
+    cams = TOutputs([], cams_np, np.zeros((2, 3))).cameras("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Renderer(tnerf.init(cfg, seed=0, device="cpu"), cfg, cams)
+
+
+@pytest.mark.parametrize("change,name", [
+    (dict(field_type="hash"), "field_type"),
+    (dict(use_semantic=True), "use_semantic"),
+    (dict(predict_normals=True), "predict_normals"),
+    (dict(camera_optimizer="SO3xR3"), "camera_optimizer"),
+    (dict(disable_scene_contraction=True), "disable_scene_contraction"),
+])
+def test_unported_configs_raise(change, name):
+    cfg = dataclasses.replace(tnerf.NerfactoConfig(**SMALL), **change)
+    with pytest.raises(NotImplementedError, match=name):
+        tnerf.init(cfg, device="cpu")
+
+
+def test_train_forward_and_bad_background_raise():
+    r = _small_renderer()
+    _, tr = _rays(4)
+    with pytest.raises(NotImplementedError, match="train=True"):
+        tnerf.forward(r.params, r.config, tr, train=True)
+    with pytest.raises(ValueError, match="background_color"):
+        tnerf.forward(r.params, dataclasses.replace(r.config, background_color="pink"), tr)
