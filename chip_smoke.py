@@ -4,20 +4,30 @@
     python3 chip_smoke.py
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
-1. device: the card (nvidia-smi name and power limit), then the kernels are
-   built from csrc/ into build/ (one nvcc per source, started together);
+1. device: the card (nvidia-smi name and power limit), then the four kernels
+   are built from csrc/ into build/ (one nvcc per source, started together);
 2. kernel parity: each kernel against its plain PyTorch version on the card,
-   both bases and both compute dtypes, at the main path's shapes and a
-   ragged N; times of the kernel and the plain version at the main path's
-   operating point (tri basis, bf16);
-3. the slice: nerfacto-tpu at full width in bf16 with seeded weights renders
+   both bases and both compute dtypes, at the main paths' shapes and a
+   ragged N; the two backward kernels also with and without the position
+   gradient, every output compared, and a repeat of the launch must give the
+   same bits; times of each kernel and its plain version at the main paths'
+   operating point (tri basis, bf16, no position gradient);
+3. the serving slice: nerfacto-tpu at full width in bf16 with seeded weights renders
    a 376x1241 camera through Renderer.render_camera in 1<<15-ray chunks; the
    launch counts must show 2 proposal-field and 1 field launches per chunk;
    the frame time is the median of 5 more renders; a profiler pass gives the
    device time by kernel; a small camera rendered in f32 on the card must
    match the CPU plain path; the viewer answers /status, /render and /orbit
    with PNGs;
-4. a {"kernels": [...]} line, then the last line
+4. the training slice: 22 steps of the bench's train step (full-width bf16
+   nerfacto-tpu, 16,384 random pixels of 32 cameras of 376x1241 and random
+   colours per step, forward -> loss -> backward -> per-group Adam) with the
+   launch counts 2 / 1 / 2 / 1 per step and the median step time of the last
+   20; Trainer.train(30) at full width on the synthetic sphere scene (loss
+   finite and falling, metrics.jsonl, eval_image, checkpoint save and load);
+   a profiler pass over one step; 3 steps in f32 on the card against the
+   same 3 steps on the CPU plain path;
+5. a {"kernels": [...]} line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or run from a directory without the port, it exits non-zero
@@ -43,6 +53,26 @@ H100_BYTES = 3.35e12  # HBM3 bytes/s
 # bf16 can also flip single bf16 roundings of activations (2^-8 relative)
 TOLERANCE = {("tri", False): 1e-3, ("sincos", False): 5e-3,
              ("tri", True): 5e-2, ("sincos", True): 5e-2}
+
+
+# backward outputs, each relative to the largest magnitude of the reference
+# tensor. Two things differ between a kernel and its plain version beyond
+# summation order. (1) In bf16 single roundings of dh and of activations flip.
+# (2) A pre-activation within rounding (~1e-7) of zero takes the other side
+# of the relu mask: a few such points among the ~3e8 unit evaluations of a
+# field launch, in f32 as in bf16. At such a point the per-point outputs (dx,
+# dfeats) differ by a whole unit's share, so they are held to BWD_TOLERANCE at
+# all but PER_POINT_OUTLIERS of their elements. A weight gradient here is a
+# zero-mean sum over ~10^6 points (g is random), of magnitude ~sqrt(N) times
+# one point's, so each such point moves it by ~1e-3 of its magnitude: weight
+# and bias gradients are held to SUM_TOLERANCE. The last layers' gradients
+# pass no mask and agree to ~1e-6 in f32.
+BWD_TOLERANCE = {("tri", False): 2e-3, ("sincos", False): 5e-3,
+                 ("tri", True): 5e-2, ("sincos", True): 5e-2}
+SUM_TOLERANCE = 2e-2
+PER_POINT_OUTLIERS = 1e-4
+BWD_TOLERANCE = {("tri", False): 2e-3, ("sincos", False): 5e-3,
+                 ("tri", True): 5e-2, ("sincos", True): 5e-2}
 
 
 def emit(obj) -> None:
@@ -152,6 +182,85 @@ def phase_kernels():
         return (lambda: ff.fourier_field_mlp(spec, x, fe, B, bws, bbs, rws, rbs),
                 lambda: ff.fourier_field_reference(x, fe, B, bws, bbs, rws, rbs, basis, bf16))
 
+    def c_call(basis, bf16, need_dx, x, g):
+        B = pB * (2 * math.pi) if basis == "sincos" else pB
+        spec = ff.FusedMLPSpec(h_freqs=B.shape[1], layer_dims=pcfg.mlp.dims, bf16=bf16,
+                               basis=basis, need_dx=need_dx)
+
+        def flat(res):
+            dx, dws, dbs = res
+            return ([] if dx is None else [dx]) + list(dws) + list(dbs)
+
+        return (lambda: flat(ff._mlp_backward(spec, x, B, pws, pbs, g)),
+                lambda: flat(ff.fourier_mlp_backward_reference(x, B, pws, pbs, g, basis, bf16,
+                                                               need_dx)))
+
+    def d_call(basis, bf16, need_dx, x, fe, g):
+        B = fB * (2 * math.pi) if basis == "sincos" else fB
+        spec = ff.FusedFieldSpec(h_freqs=B.shape[1], feat_dim=fe.shape[0],
+                                 base_dims=fcfg.base_mlp.dims, rgb_dims=fcfg.rgb_mlp.dims,
+                                 bf16=bf16, basis=basis, need_dx=need_dx)
+
+        def flat(res):
+            dx, dfe, dbw, dbb, drw, drb = res
+            return ([] if dx is None else [dx]) + [dfe, *dbw, *dbb, *drw, *drb]
+
+        return (lambda: flat(ff._field_backward(spec, x, fe, B, bws, bbs, rws, rbs, g)),
+                lambda: flat(ff.fourier_field_backward_reference(x, fe, B, bws, bbs, rws, rbs, g,
+                                                                 basis, bf16, need_dx)))
+
+    def rel_err(got, want):
+        return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+
+    def outliers(got, want, tol):
+        """Share of elements further than tol (relative to the reference's
+        largest magnitude) from the reference."""
+        return float(((got - want).abs() > tol * want.abs().max()).float().mean())
+
+    train_rays = 16384  # the bench's batch
+    n_c0 = train_rays * cfg.num_proposal_samples_per_ray[0]
+    n_c1 = train_rays * cfg.num_proposal_samples_per_ray[1]
+    n_d = train_rays * cfg.num_nerf_samples_per_ray
+    bwd_cases = [("fourier_mlp_bwd", n) for n in (n_c1, 1_000_003)]
+    bwd_cases += [("fourier_field_bwd", n) for n in (n_d, 1_000_003)]
+    for name, n in bwd_cases:
+        x = positions(n)
+        fe = feats(n) if name == "fourier_field_bwd" else None
+        g = torch.randn(1 if fe is None else 4, n, generator=gen).to(dev)
+        for basis in ("tri", "sincos"):
+            for bf16 in (True, False):
+                for need_dx in (False, True):
+                    kern, plain = (c_call(basis, bf16, need_dx, x, g) if fe is None
+                                   else d_call(basis, bf16, need_dx, x, fe, g))
+                    got, want, again = kern(), plain(), kern()
+                    torch.cuda.synchronize()
+                    check(len(got) == len(want), f"{name}: {len(got)} outputs, want {len(want)}")
+                    check(all(bool(torch.isfinite(t).all()) for t in got),
+                          f"{name}: non-finite kernel output")
+                    tol = BWD_TOLERANCE[(basis, bf16)]
+                    # per-point outputs (dx, dfeats) have n columns
+                    per_point = [a.shape[-1] == n for a in got]
+                    errs = [rel_err(a, b) for a, b in zip(got, want)]
+                    out = [outliers(a, b, tol) for a, b, pp in zip(got, want, per_point) if pp]
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    emit({"phase": "parity", "kernel": name, "n": n, "basis": basis,
+                          "dtype": "bf16" if bf16 else "f32", "need_dx": need_dx,
+                          "outputs": len(got), "tol": tol, "sum_tol": SUM_TOLERANCE,
+                          "max_rel_err": max(e for e, pp in zip(errs, per_point) if not pp),
+                          "last_layer_rel_err": errs[-1],
+                          "per_point_max_rel_err": max([e for e, pp in zip(errs, per_point)
+                                                        if pp], default=None),
+                          "per_point_outlier_share": max(out, default=None),
+                          "repeat_bit_identical": same})
+                    check(all(e <= SUM_TOLERANCE for e, pp in zip(errs, per_point) if not pp),
+                          f"{name} n={n} {basis} bf16={bf16} need_dx={need_dx}: rel errs {errs}")
+                    check(all(o <= PER_POINT_OUTLIERS for o in out),
+                          f"{name} n={n} {basis} bf16={bf16} need_dx={need_dx}: outliers {out}")
+                    check(same, f"{name} n={n} {basis} bf16={bf16}: a repeat gave other bits")
+                    del got, want, again
+        del x, fe, g
+        torch.cuda.empty_cache()
+
     cases = [("fourier_mlp_fwd", n) for n in (n_a1, 1_000_003)]
     cases += [("fourier_field_fwd", n) for n in (n_b, 1_000_003)]
     for name, n in cases:
@@ -201,7 +310,54 @@ def phase_kernels():
         records.append(rec)
         del x
         torch.cuda.empty_cache()
+
+    # the backward kernels at the train step's shapes, no position gradient
+    # (the flagship's sampling is detached). Least work: the recompute (all of
+    # it for the field; the hidden layers for the MLP, whose last layer's
+    # output nothing needs), dW of every layer, W . dh of every layer but the
+    # first of the chain that starts at the encoding
+    def macs(dims):
+        return [a * b for a, b in zip(dims, dims[1:])]
+
+    pm, bm, rm = macs(pcfg.mlp.dims), macs(fcfg.base_mlp.dims), macs(fcfg.rgb_mlp.dims)
+    c_mac = 3 * pB.shape[1] + sum(pm[:-1]) + sum(pm) + sum(pm[1:])
+    d_mac = b_mac + sum(bm) + sum(rm) + sum(bm[1:]) + sum(rm)
+    for name, n, per_point_bytes, w_floats, mac, src, line in (
+        ("fourier_mlp_bwd", n_c0, 12 + 4, 2 * a_w, c_mac, "fourier_mlp_bwd.cu", 381),
+        ("fourier_field_bwd", n_d, 12 + 64 + 16 + 64, 2 * b_w, d_mac, "fourier_field_bwd.cu",
+         707),
+    ):
+        x = positions(n)
+        is_c = name == "fourier_mlp_bwd"
+        g = torch.randn(1 if is_c else 4, n, generator=gen).to(dev)
+        kern, plain = (c_call("tri", True, False, x, g) if is_c
+                       else d_call("tri", True, False, x, feats(n), g))
+        got, want = kern(), plain()
+        # weight and bias gradients; the per-point dfeats goes by its outliers
+        err = max(rel_err(a, b) for a, b in zip(got, want) if a.shape[-1] != n)
+        out = max([outliers(a, b, BWD_TOLERANCE[("tri", True)])
+                   for a, b in zip(got, want) if a.shape[-1] == n], default=None)
+        del got, want
+        ms = time_ms(kern, 10)
+        plain_ms = time_ms(plain, 2)
+        bms, by = bound(n * per_point_bytes + 4 * w_floats, 2.0 * n * mac, bf16=True)
+        rec = {"name": name, "route": "cuda", "source": f"nerf_kbs_tpu_torch/csrc/{src}",
+               "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
+               "max_abs_err": err,
+               "err_is": "weight and bias gradients, relative to each one's largest magnitude",
+               "per_point_outlier_share": out, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+               "library_ms": None, "n_points": n, "basis": "tri", "dtype": "bf16",
+               "need_dx": False}
+        emit({"phase": "timing", **rec})
+        records.append(rec)
+        del x, g
+        torch.cuda.empty_cache()
     return records
+
+
+# kernel name -> its wrapper's launch counter
+COUNTER = {"fourier_mlp_fwd": "fourier_mlp", "fourier_field_fwd": "fourier_field_mlp",
+           "fourier_mlp_bwd": "fourier_mlp_bwd", "fourier_field_bwd": "fourier_field_mlp_bwd"}
 
 
 def _png(url: str) -> int:
@@ -212,17 +368,18 @@ def _png(url: str) -> int:
         return len(body)
 
 
-def phase_profile(renderer, n_rays: int, top: int = 12) -> None:
-    """Where one frame's time goes: device time by kernel name (self time,
-    torch.profiler over one render) and the device's busy share of the wall
-    time. The profiler's own overhead inflates the wall time somewhat."""
+def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12) -> None:
+    """Where the time of one call of ``work`` goes (a frame, a train step):
+    device time by kernel name (self time, torch.profiler over the call) and
+    the device's busy share of the wall time. The profiler's own overhead
+    inflates the wall time somewhat."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render_camera(4)
+        work()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -235,7 +392,7 @@ def phase_profile(renderer, n_rays: int, top: int = 12) -> None:
               if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
     busy = sum(dev_us(e) for e in events)
     events.sort(key=dev_us, reverse=True)
-    emit({"phase": "profile", "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    emit({"phase": "profile", "of": what, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
           "device_idle_share": max(0.0, 1.0 - busy / wall_us), "rays": n_rays,
           "top": [{"name": e.key[:80], "calls": e.count, "device_ms": dev_us(e) / 1e3,
                    "share": dev_us(e) / busy} for e in events[:top]]})
@@ -278,11 +435,12 @@ def phase_slice(records):
     check(bool(np.isfinite(rgb).all()), "non-finite rgb")
     check(float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0, "rgb outside [0, 1]")
     check(bool(np.isfinite(out["depth"]).all()), "non-finite depth")
-    check(launches == {"fourier_mlp": 2 * n_chunks, "fourier_field_mlp": n_chunks},
+    check(launches == {"fourier_mlp": 2 * n_chunks, "fourier_field_mlp": n_chunks,
+                       "fourier_mlp_bwd": 0, "fourier_field_mlp_bwd": 0},
           f"launches {launches} for {n_chunks} chunks")
     for rec in records:
-        rec["launches"] = launches[
-            "fourier_mlp" if rec["name"] == "fourier_mlp_fwd" else "fourier_field_mlp"]
+        if rec["name"] in COUNTER and not rec["name"].endswith("_bwd"):
+            rec["launches"] = launches[COUNTER[rec["name"]]]
     # the frame time: median of repeated renders of the same camera
     times = []
     for _ in range(5):
@@ -296,7 +454,7 @@ def phase_slice(records):
           "rays_per_s": h * w / med, "ms_per_chunk": med * 1e3 / n_chunks,
           "rgb_mean": float(rgb.mean()), "accumulation_mean": float(out["accumulation"].mean())})
 
-    phase_profile(renderer, h * w)
+    phase_profile(lambda: renderer.render_camera(4), h * w)
 
     # the whole path on the card (kernels, f32) against the CPU plain path
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -328,6 +486,152 @@ def phase_slice(records):
         viewer.close()
 
 
+def phase_train(records):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.cameras.cameras import generate_rays
+    from nerf_kbs_tpu_torch.data.outputs import DataparserOutputs
+    from nerf_kbs_tpu_torch.data.synthetic import SyntheticDataManager, orbit_cameras
+    from nerf_kbs_tpu_torch.engine.optimizers import build_optimizer, tree_leaves
+    from nerf_kbs_tpu_torch.engine.trainer import Trainer, mark_trainable
+    from nerf_kbs_tpu_torch.methods import nerfacto_tpu_method
+    from nerf_kbs_tpu_torch.models import nerfacto
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    dev = torch.device("cuda")
+    spec = nerfacto_tpu_method()
+    cfg = dataclasses.replace(spec.model_config(), num_images=32)
+    check(cfg.compute_dtype == "bfloat16" and cfg.stop_grad_sampling, "flagship train config")
+
+    # (1) the bench's step: random pixels of 32 KITTI-sized cameras, random
+    # colours, step 500 of the schedules, the registry's optimizers
+    h, w, batch_rays, n_steps, warm = 376, 1241, 16384, 22, 2
+    params = nerfacto.init(cfg, seed=0)
+    mark_trainable(params)
+    opt = build_optimizer(spec.optimizers, nerfacto.param_groups(params))
+    cams = DataparserOutputs([], orbit_cameras(32, h=h, w=w),
+                             np.array([[-1.0] * 3, [1.0] * 3])).cameras()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    start = [t.detach().clone() for t in tree_leaves(params)]
+
+    def bench_step():
+        idx = torch.stack([torch.randint(0, hi, (batch_rays,), generator=gen, device=dev)
+                           for hi in (32, h, w)], dim=-1).to(torch.int32)
+        batch = {"ray_indices": idx,
+                 "image": torch.rand(batch_rays, 3, generator=gen, device=dev)}
+        rays = generate_rays(cams, idx)
+        out = nerfacto.forward(params, cfg, rays, step=500, train=True, generator=gen)
+        total, _ = nerfacto.loss(cfg, out, batch, train=True)
+        opt.zero_grad()
+        total.backward()
+        opt.step()
+        return total.detach()
+
+    ff.reset_launches()
+    times, losses = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = bench_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = dict(ff.LAUNCHES)
+    check(launches == {"fourier_mlp": 2 * n_steps, "fourier_field_mlp": n_steps,
+                       "fourier_mlp_bwd": 2 * n_steps, "fourier_field_mlp_bwd": n_steps},
+          f"train launches {launches} for {n_steps} steps")
+    check(all(np.isfinite(losses)), f"non-finite train loss {losses}")
+    for rec in records:
+        if rec["name"].endswith("_bwd"):
+            rec["launches"] = launches[COUNTER[rec["name"]]]
+        else:
+            rec["train_launches"] = launches[COUNTER[rec["name"]]]
+    moved = {}
+    for (path, now), was in zip(_leaf_paths(params), start):
+        moved[path] = bool((now.detach() != was).any())
+    frozen = [p for p in moved if p.endswith("fourier_B")]
+    check(len(frozen) == 3 and not any(moved[p] for p in frozen), f"fourier_B moved: {moved}")
+    check(all(m for p, m in moved.items() if p not in frozen), f"parameters stood still: {moved}")
+    med = sorted(times[warm:])[(n_steps - warm) // 2]
+    emit({"phase": "train_step", "method": "nerfacto-tpu", "compute_dtype": cfg.compute_dtype,
+          "rays": batch_rays, "steps": n_steps, "warm_up": warm, "launches": launches,
+          "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "step_ms": times, "median_step_ms": med, "rays_per_s": batch_rays / (med * 1e-3),
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "lr": opt.learning_rate("fields"), "parameters_moved": sum(moved.values()),
+          "parameters_frozen": len(frozen)})
+
+    # (3) where one step's time goes
+    phase_profile(bench_step, batch_rays, what="train_step")
+    del params, opt, start
+    torch.cuda.empty_cache()
+
+    # (2) the trainer on the synthetic sphere scene, full width
+    out_dir = tempfile.mkdtemp(prefix="nkt_smoke_")
+    tcfg = dataclasses.replace(spec.trainer, output_dir=out_dir, log_every=1,
+                               steps_per_save=10**9, steps_per_eval_image=10**9,
+                               steps_per_eval_batch=10**9)
+    dm = SyntheticDataManager(num_cameras=12, h=64, w=64,
+                              rays_per_batch=spec.datamanager.train_num_rays_per_batch)
+    mcfg = dataclasses.replace(spec.model_config(), num_images=12)
+    trainer = Trainer(tcfg, mcfg, spec.optimizers, dm)
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    last = trainer.train(30)
+    train_s = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in (trainer.out_dir / "metrics.jsonl").read_text().splitlines()]
+    totals = [ln["total_loss"] for ln in lines if "total_loss" in ln]
+    check(len(totals) == 30 and all(np.isfinite(totals)), f"trainer losses {totals}")
+    first, end = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
+    check(end < first, f"trainer loss did not fall: first five {first}, last five {end}")
+    check(ff.LAUNCHES["fourier_field_mlp_bwd"] == 30 and ff.LAUNCHES["fourier_mlp_bwd"] == 60,
+          f"trainer launches {ff.LAUNCHES}")
+    em = trainer.eval_image(0)
+    check(np.isfinite(em["psnr"]), f"eval_image {em}")
+    ckpt = trainer.save_checkpoint()
+    again = Trainer(dataclasses.replace(tcfg, load_dir=str(trainer.out_dir),
+                                        experiment_name="reloaded"), mcfg, spec.optimizers, dm)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(again.params),
+                                                 tree_leaves(trainer.params)))
+    check(again.step == 30 and same, "checkpoint did not load back the parameters")
+    emit({"phase": "trainer", "steps": 30, "rays_per_batch": dm.rays_per_batch,
+          "loss_first_five": first, "loss_last_five": end, "loss_step_1": totals[0],
+          "loss_step_30": totals[-1], "psnr_step_30": last["psnr"], "seconds": train_s,
+          "rays_per_sec_last_step": last["rays_per_sec"], "eval_image": em,
+          "checkpoint": Path(ckpt).name, "reloaded_step": again.step})
+    del trainer, again
+    torch.cuda.empty_cache()
+
+    # (4) three f32 steps on the card (kernels) against the CPU plain path:
+    # same seeds, same batches, same jitter (drawn on the CPU in both)
+    cfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
+    small = SyntheticDataManager(num_cameras=12, h=64, w=64, rays_per_batch=256)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        t = Trainer(dataclasses.replace(tcfg, experiment_name=f"f32_{where}"), cfg32,
+                    spec.optimizers, small, device=where)
+        runs[where] = [float(t.train_step(t._to_device(small.next_train(s)))["total_loss"])
+                       for s in range(3)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    # f32 on both sides; the first Adam steps move every weight by ~lr, so
+    # differences in summation order grow a little from step to step
+    emit({"phase": "train_vs_cpu", "rays": 256, "losses_card": runs["cuda"],
+          "losses_cpu": runs["cpu"], "max_rel_diff": rel, "tol": 2e-3})
+    check(rel <= 2e-3, f"card vs CPU f32 train steps: {runs}")
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _leaf_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaf_paths(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
 def main() -> int:
     import torch
 
@@ -343,7 +647,9 @@ def main() -> int:
     phase_device()
     records = phase_kernels()
     phase_slice(records)
-    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "nerf_kbs_tpu")]
+    phase_train(records)
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu")]
     check(not bad, f"imported {bad}")
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

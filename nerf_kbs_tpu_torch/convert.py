@@ -28,3 +28,14 @@ def params_from_jax(tree, device=None):
         return torch.tensor(np.asarray(node, np.float32), device=dev)
 
     return conv(tree)
+
+
+def opt_state_from_jax(group_states: dict, device=None) -> dict:
+    """Optimizer state for ``GroupOptimizer.load_state_dict`` from optax
+    Adam's per group: ``{group: {"mu": tree, "nu": tree, "count": int}}`` with
+    NumPy leaves shaped like the group's parameters."""
+    return {
+        g: {"mu": params_from_jax(st["mu"], device), "nu": params_from_jax(st["nu"], device),
+            "count": int(st["count"])}
+        for g, st in group_states.items()
+    }

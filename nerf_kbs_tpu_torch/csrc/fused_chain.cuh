@@ -1,5 +1,5 @@
-// Shared device code of the two forward fused-field kernels
-// (fourier_mlp_fwd.cu, fourier_field_fwd.cu).
+// Shared device code of the fused-field kernels (fourier_mlp_fwd.cu,
+// fourier_field_fwd.cu and, through chain_bwd.cuh, their backwards).
 //
 // Two designs share it. The bf16 operating point runs on the tensor cores
 // (mma_chain.cuh). f32 compute, the oracle mode, runs here:

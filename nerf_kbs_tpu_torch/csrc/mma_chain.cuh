@@ -162,21 +162,20 @@ __device__ __forceinline__ void nkt_mma_layer(const __nv_bfloat16* act, int lda,
 #undef NKT_MMA_CASE
 }
 
-// Device, whole block: the Fourier encoding of the tile into enc (64, kp)
-// bf16 with row stride ld: proj = B^T x in f32 from xs (3, 64) and Bs (3, H),
-// s in columns [0, H), c in [H, 2H), zeros up to kp. Lanes take frequencies
-// and warps take rows, so there is no division and consecutive lanes store
-// to consecutive columns.
-template <bool TRI>
+// Device, whole block: the Fourier encoding of the tile into enc (ROWS, kp)
+// bf16 with row stride ld: proj = B^T x in f32 from xs (3, ROWS) and Bs
+// (3, H), s in columns [0, H), c in [H, 2H), zeros up to kp. Lanes take
+// frequencies and warps take rows, so there is no division and consecutive
+// lanes store to consecutive columns.
+template <bool TRI, int ROWS = NKT_MMA_ROWS>
 __device__ __forceinline__ void nkt_mma_encode(const float* xs, const float* Bs, int H, int kp,
                                                __nv_bfloat16* enc, int ld) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int h = lane; h < H; h += 32) {
     const float b0 = Bs[h], b1 = Bs[H + h], b2 = Bs[2 * H + h];
 #pragma unroll 4
-    for (int r = warp; r < NKT_MMA_ROWS; r += NKT_MMA_WARPS) {
-      const float u =
-          fmaf(b2, xs[2 * NKT_MMA_ROWS + r], fmaf(b1, xs[NKT_MMA_ROWS + r], b0 * xs[r]));
+    for (int r = warp; r < ROWS; r += NKT_MMA_WARPS) {
+      const float u = fmaf(b2, xs[2 * ROWS + r], fmaf(b1, xs[ROWS + r], b0 * xs[r]));
       float sv, cv;
       if (TRI) {
         sv = nkt_tri_s(u);
@@ -189,6 +188,6 @@ __device__ __forceinline__ void nkt_mma_encode(const float* xs, const float* Bs,
     }
   }
   const int pad = kp - 2 * H;
-  for (int i = threadIdx.x; i < NKT_MMA_ROWS * pad; i += blockDim.x)
+  for (int i = threadIdx.x; i < ROWS * pad; i += blockDim.x)
     enc[(i / pad) * ld + 2 * H + i % pad] = __float2bfloat16_rn(0.0f);
 }

@@ -122,7 +122,7 @@ def _kernel_inputs(params, fourier_cfg, mlp_params, x_t, window):
     sincos only), and the weights with the window folded into W0:
     ([s, c] * [win, win]) @ W0 == [s, c] @ (concat(win, win)[:, None] * W0)."""
     x = contract_to_unit_cube_t(x_t).reshape(3, -1)
-    B = params["fourier_B"]
+    B = params["fourier_B"].detach()  # frozen frequencies
     if fourier_cfg.basis != "tri":
         B = B * (2.0 * math.pi)
     ws, bs = list(mlp_params["w"]), list(mlp_params["b"])
@@ -139,23 +139,25 @@ def _is_bf16(compute_dtype: str) -> bool:
     return compute_dtype == "bfloat16"
 
 
-def _fourier_fused_call(params_key_mlp: str, params, fourier_cfg, mlp_cfg, x_t, window):
+def _fourier_fused_call(params_key_mlp: str, params, fourier_cfg, mlp_cfg, x_t, window,
+                        need_dx: bool = True):
     """Fused evaluation of one Fourier MLP: x_t (3, R, S) raw positions ->
-    (out_dim, R, S)."""
+    (out_dim, R, S). ``need_dx=False`` tells the backward that positions are
+    constants."""
     R, S = x_t.shape[1], x_t.shape[2]
     x, B, ws, bs = _kernel_inputs(params, fourier_cfg, params[params_key_mlp], x_t, window)
     spec = FusedMLPSpec(
         h_freqs=B.shape[1], layer_dims=_dims(ws),
-        bf16=_is_bf16(mlp_cfg.compute_dtype), basis=fourier_cfg.basis,
+        bf16=_is_bf16(mlp_cfg.compute_dtype), basis=fourier_cfg.basis, need_dx=need_dx,
     )
     return fourier_mlp(spec, x, B, ws, bs).reshape(-1, R, S)
 
 
 def density_field_apply_t(params: dict, cfg: DensityFieldConfig, x_t: torch.Tensor,
-                          window=None) -> torch.Tensor:
+                          window=None, need_dx: bool = True) -> torch.Tensor:
     """Coordinate-major density: x_t (3, R, S) -> density (R, S)."""
     _require_fourier(cfg)
-    out = _fourier_fused_call("mlp", params, cfg.fourier, cfg.mlp, x_t, window)
+    out = _fourier_fused_call("mlp", params, cfg.fourier, cfg.mlp, x_t, window, need_dx)
     return trunc_exp(out[0] - 1.0)
 
 
@@ -167,9 +169,12 @@ def nerfacto_field_apply_t(
     camera_indices: torch.Tensor,
     train: bool = False,
     window=None,
+    need_dx: bool = True,
 ) -> dict:
     """Fully fused field: x_t (3, R, S) raw positions, directions (R, 3),
-    camera_indices (R, 1). Returns 'density' (R, S) and 'rgb_t' (3, R, S)."""
+    camera_indices (R, 1). Returns 'density' (R, S) and 'rgb_t' (3, R, S).
+    With ``train`` the appearance rows are per camera, and the table learns
+    through the kernel's dfeats summed over each ray's samples."""
     _require_fourier(cfg)
     if cfg.use_semantics:
         raise NotImplementedError("use_semantics=True: the semantics branch is not ported")
@@ -195,6 +200,7 @@ def nerfacto_field_apply_t(
         rgb_dims=_dims(rgb["w"]),
         bf16=_is_bf16(cfg.compute_dtype),
         basis=cfg.fourier.basis,
+        need_dx=need_dx,
     )
     out4 = fourier_field_mlp(spec, x, feats, B, ws, bs, list(rgb["w"]), list(rgb["b"]))
     return {

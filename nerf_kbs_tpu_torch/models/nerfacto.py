@@ -1,11 +1,12 @@
-"""nerfacto at eval on the fused Fourier path: proposal chain -> field ->
-composite.
+"""nerfacto on the fused Fourier path: proposal chain -> field -> composite,
+at eval and in training, with the training losses.
 
-Covered: the fourier field with contraction, the eval forward
-(``train=False``), the 'last_sample' / 'white' / 'black' backgrounds and
-appearance embeddings. Anything else raises NotImplementedError naming the
-setting: hash or cp fields, semantics, normals, the camera optimizer,
-disabled contraction and ``train=True`` (the training slice).
+Covered: the fourier field with contraction, the eval and the training
+forward, the 'last_sample' / 'white' / 'black' backgrounds, appearance
+embeddings, and the rgb, interlevel and distortion losses. Anything else
+raises NotImplementedError naming the setting: hash or cp fields, semantics,
+normals, the camera optimizer, disabled contraction, and depth, mask, flow or
+sky supervision.
 """
 
 from __future__ import annotations
@@ -25,15 +26,17 @@ from nerf_kbs_tpu_torch.models.fields import (
     nerfacto_field_apply_t,
     nerfacto_field_init,
 )
+from nerf_kbs_tpu_torch.ops import losses as L
 from nerf_kbs_tpu_torch.ops import rendering as R
 from nerf_kbs_tpu_torch.ops.encoding import FourierEncodingConfig, fourier_window
-from nerf_kbs_tpu_torch.ops.samplers import proposal_sample
+from nerf_kbs_tpu_torch.ops.samplers import RaySamples, anneal_schedule, proposal_sample
 
 
 @dataclasses.dataclass(frozen=True)
 class NerfactoConfig:
-    """The eval-relevant surface of the JAX package's NerfactoConfig, with
-    the same names and defaults."""
+    """The surface of the JAX package's NerfactoConfig that the fused
+    Fourier path reads at eval and in training, with the same names and
+    defaults."""
 
     num_images: int = 1
     field_type: str = "hash"
@@ -58,10 +61,26 @@ class NerfactoConfig:
     proposal_num_levels: int = 5
     proposal_max_res: Tuple[int, ...] = (128, 256)
     proposal_initial_sampler: str = "piecewise"
+    interlevel_loss_mult: float = 1.0
+    # the interlevel loss on the first `fraction` of the ray batch only (rays
+    # are i.i.d. pixel samples, so a prefix is an unbiased subsample)
+    interlevel_ray_fraction: float = 1.0
+    distortion_loss_mult: float = 0.002
+    use_proposal_weight_anneal: bool = True
     use_average_appearance_embedding: bool = True
+    proposal_weights_anneal_slope: float = 10.0
+    proposal_weights_anneal_max_num_iters: int = 1000
+    use_single_jitter: bool = True
+    # detach every PDF resample: the proposal nets learn only through the
+    # interlevel loss and no field needs a position gradient
+    stop_grad_sampling: bool = False
     predict_normals: bool = False
     disable_scene_contraction: bool = False
+    use_depth: bool = False
     use_semantic: bool = False
+    use_mask: bool = False
+    flow_loss_mult: float = 0.0
+    sky_loss_mult: float = 0.0
     appearance_embedding_dim: int = 32
     compute_dtype: str = "float32"
     camera_optimizer: str = "off"
@@ -102,10 +121,14 @@ class NerfactoConfig:
         )
 
 
-def _check_supported(cfg: NerfactoConfig, train: bool = False) -> None:
+def _check_supported(cfg: NerfactoConfig) -> None:
     unsupported = {
         "field_type": cfg.field_type != "fourier",
         "use_semantic": cfg.use_semantic,
+        "use_depth": cfg.use_depth,
+        "use_mask": cfg.use_mask,
+        "flow_loss_mult": cfg.flow_loss_mult != 0.0,
+        "sky_loss_mult": cfg.sky_loss_mult != 0.0,
         "predict_normals": cfg.predict_normals,
         "camera_optimizer": cfg.camera_optimizer != "off",
         "disable_scene_contraction": cfg.disable_scene_contraction,
@@ -113,10 +136,9 @@ def _check_supported(cfg: NerfactoConfig, train: bool = False) -> None:
     for name, bad in unsupported.items():
         if bad:
             raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported (fused fourier eval path only)"
+                f"{name}={getattr(cfg, name)!r} is not ported (fused fourier path, rgb / "
+                f"interlevel / distortion losses only)"
             )
-    if train:
-        raise NotImplementedError("train=True: the training forward is not ported yet")
 
 
 def init(cfg: NerfactoConfig, seed: int = 0, device=None) -> dict:
@@ -134,17 +156,28 @@ def init(cfg: NerfactoConfig, seed: int = 0, device=None) -> dict:
     }
 
 
+def param_groups(params: dict) -> dict:
+    """Optimizer groups: the top-level entries, 'fields' and
+    'proposal_networks'."""
+    return {k: params[k] for k in params}
+
+
 def forward(
     params: dict,
     cfg: NerfactoConfig,
     rays: RayBundle,
     step: float = 0,
     train: bool = False,
+    generator: torch.Generator | None = None,
+    jitters=None,
 ) -> dict:
-    """Render a batch of rays (R,) at eval: 'rgb' (R, 3), 'accumulation',
-    'depth' (median), 'expected_depth', 'prop_depth_i', 'directions_norm'
-    (R, 1), plus 'weights' (R, S)."""
-    _check_supported(cfg, train)
+    """Render a batch of rays (R,): 'rgb' (R, 3), 'accumulation', 'depth'
+    (median), 'expected_depth', 'prop_depth_i', 'directions_norm' (R, 1),
+    'weights' (R, S), 'ray_samples' and 'proposal_history'. With ``train``
+    the samplers jitter (from ``generator``, or from ``jitters``: one tensor
+    per sampler call, see ``proposal_sample``), the proposal weights are
+    annealed by ``step`` and appearance rows are per camera."""
+    _check_supported(cfg)
     rays = R.near_far_collider(rays, cfg.near_plane, cfg.far_plane)
     dev = rays.origins.device
 
@@ -154,23 +187,37 @@ def forward(
     else:
         progress = 1.0
     field_window = fourier_window(cfg.field.fourier, progress, dev)
+    # positions are constants when sampling is detached (there is no camera
+    # optimizer here): the backward kernels then form no dx. Round 0 samples
+    # are uniform and never depend on parameters.
+    need_dx = [False] + [not cfg.stop_grad_sampling] * (cfg.num_proposal_iterations - 1)
     density_fns = [
-        (lambda pos_t, p=params["proposal_networks"][i], c=cfg.proposal_field(i):
-         density_field_apply_t(p, c, pos_t, window=fourier_window(c.fourier, progress, dev)))
+        (lambda pos_t, p=params["proposal_networks"][i], c=cfg.proposal_field(i), nd=need_dx[i]:
+         density_field_apply_t(p, c, pos_t, window=fourier_window(c.fourier, progress, dev),
+                               need_dx=nd))
         for i in range(cfg.num_proposal_iterations)
     ]
-    # proposal weight anneal is 1 at eval
+    if cfg.use_proposal_weight_anneal and train:
+        anneal = anneal_schedule(step, cfg.proposal_weights_anneal_max_num_iters,
+                                 cfg.proposal_weights_anneal_slope)
+    else:
+        anneal = 1.0
     samples, history = proposal_sample(
         rays,
         density_fns,
         cfg.num_proposal_samples_per_ray,
         cfg.num_nerf_samples_per_ray,
         spacing=cfg.proposal_initial_sampler,
-        anneal=1.0,
+        anneal=anneal,
+        generator=generator if train else None,
+        single_jitter=cfg.use_single_jitter,
+        jitters=jitters if train else None,
+        stop_grad=cfg.stop_grad_sampling,
     )
     field_out = nerfacto_field_apply_t(
         params["fields"], cfg.field, samples.positions_t(rays), rays.directions,
-        rays.camera_indices, train=False, window=field_window,
+        rays.camera_indices, train=train, window=field_window,
+        need_dx=not cfg.stop_grad_sampling,
     )
     weights = R.render_weights(field_out["density"], samples.deltas)
 
@@ -192,8 +239,41 @@ def forward(
         "depth": R.render_median_depth(weights, samples),
         "expected_depth": R.render_expected_depth(weights, samples),
         "weights": weights,
+        "ray_samples": samples,
+        "proposal_history": history,
         "directions_norm": rays.directions_norm,
     }
     for i, (ps, pw) in enumerate(history):
         outputs[f"prop_depth_{i}"] = R.render_median_depth(pw, ps)
     return outputs
+
+
+def _first_rays(samples: RaySamples, n: int) -> RaySamples:
+    return RaySamples(**{f.name: getattr(samples, f.name)[:n]
+                         for f in dataclasses.fields(samples)})
+
+
+def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
+    """(total, metrics): the rgb MSE against batch['image'] (R, 3) and, in
+    training, the interlevel loss (on the first ``interlevel_ray_fraction``
+    of the rays) and the distortion loss, each times its multiplier and
+    skipped when that is 0. metrics holds every term and 'psnr'."""
+    _check_supported(cfg)
+    gt, pred = batch["image"], outputs["rgb"]
+    losses = {"rgb_loss": L.mse_loss(pred, gt)}
+    if train:
+        if cfg.interlevel_loss_mult > 0:
+            samples, weights = outputs["ray_samples"], outputs["weights"]
+            history = outputs["proposal_history"]
+            if cfg.interlevel_ray_fraction < 1.0:
+                n = max(1, int(gt.shape[0] * cfg.interlevel_ray_fraction))
+                samples, weights = _first_rays(samples, n), weights[:n]
+                history = [(_first_rays(ps, n), pw[:n]) for ps, pw in history]
+            losses["interlevel_loss"] = cfg.interlevel_loss_mult * L.interlevel_loss(
+                samples, weights, history)
+        if cfg.distortion_loss_mult > 0:
+            losses["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
+                outputs["ray_samples"], outputs["weights"])
+    total = sum(losses.values())
+    psnr = 10.0 * torch.log10(1.0 / torch.clamp_min(L.mse_loss(pred, gt).detach(), 1e-12))
+    return total, {"psnr": psnr, **losses}

@@ -20,7 +20,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("fourier_mlp_fwd", "fourier_field_fwd")
+SOURCES = ("fourier_mlp_fwd", "fourier_field_fwd", "fourier_mlp_bwd", "fourier_field_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,6 +36,15 @@ _SIGNATURES = {
     "fourier_field_fwd": (
         "nkt_fourier_field_fwd",
         [_P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+    ),
+    "fourier_mlp_bwd": (
+        "nkt_fourier_mlp_bwd",
+        [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+    ),
+    "fourier_field_bwd": (
+        "nkt_fourier_field_bwd",
+        [_P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+         _I, _I, _P, _P, _P],
     ),
 }
 

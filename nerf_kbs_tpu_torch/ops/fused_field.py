@@ -1,5 +1,6 @@
-"""Fused Fourier-feature MLPs: the forward wrappers of the two CUDA kernels
-and their plain PyTorch versions.
+"""Fused Fourier-feature MLPs: the wrappers of the four CUDA kernels (two
+forwards, two backwards), the autograd Functions that join them, and their
+plain PyTorch versions.
 
 Contract (the JAX package's, feature-major):
 - positions ``x_t`` (3, N) f32 and the frequency matrix ``B`` (3, H) f32;
@@ -11,8 +12,16 @@ Contract (the JAX package's, feature-major):
 - outputs are f32: ``fourier_mlp`` gives (out_dim, N), ``fourier_field_mlp``
   gives (4, N) = [sigma_raw; sigmoid rgb].
 
+The backwards save nothing but the inputs and recompute the forward. In bf16
+mode the gradient dh of a pre-activation is rounded before both products it
+enters (dW = act . dh^T and W . dh); the relu mask comes from the f32
+pre-activation; bias gradients sum the f32 dh; a width-1 layer is an f32
+multiply-reduce. B gets no gradient, and positions get one only when the
+spec says ``need_dx``.
+
 A wrapper given CUDA tensors launches its kernel (``csrc/``) or raises; given
-CPU tensors it runs the plain version. ``LAUNCHES`` counts kernel launches.
+CPU tensors it runs the plain version. ``LAUNCHES`` counts kernel launches
+(a backward's reduction pass belongs to its launch).
 """
 
 from __future__ import annotations
@@ -24,7 +33,8 @@ import torch
 from nerf_kbs_tpu_torch.ops import _kernels
 
 # kernel launches per wrapper, added to only where a kernel is launched
-LAUNCHES = {"fourier_mlp": 0, "fourier_field_mlp": 0}
+LAUNCHES = {"fourier_mlp": 0, "fourier_field_mlp": 0, "fourier_mlp_bwd": 0,
+            "fourier_field_mlp_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -40,6 +50,10 @@ class FusedMLPSpec:
     layer_dims: tuple
     bf16: bool = True
     basis: str = "sincos"  # 'sincos' (B pre-scaled by 2*pi) or 'tri' (B in cycles)
+    # position gradient: False when the caller's positions are constants
+    # (detached sampling, no camera optimizer); the backward then forms no dx
+    # and x_t gets no gradient. Must be True whenever positions need one.
+    need_dx: bool = True
 
     @property
     def num_layers(self) -> int:
@@ -58,6 +72,7 @@ class FusedFieldSpec:
     rgb_dims: tuple  # (geo + feat_dim, ..., 3)
     bf16: bool = True
     basis: str = "sincos"
+    need_dx: bool = True  # see FusedMLPSpec.need_dx
 
     @property
     def geo_dim(self) -> int:
@@ -124,6 +139,97 @@ def fourier_field_reference(x_t, feats, B, base_ws, base_bs, rgb_ws, rgb_bs,
     return torch.cat([base[0:1], rgb], dim=0)
 
 
+def _encode_grads(x_t, B, basis):
+    """f32 basis pair of proj = B^T x and its derivatives (ds/du, dc/du):
+    +-4 by the side of the triangle wave's fraction, or (c, -s)."""
+    proj = B.T @ x_t
+    if basis == "tri":
+        fs = proj + 0.75
+        fs = fs - torch.floor(fs)
+        fc = proj - torch.floor(proj)
+        four, mfour = proj.new_tensor(4.0), proj.new_tensor(-4.0)
+        return (tri_s(proj), tri_c(proj),
+                torch.where(fs > 0.5, four, mfour), torch.where(fc > 0.5, four, mfour))
+    s, c = torch.sin(proj), torch.cos(proj)
+    return s, c, c, -s
+
+
+def _chain_fwd(h, ws, bs, bf16):
+    """relu chain keeping, per layer, its f32 pre-activation and its input
+    (rounded to the compute dtype)."""
+    pre, acts = [], []
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        acts.append(h)
+        hp = _cast(w, bf16).T @ h + b[:, None]
+        pre.append(hp)
+        if i < len(ws) - 1:
+            h = _cast(torch.relu(hp), bf16)
+    return pre, acts
+
+
+def _chain_bwd(ws, pre, acts, dh, bf16, dot_first=False, need_din=True):
+    """Backprop dh (f32 gradient of the last pre-activation) through a chain.
+    dh is rounded to the compute dtype before the dW product and before the
+    W . dh product; the relu mask comes from the f32 pre-activation; bias
+    gradients sum the f32 dh; a width-1 layer is an f32 multiply-reduce with
+    the unrounded weight (unless it is layer 0 and ``dot_first``). Returns
+    (gradient of the chain's input or None, dws, dbs)."""
+    n = len(ws)
+    dws, dbs = [None] * n, [None] * n
+    d_in = None
+    for i in range(n - 1, -1, -1):
+        wide1 = ws[i].shape[1] == 1 and not (i == 0 and dot_first)
+        dhc = dh if wide1 else _cast(dh, bf16)
+        dws[i] = acts[i] @ dhc.T
+        dbs[i] = dh.sum(dim=1)
+        if i == 0 and not need_din:
+            break
+        d_prev = (ws[i] if wide1 else _cast(ws[i], bf16)) @ dhc
+        if i > 0:
+            dh = d_prev * (pre[i - 1] > 0).to(d_prev.dtype)
+        else:
+            d_in = d_prev
+    return d_in, dws, dbs
+
+
+def _dx_from_denc(d_enc, dsdu, dcdu, B):
+    H = B.shape[1]
+    return B @ (d_enc[:H] * dsdu + d_enc[H:] * dcdu)
+
+
+def fourier_mlp_backward_reference(x_t, B, ws, bs, g, basis: str = "sincos",
+                                   bf16: bool = False, need_dx: bool = True):
+    """Plain backward of ``fourier_mlp``, written out by hand with the
+    kernel's rounding points (autograd through ``_cast`` would not round dh).
+    g (out_dim, N) f32. Returns (dx (3, N) or None, dws, dbs)."""
+    s, c, dsdu, dcdu = _encode_grads(x_t, B, basis)
+    pre, acts = _chain_fwd(_cast(torch.cat([s, c], dim=0), bf16), ws, bs, bf16)
+    d_enc, dws, dbs = _chain_bwd(ws, pre, acts, g, bf16, dot_first=True, need_din=need_dx)
+    dx = _dx_from_denc(d_enc, dsdu, dcdu, B) if need_dx else None
+    return dx, dws, dbs
+
+
+def fourier_field_backward_reference(x_t, feats, B, base_ws, base_bs, rgb_ws, rgb_bs, g,
+                                     basis: str = "sincos", bf16: bool = False,
+                                     need_dx: bool = True):
+    """Plain backward of ``fourier_field_mlp``. g (4, N) f32. Returns (dx or
+    None, dfeats (F, N), d_base_ws, d_base_bs, d_rgb_ws, d_rgb_bs)."""
+    s, c, dsdu, dcdu = _encode_grads(x_t, B, basis)
+    pre_b, acts_b = _chain_fwd(_cast(torch.cat([s, c], dim=0), bf16), base_ws, base_bs, bf16)
+    base_out = pre_b[-1]
+    G = base_out.shape[0] - 1
+    rgb_in = _cast(torch.cat([base_out[1:], feats], dim=0), bf16)
+    pre_r, acts_r = _chain_fwd(rgb_in, rgb_ws, rgb_bs, bf16)
+    rgb = torch.sigmoid(pre_r[-1])
+    d_rgb_pre = g[1:] * rgb * (1.0 - rgb)
+    d_rgb_in, d_rgb_ws, d_rgb_bs = _chain_bwd(rgb_ws, pre_r, acts_r, d_rgb_pre, bf16)
+    d_base_out = torch.cat([g[0:1], d_rgb_in[:G]], dim=0)
+    d_enc, d_base_ws, d_base_bs = _chain_bwd(base_ws, pre_b, acts_b, d_base_out, bf16,
+                                             need_din=need_dx)
+    dx = _dx_from_denc(d_enc, dsdu, dcdu, B) if need_dx else None
+    return dx, d_rgb_in[G:], d_base_ws, d_base_bs, d_rgb_ws, d_rgb_bs
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -173,9 +279,34 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fourier_mlp(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
-    """Fused Fourier-feature MLP forward: x_t (3, N) f32, B (3, H) pre-scaled
-    frequency matrix, ws/bs as mlp_init gives them. Returns (out_dim, N) f32."""
+def _pad16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def _partial_stride(*chains) -> int:
+    """Floats of one block's weight-gradient partial (csrc/chain_bwd.cuh):
+    per layer a (pad16(in), pad16(out)) matrix and a pad16(out) bias."""
+    return sum(_pad16(a) * _pad16(b) + _pad16(b)
+               for dims in chains for a, b in zip(dims[:-1], dims[1:]))
+
+
+def _unpack(buf: torch.Tensor, dims):
+    """Views of the weights and biases inside a buffer laid out as ``_pack``
+    lays it out."""
+    ws, bs, off = [], [], 0
+    for a, b in zip(dims[:-1], dims[1:]):
+        ws.append(buf[off:off + a * b].view(a, b))
+        off = (off + a * b + 3) // 4 * 4
+        bs.append(buf[off:off + b])
+        off = (off + b + 3) // 4 * 4
+    return ws, bs
+
+
+def _sm_count(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _mlp_forward(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
     if _on_cpu(x_t, B, *ws, *bs):
         return fourier_mlp_reference(x_t, B, ws, bs, spec.basis, spec.bf16)
     n = x_t.shape[1]
@@ -198,11 +329,81 @@ def fourier_mlp(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
     return out
 
 
-def fourier_field_mlp(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs,
-                      rgb_ws, rgb_bs) -> torch.Tensor:
-    """Fully fused nerfacto field forward: x_t (3, N) f32 contracted
-    positions, feats (F, N) f32 per-point conditioning (SH rows, appearance
-    rows). Returns (4, N) f32 = [sigma_raw; sigmoid rgb]."""
+def _mlp_backward(spec: FusedMLPSpec, x_t, B, ws, bs, g):
+    """(dx or None, dws, dbs): the backward kernel for CUDA tensors, the
+    plain backward for CPU tensors."""
+    if _on_cpu(x_t, B, *ws, *bs, g):
+        return fourier_mlp_backward_reference(x_t, B, ws, bs, g, spec.basis, spec.bf16,
+                                              spec.need_dx)
+    n = x_t.shape[1]
+    _check_n(n)
+    H = spec.h_freqs
+    _check("x_t", x_t, (3, n))
+    _check("B", B, (3, H))
+    _check("g", g, (spec.out_dim, n))
+    x, Bc, gc = x_t.contiguous(), B.contiguous(), g.contiguous()
+    # unrounded weights: the kernel rounds them where the forward does and
+    # reads a width-1 last layer's weight in f32
+    wb = _pack(ws, bs, spec.layer_dims, False)
+    dwb = torch.empty_like(wb)
+    dx = torch.empty(3, n, device=x.device, dtype=torch.float32) if spec.need_dx else None
+    rows, stride = 4 * _sm_count(x), _partial_stride(spec.layer_dims)
+    partials = torch.empty(rows * stride, device=x.device, dtype=torch.float32)
+    _kernels.call(
+        "fourier_mlp_bwd", x.data_ptr(), n, Bc.data_ptr(), H, wb.data_ptr(), wb.numel(),
+        _kernels.int_array(spec.layer_dims), spec.num_layers,
+        int(spec.basis == "tri"), int(spec.bf16), int(spec.need_dx), gc.data_ptr(),
+        dx.data_ptr() if spec.need_dx else None, partials.data_ptr(), rows, stride,
+        dwb.data_ptr(), _stream(x),
+    )
+    LAUNCHES["fourier_mlp_bwd"] += 1
+    dws, dbs = _unpack(dwb, spec.layer_dims)
+    return dx, dws, dbs
+
+
+class FourierMLPFunction(torch.autograd.Function):
+    """``fourier_mlp`` with its hand-written backward. Only the inputs are
+    saved: the backward recomputes the forward. B gets no gradient; x_t gets
+    one only when ``spec.need_dx``."""
+
+    @staticmethod
+    def forward(ctx, spec, x_t, B, *wb):
+        n = len(wb) // 2
+        ws, bs = list(wb[:n]), list(wb[n:])
+        ctx.spec = spec
+        ctx.save_for_backward(x_t, B, *wb)
+        return _mlp_forward(spec, x_t, B, ws, bs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_t, B, *wb = ctx.saved_tensors
+        n = len(wb) // 2
+        dx, dws, dbs = _mlp_backward(ctx.spec, x_t, B, list(wb[:n]), list(wb[n:]), g)
+        return (None, dx, None, *dws, *dbs)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def fourier_mlp(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
+    """Fused Fourier-feature MLP: x_t (3, N) f32, B (3, H) pre-scaled
+    frequency matrix (frozen: no gradient), ws/bs as mlp_init gives them.
+    Returns (out_dim, N) f32. Differentiable in ws, bs and, when
+    ``spec.need_dx``, x_t."""
+    if _wants_grad(x_t, *ws, *bs):
+        return FourierMLPFunction.apply(spec, x_t, B, *ws, *bs)
+    return _mlp_forward(spec, x_t, B, ws, bs)
+
+
+def _check_field_spec(spec: FusedFieldSpec) -> None:
+    H, F = spec.h_freqs, spec.feat_dim
+    if spec.base_dims[0] != 2 * H or spec.rgb_dims[0] != spec.geo_dim + F or spec.rgb_dims[-1] != 3:
+        raise ValueError(f"inconsistent field spec {spec}")
+
+
+def _field_forward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_ws,
+                   rgb_bs) -> torch.Tensor:
     if _on_cpu(x_t, feats, B, *base_ws, *base_bs, *rgb_ws, *rgb_bs):
         return fourier_field_reference(x_t, feats, B, base_ws, base_bs, rgb_ws, rgb_bs,
                                        spec.basis, spec.bf16)
@@ -212,8 +413,7 @@ def fourier_field_mlp(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs,
     _check("x_t", x_t, (3, n))
     _check("feats", feats, (F, n))
     _check("B", B, (3, H))
-    if spec.base_dims[0] != 2 * H or spec.rgb_dims[0] != spec.geo_dim + F or spec.rgb_dims[-1] != 3:
-        raise ValueError(f"inconsistent field spec {spec}")
+    _check_field_spec(spec)
     x = x_t.contiguous()
     fe = feats.contiguous()
     Bc = B.contiguous()
@@ -230,3 +430,77 @@ def fourier_field_mlp(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs,
     )
     LAUNCHES["fourier_field_mlp"] += 1
     return out
+
+
+def _field_backward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_ws, rgb_bs, g):
+    """(dx or None, dfeats, d_base_ws, d_base_bs, d_rgb_ws, d_rgb_bs): the
+    backward kernel for CUDA tensors, the plain backward for CPU tensors."""
+    if _on_cpu(x_t, feats, B, *base_ws, *base_bs, *rgb_ws, *rgb_bs, g):
+        return fourier_field_backward_reference(x_t, feats, B, base_ws, base_bs, rgb_ws, rgb_bs,
+                                                g, spec.basis, spec.bf16, spec.need_dx)
+    n = x_t.shape[1]
+    _check_n(n)
+    H, F = spec.h_freqs, spec.feat_dim
+    _check("x_t", x_t, (3, n))
+    _check("feats", feats, (F, n))
+    _check("B", B, (3, H))
+    _check("g", g, (4, n))
+    _check_field_spec(spec)
+    x, fe, Bc, gc = x_t.contiguous(), feats.contiguous(), B.contiguous(), g.contiguous()
+    base_wb = _pack(base_ws, base_bs, spec.base_dims, False)
+    rgb_wb = _pack(rgb_ws, rgb_bs, spec.rgb_dims, False)
+    d_base, d_rgb = torch.empty_like(base_wb), torch.empty_like(rgb_wb)
+    dx = torch.empty(3, n, device=x.device, dtype=torch.float32) if spec.need_dx else None
+    dfeats = torch.empty(F, n, device=x.device, dtype=torch.float32)
+    rows, stride = _sm_count(x), _partial_stride(spec.base_dims, spec.rgb_dims)
+    partials = torch.empty(rows * stride, device=x.device, dtype=torch.float32)
+    _kernels.call(
+        "fourier_field_bwd", x.data_ptr(), fe.data_ptr(), n, F, Bc.data_ptr(), H,
+        base_wb.data_ptr(), base_wb.numel(), _kernels.int_array(spec.base_dims),
+        len(spec.base_dims) - 1,
+        rgb_wb.data_ptr(), rgb_wb.numel(), _kernels.int_array(spec.rgb_dims),
+        len(spec.rgb_dims) - 1,
+        int(spec.basis == "tri"), int(spec.bf16), int(spec.need_dx), gc.data_ptr(),
+        dx.data_ptr() if spec.need_dx else None, dfeats.data_ptr(), partials.data_ptr(), rows,
+        stride, d_base.data_ptr(), d_rgb.data_ptr(), _stream(x),
+    )
+    LAUNCHES["fourier_field_mlp_bwd"] += 1
+    d_base_ws, d_base_bs = _unpack(d_base, spec.base_dims)
+    d_rgb_ws, d_rgb_bs = _unpack(d_rgb, spec.rgb_dims)
+    return dx, dfeats, d_base_ws, d_base_bs, d_rgb_ws, d_rgb_bs
+
+
+class FourierFieldFunction(torch.autograd.Function):
+    """``fourier_field_mlp`` with its hand-written backward; saves only its
+    inputs. B gets no gradient; x_t gets one only when ``spec.need_dx``."""
+
+    @staticmethod
+    def forward(ctx, spec, x_t, feats, B, *wb):
+        nb, nr = len(spec.base_dims) - 1, len(spec.rgb_dims) - 1
+        ctx.spec = spec
+        ctx.save_for_backward(x_t, feats, B, *wb)
+        return _field_forward(spec, x_t, feats, B, list(wb[:nb]), list(wb[nb:2 * nb]),
+                              list(wb[2 * nb:2 * nb + nr]), list(wb[2 * nb + nr:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        spec = ctx.spec
+        x_t, feats, B, *wb = ctx.saved_tensors
+        nb, nr = len(spec.base_dims) - 1, len(spec.rgb_dims) - 1
+        dx, dfeats, dbw, dbb, drw, drb = _field_backward(
+            spec, x_t, feats, B, list(wb[:nb]), list(wb[nb:2 * nb]),
+            list(wb[2 * nb:2 * nb + nr]), list(wb[2 * nb + nr:]), g)
+        return (None, dx, dfeats if ctx.needs_input_grad[2] else None, None,
+                *dbw, *dbb, *drw, *drb)
+
+
+def fourier_field_mlp(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs,
+                      rgb_ws, rgb_bs) -> torch.Tensor:
+    """Fully fused nerfacto field: x_t (3, N) f32 contracted positions, feats
+    (F, N) f32 per-point conditioning (SH rows, appearance rows). Returns
+    (4, N) f32 = [sigma_raw; sigmoid rgb]. Differentiable in the weights,
+    feats and, when ``spec.need_dx``, x_t; B gets no gradient."""
+    if _wants_grad(x_t, feats, *base_ws, *base_bs, *rgb_ws, *rgb_bs):
+        return FourierFieldFunction.apply(spec, x_t, feats, B, *base_ws, *base_bs, *rgb_ws,
+                                          *rgb_bs)
+    return _field_forward(spec, x_t, feats, B, base_ws, base_bs, rgb_ws, rgb_bs)

@@ -1,0 +1,87 @@
+"""Training losses of the nerfacto slice: rgb MSE, the interlevel (proposal)
+loss and the distortion loss, all in the samplers' spacing domain."""
+
+from __future__ import annotations
+
+import torch
+
+
+def mse_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - gt) ** 2)
+
+
+class _OuterCwBounds(torch.autograd.Function):
+    """(cw_before, cw_after), each (R, Sq):
+    cw_before = max(0, cw at the rightmost env edge <= t0)   (0 when none)
+    cw_after  = min(cw at the first env edge > t1, cw[:, -1]) (the total when none)
+
+    t_env rows are sorted, so both selections are index searches. Only cw
+    carries gradient: the cotangents go to the selected env indices, and to
+    cw[:, -1] where no env edge lies past t1; t_env, t0 and t1 only select."""
+
+    @staticmethod
+    def forward(ctx, t_env, cw, t0, t1):
+        n_env = t_env.shape[1]
+        # number of env edges <= t0; the selected edge is the one before
+        i_lo = torch.searchsorted(t_env, t0.contiguous(), right=True)
+        # first env edge > t1
+        i_hi = torch.searchsorted(t_env, t1.contiguous(), right=True)
+        has_lo, has_hi = i_lo > 0, i_hi < n_env
+        lo = torch.gather(cw, 1, torch.clamp_min(i_lo - 1, 0))
+        lo = torch.where(has_lo, lo, torch.zeros_like(lo))
+        hi = torch.gather(cw, 1, torch.clamp_max(i_hi, n_env - 1))
+        ctx.save_for_backward(i_lo, i_hi)
+        ctx.n_env = n_env
+        return torch.clamp_min(lo, 0.0), torch.minimum(hi, cw[:, -1:])
+
+    @staticmethod
+    def backward(ctx, g_lo, g_hi):
+        i_lo, i_hi = ctx.saved_tensors
+        n_env = ctx.n_env
+        d_cw = g_lo.new_zeros(g_lo.shape[0], n_env)
+        d_cw.scatter_add_(1, torch.clamp_min(i_lo - 1, 0), g_lo * (i_lo > 0).to(g_lo.dtype))
+        # no edge past t1: the clamp selected cw[:, -1], index n_env - 1
+        d_cw.scatter_add_(1, torch.clamp_max(i_hi, n_env - 1), g_hi)
+        return None, d_cw, None, None
+
+
+def _outer_cw_bounds(t_env, cw, t0, t1):
+    return _OuterCwBounds.apply(t_env, cw, t0, t1)
+
+
+def _outer_weights(t_query: torch.Tensor, t_env: torch.Tensor, w_env: torch.Tensor):
+    """For each query interval [t_query_i, t_query_{i+1}), the total weight
+    of the env bins that overlap it (the inclusive outer measure). t_query
+    (R, Sq + 1) edges, t_env (R, Se + 1) edges, w_env (R, Se)."""
+    cw = torch.cat([torch.zeros_like(w_env[..., :1]), torch.cumsum(w_env, dim=-1)], dim=-1)
+    before, after = _outer_cw_bounds(t_env, cw, t_query[..., :-1], t_query[..., 1:])
+    return after - before
+
+
+def _edges(samples) -> torch.Tensor:
+    return torch.cat([samples.spacing_starts, samples.spacing_ends[..., -1:]], dim=-1)
+
+
+def interlevel_loss(final_samples, final_weights: torch.Tensor, history) -> torch.Tensor:
+    """Proposal loss E[max(0, w - w_outer)^2 / (w + eps)], summed over the
+    rounds: each proposal histogram must bound the final weights, which are
+    detached, from above."""
+    t_final = _edges(final_samples).detach()
+    w_final = final_weights.detach()
+    loss = 0.0
+    for prop_samples, prop_weights in history:
+        w_outer = _outer_weights(t_final, _edges(prop_samples).detach(), prop_weights)
+        loss = loss + torch.mean(torch.clamp_min(w_final - w_outer, 0.0) ** 2 / (w_final + 1e-7))
+    return loss
+
+
+def distortion_loss(samples, weights: torch.Tensor) -> torch.Tensor:
+    """mip-NeRF 360 distortion regulariser in the spacing domain, in its O(S)
+    form with exclusive prefix sums."""
+    m = 0.5 * (samples.spacing_starts + samples.spacing_ends)
+    interval = samples.spacing_ends - samples.spacing_starts
+    loss_uni = torch.sum(weights**2 * interval, dim=-1) / 3.0
+    w_cum = torch.cumsum(weights, dim=-1) - weights
+    wm_cum = torch.cumsum(weights * m, dim=-1) - weights * m
+    loss_bi = 2.0 * torch.sum(weights * (m * w_cum - wm_cum), dim=-1)
+    return torch.mean(loss_uni + loss_bi)

@@ -42,7 +42,21 @@ def mlp_init(config: MLPConfig, generator: torch.Generator, device) -> dict:
     return params
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(torch.clamp_max(x, 11.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """Forward of the nerfacto density activation: exp with its input clamped
-    at 11. The backward (clamp at 15) comes with training."""
-    return torch.exp(torch.clamp_max(x, 11.0))
+    """The nerfacto density activation: exp with its input clamped at 11 in
+    the forward (density ~6e4 is opaque at any delta that matters, and a bare
+    exp can overflow early in training); the backward is g * exp(clip(x, -15,
+    15)), the usual trunc_exp gradient."""
+    return _TruncExp.apply(x)

@@ -1,5 +1,10 @@
-"""Ray samplers at eval: the initial stratified sampler, inverse-CDF
-resampling and the proposal chain (forward only).
+"""Ray samplers: the initial stratified sampler, inverse-CDF resampling and
+the proposal chain, at eval (evenly spaced, no jitter) and in training
+(jittered, optionally detached).
+
+Jitter comes from an explicit ``torch.Generator`` (drawn on the generator's
+device and moved) or is handed in as tensors, so that two implementations can
+be fed the same numbers.
 
 Sampling works in a normalised spacing domain s in [0, 1] with a fixed warp
 to euclidean distance t ('uniform', 'lindisp', or 'piecewise': linear over
@@ -67,19 +72,39 @@ def _samples(rays, s_edges: torch.Tensor, spacing: str) -> RaySamples:
     )
 
 
-def uniform_sampler(rays, num_samples: int, spacing: str = "piecewise") -> RaySamples:
-    """num_samples intervals with edges evenly spaced in the spacing domain
-    (the eval sampler: no jitter). Rays need nears/fars from a collider."""
+def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+
+
+def uniform_sampler(rays, num_samples: int, spacing: str = "piecewise", generator=None,
+                    single_jitter: bool = True, jitter=None) -> RaySamples:
+    """num_samples intervals with edges evenly spaced in the spacing domain.
+    With a ``generator`` or a ``jitter`` tensor in [0, 1) ((R, 1) under
+    ``single_jitter``, else (R, num_samples + 1)) each edge moves within half
+    a bin on either side, so edges stay sorted; with neither, no jitter (the
+    eval sampler). Rays need nears/fars from a collider."""
     R = rays.origins.shape[0]
-    edges = torch.linspace(0.0, 1.0, num_samples + 1, device=rays.origins.device)
-    return _samples(rays, edges.expand(R, num_samples + 1), spacing)
+    dev = rays.origins.device
+    edges = torch.linspace(0.0, 1.0, num_samples + 1, device=dev).expand(R, num_samples + 1)
+    if jitter is None and generator is not None:
+        jitter = _uniform((R, 1) if single_jitter else (R, num_samples + 1), generator, dev)
+    if jitter is not None:
+        centers = (edges[..., :-1] + edges[..., 1:]) / 2.0
+        lower = torch.cat([edges[..., :1], centers], dim=-1)
+        upper = torch.cat([centers, edges[..., -1:]], dim=-1)
+        edges = lower + (upper - lower) * jitter
+    return _samples(rays, edges, spacing)
 
 
 def _bracket_values(cdf: torch.Tensor, edges: torch.Tensor, u: torch.Tensor):
     """With b(q) = max{s : cdf_s <= u_q}, returns (cdf_b, cdf_{b+1}, edge_b,
-    edge_{b+1}), each (R, Q). Needs 0 = cdf_0 <= u < cdf_last = 1 and sorted
-    rows, which pdf_sampler guarantees."""
-    b = torch.searchsorted(cdf, u, right=True) - 1
+    edge_{b+1}), each (R, Q). Needs 0 = cdf_0 <= u <= cdf_last = 1 and sorted
+    rows, which pdf_sampler guarantees. The index search carries no
+    gradient; the gathers scatter the cotangents back to cdf and edges at b
+    and b + 1."""
+    # a jittered quantile can round up to 1.0 = cdf_last: it then belongs to
+    # the last bin, as the masked reductions of the JAX package place it
+    b = torch.clamp_max(torch.searchsorted(cdf.detach(), u, right=True) - 1, cdf.shape[1] - 2)
     b1 = b + 1
     return (
         torch.gather(cdf, 1, b), torch.gather(cdf, 1, b1),
@@ -94,20 +119,40 @@ def pdf_sampler(
     num_samples: int,
     spacing: str,
     histogram_padding: float = 0.01,
+    generator=None,
+    single_jitter: bool = True,
+    rand=None,
+    stop_grad: bool = False,
 ) -> RaySamples:
     """Inverse-CDF resampling of ``num_samples`` intervals from per-bin
-    ``weights`` (R, S_old), in the spacing domain, at the eval's evenly
-    spaced quantiles."""
+    ``weights`` (R, S_old), in the spacing domain: at evenly spaced quantiles
+    (eval), or offset by ``rand`` / a draw from ``generator`` in [0, 1)
+    ((R, 1) under ``single_jitter``, else (R, num_samples + 1)), scaled to one
+    bin. ``stop_grad`` detaches weights and samples first: the proposal nets
+    then learn only through the interlevel loss and every later position is
+    a constant."""
+    if stop_grad:
+        weights = weights.detach()
+        ray_samples = RaySamples(**{f.name: getattr(ray_samples, f.name).detach()
+                                    for f in dataclasses.fields(ray_samples)})
     R = weights.shape[0]
     dev = weights.device
     weights = weights + histogram_padding  # per bin
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
-    cdf = torch.cat([torch.zeros(R, 1, device=dev), torch.cumsum(pdf, dim=-1)], dim=-1)
-    cdf = torch.clamp_max(cdf, 1.0)
-    cdf[:, -1] = 1.0
+    cdf = torch.clamp_max(torch.cumsum(pdf, dim=-1), 1.0)
+    # first entry 0, last entry exactly 1: constants, so the last bin's
+    # cumulative sum gets no gradient
+    cdf = torch.cat([torch.zeros(R, 1, device=dev), cdf[:, :-1], torch.ones(R, 1, device=dev)],
+                    dim=-1)
 
     num_bins = num_samples + 1
-    u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, device=dev) + 0.5 / num_bins
+    u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, device=dev)
+    if rand is None and generator is not None:
+        rand = _uniform((R, 1) if single_jitter else (R, num_bins), generator, dev)
+    if rand is not None:
+        u = u[None, :] + rand / num_bins
+    else:
+        u = u + 0.5 / num_bins
     u = u.expand(R, num_bins).contiguous()
     edges = torch.cat([ray_samples.spacing_starts, ray_samples.spacing_ends[..., -1:]], -1)
     cdf_lo, cdf_hi, edge_lo, edge_hi = _bracket_values(cdf, edges, u)
@@ -125,6 +170,13 @@ def anneal_weights(weights: torch.Tensor, anneal: float) -> torch.Tensor:
     return torch.pow(torch.clamp_min(weights, 1e-10), anneal)
 
 
+def anneal_schedule(step: float, max_iters: int = 1000, slope: float = 10.0) -> float:
+    """Proposal-weight anneal exponent: ramps 0 -> 1 over ``max_iters`` steps
+    with bias ``slope``."""
+    train_frac = min(max(float(step) / max_iters, 0.0), 1.0)
+    return (slope * train_frac) / ((slope - 1.0) * train_frac + 1.0)
+
+
 def proposal_sample(
     rays,
     density_fns: list[Callable[[torch.Tensor], torch.Tensor]],
@@ -132,17 +184,32 @@ def proposal_sample(
     num_nerf_samples: int,
     spacing: str = "piecewise",
     anneal: float = 1.0,
+    generator=None,
+    single_jitter: bool = True,
+    jitters=None,
+    stop_grad: bool = False,
 ):
-    """The proposal chain at eval: uniform samples -> per round, density
-    from ``density_fns[i]`` on (3, R, S) positions -> annealed PDF resample.
-    Returns (final RaySamples, [(RaySamples, weights) per round])."""
-    samples = uniform_sampler(rays, num_proposal_samples[0], spacing=spacing)
-    history = []
+    """The proposal chain: uniform samples -> per round, density from
+    ``density_fns[i]`` on (3, R, S) positions -> annealed PDF resample.
+    Jitter (training) comes from ``generator`` or from ``jitters``, a list of
+    rounds + 1 tensors in [0, 1): the first for the uniform sampler, then one
+    per resample. ``stop_grad`` detaches every resample; the history keeps
+    the weights from before the detach, so the interlevel loss still trains
+    the proposal networks. Returns (final RaySamples, [(RaySamples, weights)
+    per round])."""
     rounds = len(num_proposal_samples)
+    if jitters is None:
+        jitters = [None] * (rounds + 1)
+    samples = uniform_sampler(rays, num_proposal_samples[0], spacing=spacing,
+                              generator=generator, single_jitter=single_jitter,
+                              jitter=jitters[0])
+    history = []
     for i in range(rounds):
         density = density_fns[i](samples.positions_t(rays))
         weights = render_weights(density, samples.deltas)
         history.append((samples, weights))
         n_next = num_proposal_samples[i + 1] if i + 1 < rounds else num_nerf_samples
-        samples = pdf_sampler(rays, samples, anneal_weights(weights, anneal), n_next, spacing)
+        samples = pdf_sampler(rays, samples, anneal_weights(weights, anneal), n_next, spacing,
+                              generator=generator, single_jitter=single_jitter,
+                              rand=jitters[i + 1], stop_grad=stop_grad)
     return samples, history

@@ -178,6 +178,7 @@ def test_port_imports_no_jax():
         "import sys, nerf_kbs_tpu_torch\n"
         "import nerf_kbs_tpu_torch.engine.viewer, nerf_kbs_tpu_torch.convert\n"
         "import nerf_kbs_tpu_torch.methods, nerf_kbs_tpu_torch.ops._kernels\n"
+        "import nerf_kbs_tpu_torch.engine.trainer, nerf_kbs_tpu_torch.ops.losses\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'nerf_kbs_tpu')]\n"
         "assert not bad, bad\n"
@@ -206,6 +207,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     (dict(predict_normals=True), "predict_normals"),
     (dict(camera_optimizer="SO3xR3"), "camera_optimizer"),
     (dict(disable_scene_contraction=True), "disable_scene_contraction"),
+    (dict(use_depth=True), "use_depth"),
+    (dict(use_mask=True), "use_mask"),
+    (dict(flow_loss_mult=0.001), "flow_loss_mult"),
+    (dict(sky_loss_mult=0.1), "sky_loss_mult"),
 ])
 def test_unported_configs_raise(change, name):
     cfg = dataclasses.replace(tnerf.NerfactoConfig(**SMALL), **change)
@@ -214,9 +219,17 @@ def test_unported_configs_raise(change, name):
 
 
 def test_train_forward_and_bad_background_raise():
+    """The training forward runs; what training still lacks raises by name,
+    in the forward and in the loss."""
     r = _small_renderer()
     _, tr = _rays(4)
-    with pytest.raises(NotImplementedError, match="train=True"):
-        tnerf.forward(r.params, r.config, tr, train=True)
+    out = tnerf.forward(r.params, r.config, tr, train=True,
+                        generator=torch.Generator().manual_seed(0))
+    assert out["rgb"].shape == (4, 3) and len(out["proposal_history"]) == 2
+    depth_cfg = dataclasses.replace(r.config, use_depth=True)
+    with pytest.raises(NotImplementedError, match="use_depth"):
+        tnerf.forward(r.params, depth_cfg, tr, train=True)
+    with pytest.raises(NotImplementedError, match="use_depth"):
+        tnerf.loss(depth_cfg, out, {"image": torch.zeros(4, 3)})
     with pytest.raises(ValueError, match="background_color"):
         tnerf.forward(r.params, dataclasses.replace(r.config, background_color="pink"), tr)
