@@ -4,17 +4,24 @@
     python3 chip_smoke.py
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
-1. device: the card (nvidia-smi name and power limit), then the four kernels
-   are built from csrc/ into build/ (one nvcc per source, started together);
+1. device: the card (nvidia-smi name and power limit), then the four kernel
+   sources (two proposal-field kernels on WMMA; two field kernels, each with
+   a wgmma body for the flagship widths, a WMMA body for other widths and an
+   f32 body) are built from csrc/ into build/ (one nvcc per source, started
+   together);
 2. kernel parity: each kernel against its plain PyTorch version on the card,
    both bases and both compute dtypes, at the main paths' shapes and a
-   ragged N; the two backward kernels also with and without the position
-   gradient, every output compared, and a repeat of the launch must give the
-   same bits; times of each kernel and its plain version at the main paths'
-   operating point (tri basis, bf16, no position gradient);
+   ragged N, and the two field kernels' wgmma bodies also at N below and
+   around one tile and one block's tiles; the two backward kernels also with
+   and without the position gradient, every output compared, and a repeat of
+   the launch must give the same bits; times of each kernel and its plain
+   version at the main paths' operating point (tri basis, bf16, no position
+   gradient), for the two field kernels the wgmma body and the WMMA body in
+   turns, and the backward's two passes apart;
 3. the serving slice: nerfacto-tpu at full width in bf16 with seeded weights renders
    a 376x1241 camera through Renderer.render_camera in 1<<15-ray chunks; the
-   launch counts must show 2 proposal-field and 1 field launches per chunk;
+   launch counts must show 2 proposal-field and 1 field launches per chunk,
+   the field's through its wgmma body;
    the frame time is the median of 5 more renders; a profiler pass gives the
    device time by kernel; a small camera rendered in f32 on the card must
    match the CPU plain path; the viewer answers /status, /render and /orbit
@@ -22,7 +29,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 4. the training slice: 22 steps of the bench's train step (full-width bf16
    nerfacto-tpu, 16,384 random pixels of 32 cameras of 376x1241 and random
    colours per step, forward -> loss -> backward -> per-group Adam) with the
-   launch counts 2 / 1 / 2 / 1 per step and the median step time of the last
+   launch counts 2 / 1 / 2 / 1 per step (the field's two through their wgmma
+   bodies) and the median step time of the last
    20; Trainer.train(30) at full width on the synthetic sphere scene (loss
    finite and falling, metrics.jsonl, eval_image, checkpoint save and load);
    a profiler pass over one step; 3 steps in f32 on the card against the
@@ -71,8 +79,6 @@ BWD_TOLERANCE = {("tri", False): 2e-3, ("sincos", False): 5e-3,
                  ("tri", True): 5e-2, ("sincos", True): 5e-2}
 SUM_TOLERANCE = 2e-2
 PER_POINT_OUTLIERS = 1e-4
-BWD_TOLERANCE = {("tri", False): 2e-3, ("sincos", False): 5e-3,
-                 ("tri", True): 5e-2, ("sincos", True): 5e-2}
 
 
 def emit(obj) -> None:
@@ -209,6 +215,17 @@ def phase_kernels():
                 lambda: flat(ff.fourier_field_backward_reference(x, fe, B, bws, bbs, rws, rbs, g,
                                                                  basis, bf16, need_dx)))
 
+    def wmma_body(kern):
+        """The same call sent through the WMMA body (the flagship widths take
+        the wgmma body otherwise)."""
+        def call():
+            ff.FORCE_WMMA = True
+            try:
+                return kern()
+            finally:
+                ff.FORCE_WMMA = False
+        return call
+
     def rel_err(got, want):
         return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
 
@@ -282,6 +299,45 @@ def phase_kernels():
         del x, fe
         torch.cuda.empty_cache()
 
+    # the wgmma bodies below and around one tile and one block's tiles (a
+    # block runs several tiles at once). The forward is held to its plain
+    # version as above. The backward's weight gradients are sums over few
+    # points here, so a single relu-mask flip (see BWD_TOLERANCE's note) moves
+    # one by percents: the last rgb layer's gradients, which pass no mask, are
+    # held to the plain version, and every output to the WMMA body, which
+    # rounds and masks at the same places and differs in summation order only
+    for n in (1, 63, 64, 65, 64 * 3 + 1):
+        x, fe = positions(n), feats(n)
+        g = torch.randn(4, n, generator=gen).to(dev)
+        for basis in ("tri", "sincos"):
+            before = dict(ff.LAUNCHES)
+            kern, plain = b_call(basis, True, x, fe)
+            err = float((kern() - plain()).abs().max())
+            check(err <= TOLERANCE[(basis, True)], f"fourier_field_fwd n={n} {basis}: err {err}")
+            errs = {}
+            for need_dx in (False, True):
+                kern, plain = d_call(basis, True, need_dx, x, fe, g)
+                got, want, again, old = kern(), plain(), kern(), wmma_body(kern)()
+                check(all(bool(torch.isfinite(t).all()) for t in got),
+                      f"fourier_field_bwd n={n}: non-finite output")
+                errs[need_dx] = {"last_layer_vs_plain": max(rel_err(got[-4], want[-4]),
+                                                            rel_err(got[-1], want[-1])),
+                                 "all_vs_plain": max(rel_err(a, b) for a, b in zip(got, want)),
+                                 "all_vs_wmma_body": max(rel_err(a, b)
+                                                         for a, b in zip(got, old))}
+                check(errs[need_dx]["last_layer_vs_plain"] <= SUM_TOLERANCE
+                      and errs[need_dx]["all_vs_wmma_body"] <= SUM_TOLERANCE,
+                      f"fourier_field_bwd n={n} {basis} need_dx={need_dx}: {errs[need_dx]}")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"fourier_field_bwd n={n} {basis}: a repeat gave other bits")
+            moved = {k: ff.LAUNCHES[k] - before[k] for k in ff.LAUNCHES if ff.LAUNCHES[k] != before[k]}
+            check(moved == {"fourier_field_mlp_wgmma": 1, "fourier_field_mlp_bwd_wgmma": 4,
+                            "fourier_field_mlp_bwd": 2}, f"edge launches {moved}")
+            emit({"phase": "parity_edge", "n": n, "basis": basis, "dtype": "bf16",
+                  "fwd_max_abs_err": err, "tol": TOLERANCE[(basis, True)],
+                  "bwd_rel_err": {"no_dx": errs[False], "dx": errs[True]},
+                  "sum_tol": SUM_TOLERANCE, "repeat_bit_identical": True})
+
     # times at the main path's operating point (tri, bf16) and shapes; the
     # inputs stay warm in L2 between launches (x of proposal round 0 is 38 MB)
     records = []
@@ -297,15 +353,28 @@ def phase_kernels():
         x = positions(n)
         kern, plain = (a_call("tri", True, x) if name == "fourier_mlp_fwd"
                        else b_call("tri", True, x, feats(n)))
-        err = float((kern() - plain()).abs().max())
-        ms = time_ms(kern, 20)
+        want = plain()
+        err = float((kern() - want).abs().max())
+        extra = {}
+        if name == "fourier_field_fwd":
+            # the wgmma body (the main path's) and the WMMA body in turns
+            old = wmma_body(kern)
+            err_old = float((old() - want).abs().max())
+            check(err_old <= TOLERANCE[("tri", True)], f"{name} WMMA body: err {err_old}")
+            turns = [time_ms(old, 5), time_ms(kern, 20), time_ms(kern, 20), time_ms(old, 5)]
+            ms = (turns[1] + turns[2]) / 2
+            extra = {"body": "wgmma", "wmma_body_ms": (turns[0] + turns[3]) / 2,
+                     "wmma_body_max_abs_err": err_old, "turns_ms": turns}
+        else:
+            ms = time_ms(kern, 20)
+        del want
         plain_ms = time_ms(plain, 3)
         bms, by = bound(n * per_point_bytes + 4 * w_floats, 2.0 * n * mac, bf16=True)
         rec = {"name": name, "route": "cuda", "source": f"nerf_kbs_tpu_torch/csrc/{src}",
                "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                "bound_by": by, "library_ms": None, "n_points": n, "basis": "tri",
-               "dtype": "bf16"}
+               "dtype": "bf16", **extra}
         emit({"phase": "timing", **rec})
         records.append(rec)
         del x
@@ -337,8 +406,27 @@ def phase_kernels():
         err = max(rel_err(a, b) for a, b in zip(got, want) if a.shape[-1] != n)
         out = max([outliers(a, b, BWD_TOLERANCE[("tri", True)])
                    for a, b in zip(got, want) if a.shape[-1] == n], default=None)
+        extra = {}
+        if is_c:
+            ms = time_ms(kern, 10)
+        else:
+            old = wmma_body(kern)
+            err_old = max(rel_err(a, b) for a, b in zip(old(), want) if a.shape[-1] != n)
+            check(err_old <= SUM_TOLERANCE, f"{name} WMMA body: rel err {err_old}")
+            turns = [time_ms(old, 3), time_ms(kern, 10), time_ms(kern, 10), time_ms(old, 3)]
+            ms = (turns[1] + turns[2]) / 2
+            # one launch under the profiler gives its passes apart
+            by_name = device_ms_by_kernel(kern)
+            extra = {"body": "wgmma", "wmma_body_ms": (turns[0] + turns[3]) / 2,
+                     "wmma_body_max_rel_err": err_old, "turns_ms": turns,
+                     "per_point_pass_ms": sum(v for k, v in by_name.items()
+                                              if "fourier_field_bwd_wgmma_kernel" in k),
+                     "weight_gradient_passes_ms": sum(v for k, v in by_name.items()
+                                                      if "nkt_field_dw" in k),
+                     "reduction_ms": sum(v for k, v in by_name.items()
+                                         if "nkt_reduce_partials" in k),
+                     "scratch_bytes": ff._field_scratch_bytes(n, 16)}
         del got, want
-        ms = time_ms(kern, 10)
         plain_ms = time_ms(plain, 2)
         bms, by = bound(n * per_point_bytes + 4 * w_floats, 2.0 * n * mac, bf16=True)
         rec = {"name": name, "route": "cuda", "source": f"nerf_kbs_tpu_torch/csrc/{src}",
@@ -347,7 +435,7 @@ def phase_kernels():
                "err_is": "weight and bias gradients, relative to each one's largest magnitude",
                "per_point_outlier_share": out, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                "library_ms": None, "n_points": n, "basis": "tri", "dtype": "bf16",
-               "need_dx": False}
+               "need_dx": False, **extra}
         emit({"phase": "timing", **rec})
         records.append(rec)
         del x, g
@@ -356,8 +444,10 @@ def phase_kernels():
 
 
 # kernel name -> its wrapper's launch counter
-COUNTER = {"fourier_mlp_fwd": "fourier_mlp", "fourier_field_fwd": "fourier_field_mlp",
-           "fourier_mlp_bwd": "fourier_mlp_bwd", "fourier_field_bwd": "fourier_field_mlp_bwd"}
+# (on the main paths the two field kernels run their wgmma bodies)
+COUNTER = {"fourier_mlp_fwd": "fourier_mlp", "fourier_field_fwd": "fourier_field_mlp_wgmma",
+           "fourier_mlp_bwd": "fourier_mlp_bwd",
+           "fourier_field_bwd": "fourier_field_mlp_bwd_wgmma"}
 
 
 def _png(url: str) -> int:
@@ -368,11 +458,11 @@ def _png(url: str) -> int:
         return len(body)
 
 
-def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12) -> None:
-    """Where the time of one call of ``work`` goes (a frame, a train step):
-    device time by kernel name (self time, torch.profiler over the call) and
-    the device's busy share of the wall time. The profiler's own overhead
-    inflates the wall time somewhat."""
+def device_events(work):
+    """One call of ``work`` under torch.profiler: (wall microseconds, the
+    device-side entries (kernels, copies) with their self device time in
+    microseconds and call counts, longest first). An aten:: op's entry repeats
+    the time of the kernels it launched and is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -386,16 +476,25 @@ def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12) -> None
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # device-side entries only (kernels, copies): an aten:: op's entry
-    # repeats the time of the kernels it launched
-    events = [e for e in prof.key_averages()
+    events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
               if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
-    busy = sum(dev_us(e) for e in events)
-    events.sort(key=dev_us, reverse=True)
+    return wall_us, sorted(events, key=lambda e: e[1], reverse=True)
+
+
+def device_ms_by_kernel(work) -> dict:
+    return {name: us / 1e3 for name, us, _ in device_events(work)[1]}
+
+
+def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12) -> None:
+    """Where the time of one call of ``work`` goes (a frame, a train step):
+    device time by kernel name and the device's busy share of the wall time.
+    The profiler's own overhead inflates the wall time somewhat."""
+    wall_us, events = device_events(work)
+    busy = sum(us for _, us, _ in events)
     emit({"phase": "profile", "of": what, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
           "device_idle_share": max(0.0, 1.0 - busy / wall_us), "rays": n_rays,
-          "top": [{"name": e.key[:80], "calls": e.count, "device_ms": dev_us(e) / 1e3,
-                   "share": dev_us(e) / busy} for e in events[:top]]})
+          "top": [{"name": name[:80], "calls": count, "device_ms": us / 1e3, "share": us / busy}
+                  for name, us, count in events[:top]]})
 
 
 def phase_slice(records):
@@ -435,8 +534,8 @@ def phase_slice(records):
     check(bool(np.isfinite(rgb).all()), "non-finite rgb")
     check(float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0, "rgb outside [0, 1]")
     check(bool(np.isfinite(out["depth"]).all()), "non-finite depth")
-    check(launches == {"fourier_mlp": 2 * n_chunks, "fourier_field_mlp": n_chunks,
-                       "fourier_mlp_bwd": 0, "fourier_field_mlp_bwd": 0},
+    check(launches == {**dict.fromkeys(ff.LAUNCHES, 0), "fourier_mlp": 2 * n_chunks,
+                       "fourier_field_mlp_wgmma": n_chunks},
           f"launches {launches} for {n_chunks} chunks")
     for rec in records:
         if rec["name"] in COUNTER and not rec["name"].endswith("_bwd"):
@@ -448,6 +547,20 @@ def phase_slice(records):
         renderer.render_camera(0)
         times.append(time.perf_counter() - t0)
     med = sorted(times)[len(times) // 2]
+    # the same frame with the field kernel's WMMA body and its wgmma body in
+    # turns (host time varies from run to run: compare within this run only)
+    turns = {"wmma": [], "wgmma": []}
+    for body in ("wmma", "wgmma", "wgmma", "wmma"):
+        ff.FORCE_WMMA = body == "wmma"
+        try:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                renderer.render_camera(0)
+                turns[body].append(time.perf_counter() - t0)
+        finally:
+            ff.FORCE_WMMA = False
+    emit({"phase": "slice_bodies", "render_s": turns,
+          "median_render_s": {k: sorted(v)[len(v) // 2] for k, v in turns.items()}})
     emit({"phase": "slice", "method": "nerfacto-tpu", "compute_dtype": cfg.compute_dtype,
           "image": [h, w], "chunk_rays": chunk, "chunks": n_chunks, "launches": launches,
           "first_render_s": dt, "render_s": times, "median_render_s": med,
@@ -541,8 +654,9 @@ def phase_train(records):
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
     launches = dict(ff.LAUNCHES)
-    check(launches == {"fourier_mlp": 2 * n_steps, "fourier_field_mlp": n_steps,
-                       "fourier_mlp_bwd": 2 * n_steps, "fourier_field_mlp_bwd": n_steps},
+    check(launches == {**dict.fromkeys(ff.LAUNCHES, 0), "fourier_mlp": 2 * n_steps,
+                       "fourier_field_mlp_wgmma": n_steps, "fourier_mlp_bwd": 2 * n_steps,
+                       "fourier_field_mlp_bwd_wgmma": n_steps},
           f"train launches {launches} for {n_steps} steps")
     check(all(np.isfinite(losses)), f"non-finite train loss {losses}")
     for rec in records:
@@ -564,6 +678,23 @@ def phase_train(records):
           "loss_first": losses[0], "loss_last": losses[-1],
           "lr": opt.learning_rate("fields"), "parameters_moved": sum(moved.values()),
           "parameters_frozen": len(frozen)})
+
+    # the same step with the field kernels' WMMA bodies and their wgmma
+    # bodies in turns, and the device time of a step of each
+    turns = {"wmma": [], "wgmma": []}
+    for body in ("wmma", "wgmma", "wgmma", "wmma"):
+        ff.FORCE_WMMA = body == "wmma"
+        try:
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bench_step()
+                torch.cuda.synchronize()
+                turns[body].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            ff.FORCE_WMMA = False
+    emit({"phase": "train_step_bodies", "step_ms": turns,
+          "median_step_ms": {k: sorted(v)[len(v) // 2] for k, v in turns.items()}})
 
     # (3) where one step's time goes
     phase_profile(bench_step, batch_rays, what="train_step")
@@ -588,7 +719,7 @@ def phase_train(records):
     check(len(totals) == 30 and all(np.isfinite(totals)), f"trainer losses {totals}")
     first, end = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
     check(end < first, f"trainer loss did not fall: first five {first}, last five {end}")
-    check(ff.LAUNCHES["fourier_field_mlp_bwd"] == 30 and ff.LAUNCHES["fourier_mlp_bwd"] == 60,
+    check(ff.LAUNCHES["fourier_field_mlp_bwd_wgmma"] == 30 and ff.LAUNCHES["fourier_mlp_bwd"] == 60,
           f"trainer launches {ff.LAUNCHES}")
     em = trainer.eval_image(0)
     check(np.isfinite(em["psnr"]), f"eval_image {em}")

@@ -19,20 +19,41 @@
 // is the arithmetic, ~0.22 ms for the 786,432 points of a 16,384-ray step at
 // 989 TFLOP/s.
 //
-// What the design does about it, and what it costs: one persistent block per
-// SM keeps all 57,472 weights resident as bf16 (~128 KB) and walks over
-// 32-point tiles (64 do not fit: the backward keeps every layer's input of
-// the tile, ~46 KB at 32 points). Every product is a WMMA tile product
-// (chain_bwd.cuh). The weight gradients (58 K floats, 234 KB per block) fit
-// neither in shared memory beside the weights nor in registers, so each
-// block adds one tile's act^T . dh at a time into its own partial in device
-// memory (132 x 234 KB = 31 MB, inside the 50 MB L2): that is a read and a
-// write of 234 KB through L2 for every 32 points, about 11 GB of L2 traffic
-// for 786,432 points, and it is expected to cost more than the arithmetic.
-// A second small kernel sums the partials in block order: no float atomics,
-// and a repeat of the launch gives the same bits.
-// f32 compute (the oracle mode) runs one thread per point (chain_bwd.cuh).
+// What the design does about it. Three bodies; in all of them each block
+// leaves its weight-gradient sums in a partial of its own and a last small
+// kernel sums the partials in block order: no float atomics, and a repeat of
+// the launch gives the same bits.
+// - bf16 at the flagship widths, two passes on wgmma (wgmma_chain.cuh).
+//   The per-point pass (fourier_field_bwd_wgmma_kernel): persistent blocks of
+//   two warpgroups, each on its own 64-point tile with no block barrier and
+//   the weights resident as in the forward kernel. It recomputes the forward
+//   and walks both chains backwards with every activation and gradient in
+//   registers: a W . dh product reads the resident W^T with the trans flag,
+//   its accumulator has the layout of the forward accumulator, so the relu
+//   mask is a bit per register kept from the forward, and masked, rounded and
+//   packed it is the next product's A operand. Bias gradients are f32 column
+//   sums by a shuffle butterfly into a few registers a thread keeps over all
+//   its tiles. Every layer's input and pre-activation gradient goes out once
+//   as a bf16 tile in the core layout (a warp's store is 128 contiguous
+//   bytes), 1,664 bytes a point. The weight-gradient passes
+//   (nkt_field_dw_kernel per layer, nkt_field_dw0_kernel for the first
+//   layer, which recomputes the encoding instead of reading it) are split-K
+//   products over points: each block takes a contiguous range of tiles,
+//   reads act and dh tiles as trans operands, keeps the f32 dW accumulator in
+//   registers over its whole range and writes it once. All six layers go this
+//   way rather than the small ones accumulating in the per-point pass: one
+//   product routine, and registers there are taken by the chain.
+//   What limits it now: the per-point pass, by the same ALU work as the
+//   forward plus the bias-sum shuffles and the scratch stores; the
+//   weight-gradient passes move the scratch (2 x 1.3 GB at 786,432 points)
+//   and run one block per SM with one tile in flight.
+// - bf16 at any other widths (fourier_field_bwd_mma_kernel, chain_bwd.cuh):
+//   one block per SM on 32-point WMMA tiles; each tile's act^T . dh is added
+//   into the block's 234 KB partial in device memory, a round trip through L2
+//   per tile that takes half its time.
+// - f32 compute (the oracle mode): one thread per point (chain_bwd.cuh).
 #include "chain_bwd.cuh"
+#include "wgmma_chain.cuh"
 
 #define NKT_D_ROWS 32
 
@@ -236,6 +257,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
   float* gpart = partials + (size_t)blockIdx.x * stride;
   float* db = db_s + (warp % RS) * b_floats;  // this warp's slab's accumulators
 
+  NKT_CLK_BEGIN()
   nkt_mma_stage(base, mb, base_wb, ws, bs);
   nkt_mma_stage(rgb, mr, rgb_wb, ws, bs);
   for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) Bs[i] = Bm[i];
@@ -246,11 +268,14 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long p0 = (long long)tile * ROWS;
     __syncthreads();
+    NKT_CLK(tile == (int)blockIdx.x ? NKT_PH_STAGE : NKT_PH_BARRIER)
     nkt_bwd_load_rows<ROWS>(x, 3, n, p0, xs);
     nkt_bwd_load_rows<ROWS>(g, 4, n, p0, gs);
     __syncthreads();
+    NKT_CLK(NKT_PH_LOAD)
     nkt_mma_encode<TRI, ROWS>(xs, Bs, H, mb.kp[0], ab.a[0], ab.ld[0]);
     __syncthreads();
+    NKT_CLK(NKT_PH_ENCODE)
 
     // ---- forward, keeping every layer's input
     nkt_bwd_forward<ROWS>(mb, ws, bs, ab, Lb - 1, scratch);
@@ -270,7 +295,9 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
         const float v = (f < F && p0 + r < n) ? feats[(size_t)f * n + p0 + r] : 0.0f;
         rgb_in[r * ldri + G + f] = __float2bfloat16_rn(v);
       }
+      NKT_CLK(NKT_PH_OTHER)
       __syncthreads();
+      NKT_CLK(NKT_PH_BARRIER)
     }
     nkt_bwd_forward<ROWS>(mr, ws, bs, ar, Lr - 1, scratch);
     {
@@ -290,6 +317,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
       nkt_bwd_gemm<ROWS, false>(ar.a[l], ar.ld[l], ws + mr.w_s[l], mr.np[l] + 8, mr.kp[l],
                                 mr.np[l], scratch, db + mr.b_s[l], sigmoid_grad);
       __syncthreads();
+      NKT_CLK(NKT_PH_BARRIER)
     }
 
     // ---- rgb chain backward
@@ -319,7 +347,9 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
         dbo[r * npb + o] = v;
         dh_b[r * ldhb + o] = __float2bfloat16_rn(v);
       }
+      NKT_CLK(NKT_PH_OTHER)
       __syncthreads();
+      NKT_CLK(NKT_PH_BARRIER)
       // bias gradient of the last base layer: f32 column sums per slab
       for (int i = threadIdx.x; i < RS * npb; i += blockDim.x) {
         const int slab = i / npb, o = i % npb;
@@ -327,15 +357,18 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
         for (int r = slab * 16; r < slab * 16 + 16; ++r) s += dbo[r * npb + o];
         db_s[slab * b_floats + mb.b_s[Lb - 1] + o] += s;
       }
+      NKT_CLK(NKT_PH_OTHER)
     }
 
     // ---- base chain backward
     nkt_bwd_chain<ROWS>(mb, glb, ws, ab, Lb - 1, dh_b, ldhb, gpart, db, scratch, &dh0, &ld0);
     if (need_dx) nkt_bwd_dx<ROWS, TRI>(mb, ws, dh0, ld0, xs, Bs, H, scratch, dxp, dx, n, p0);
+    NKT_CLK(NKT_PH_OTHER)
   }
   __syncthreads();
   nkt_bwd_flush_bias<ROWS>(mb, glb, db_s, b_floats, gpart);
   nkt_bwd_flush_bias<ROWS>(mr, glr, db_s, b_floats, gpart);
+  NKT_CLK_END()
 }
 
 template <bool TRI>
@@ -371,6 +404,570 @@ static int launch_mma(const float* x, const float* feats, int n, int F, const fl
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 compute at the flagship widths: wgmma (see wgmma_chain.cuh)
+// ---------------------------------------------------------------------------
+
+#define NKT_D_WARPGROUPS 2
+
+// Per-point widths (bf16 values) of what the per-point pass leaves for the
+// weight-gradient pass, as running sums: array `a` of the scratch tensor
+// starts at a * 64 * ntiles elements and holds one [point][feature] tile in
+// the core layout (64 * width elements) per 64 points.
+template <int KR>
+struct FieldScratch {
+  // layer inputs: h1, h2 (base hidden), ri (the rgb chain's input), r1, r2
+  static constexpr int h1 = 0, h2 = 128, ri = 256, r1 = 256 + KR, r2 = r1 + 64;
+  // gradients of the pre-activations of base layers 0..2 and rgb layers 0..2
+  static constexpr int d_b0 = r2 + 64, d_b1 = d_b0 + 128, d_b2 = d_b1 + 128, d_r0 = d_b2 + 16,
+                       d_r1 = d_r0 + 64, d_r2 = d_r1 + 64, total = d_r2 + 16;
+};
+
+// One warpgroup: the packed rows `a` (WIDTH / 4 words a thread) of its tile
+// into the tile's place in scratch array `first`. A warp's store of one word
+// is one core matrix: 128 contiguous bytes.
+template <int WIDTH>
+__device__ __forceinline__ void nkt_wg_store_tile(uint32_t* scratch, int first, int ntiles,
+                                                  int tile, const WgLane& L, const uint32_t* a) {
+  uint32_t* blob = scratch + ((size_t)first * ntiles + (size_t)tile * WIDTH) * (NKT_WG_ROWS / 2);
+#pragma unroll
+  for (int j = 0; j < WIDTH / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) blob[(j * 8 + 2 * L.w + r) * 32 + L.g * 4 + L.t] = a[2 * j + r];
+}
+
+// One step of the column-sum butterfly over the 8 lanes that share t: the
+// lanes with `bit` set keep the upper half of s, the others the lower half,
+// and each adds its partner's share. With one value left both keep the sum.
+template <int V>
+__device__ __forceinline__ void nkt_wg_halve(float* s, int lane, int bit) {
+  if (V >= 2) {
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const bool up = lane & bit;
+      const float send = up ? s[i] : s[i + V / 2], keep = up ? s[i + V / 2] : s[i];
+      s[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+    }
+  } else {
+    s[0] += __shfl_xor_sync(0xffffffffu, s[0], bit);
+  }
+}
+
+// Entries a thread owns of the column sums of a (64, 2R) accumulator after
+// nkt_wg_colsum.
+__host__ __device__ constexpr int nkt_db_count(int R) { return R >= 16 ? R / 16 : 1; }
+
+// Adds the sums of the warp's 16 rows of acc, per column, into db: the thread
+// ends up owning nkt_db_count(R) of the warp's 2R columns (nkt_db_column).
+template <int R>
+__device__ __forceinline__ void nkt_wg_colsum(const float (&acc)[R], int lane, float* db) {
+  constexpr int V = R / 2;
+  float s[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) s[q] = acc[4 * (q / 2) + q % 2] + acc[4 * (q / 2) + 2 + q % 2];
+  constexpr int V1 = V >= 2 ? V / 2 : 1, V2 = V1 >= 2 ? V1 / 2 : 1;
+  nkt_wg_halve<V>(s, lane, 16);
+  nkt_wg_halve<V1>(s, lane, 8);
+  nkt_wg_halve<V2>(s, lane, 4);
+#pragma unroll
+  for (int i = 0; i < nkt_db_count(R); ++i) db[i] += s[i];
+}
+
+// Column of db[i] of nkt_wg_colsum, or -1 where another lane owns the sum.
+template <int R>
+__device__ __forceinline__ int nkt_db_column(int i, int lane) {
+  int v = R / 2, q = i;
+  for (int bit = 16; bit >= 4; bit >>= 1) {
+    if (v >= 2) {
+      v /= 2;
+      if (lane & bit) q += v;
+    } else if (lane & bit) {
+      return -1;
+    }
+  }
+  return 8 * (q / 2) + 2 * (lane % 4) + q % 2;
+}
+
+// Gradient of a hidden layer's pre-activation from acc = dh_next . W^T: the
+// relu mask, the f32 column sums into db, then rounded and packed as the next
+// product's A operand.
+template <int R>
+__device__ __forceinline__ void nkt_wg_dh(float (&acc)[R], const uint32_t* mask, int lane,
+                                          float* db, uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = (mask[i / 32] >> (i % 32)) & 1u ? acc[i] : 0.0f;
+  nkt_wg_colsum(acc, lane, db);
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    a[2 * j] = nkt_pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    a[2 * j + 1] = nkt_pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The per-point pass. Each warpgroup walks its own 64-point tiles: forward
+// through both chains (as the forward kernel), then backward, every
+// activation and gradient staying in registers between products. It writes
+// dfeats, dx (NEED_DX), every layer's input and pre-activation gradient as
+// bf16 tiles into `scratch` for the weight-gradient pass, and the block's
+// bias gradients (f32 sums) into its partial.
+template <bool TRI, int KR, bool NEED_DX>
+__global__ void __launch_bounds__(NKT_D_WARPGROUPS * NKT_WG_THREADS, 1)
+    fourier_field_bwd_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ feats,
+                                   int n, const float* __restrict__ Bm,
+                                   const uint4* __restrict__ image,
+                                   const float* __restrict__ base_wb, Chain base, GradLayout glb,
+                                   const float* __restrict__ rgb_wb, Chain rgb, GradLayout glr,
+                                   const float* __restrict__ g, float* __restrict__ dx,
+                                   float* __restrict__ dfeats, uint32_t* __restrict__ scratch,
+                                   float* __restrict__ partials, int stride) {
+  using I = FieldImage<KR>;
+  using S = FieldScratch<KR>;
+  constexpr int FSTEPS = KR / 16 - 1, F = 16 * FSTEPS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  nkt_field_stage<KR>(smem, image, base_wb, base, rgb_wb, rgb, Bm);
+  nkt_fence_async_smem();
+  __syncthreads();
+  const uint32_t ws = nkt_smem_addr(smem);
+  const float* bs = reinterpret_cast<const float*>(smem + I::bytes);
+  const float* Bs = bs + I::bias_floats;
+  const WgLane L = nkt_wg_lane();
+  const int lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / NKT_WG_THREADS;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+
+  // bias-gradient sums over all of this thread's tiles
+  float db_b0[nkt_db_count(64)] = {}, db_b1[nkt_db_count(64)] = {}, db_b2[nkt_db_count(8)] = {};
+  float db_r0[nkt_db_count(32)] = {}, db_r1[nkt_db_count(32)] = {}, db_r2[nkt_db_count(8)] = {};
+
+  for (int tile = blockIdx.x * NKT_D_WARPGROUPS + wg; tile < ntiles;
+       tile += gridDim.x * NKT_D_WARPGROUPS) {
+    const long long pa = (long long)tile * NKT_WG_ROWS + 16 * L.w + L.g, pb = pa + 8;
+    float xa[3], xb[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      xa[d] = pa < n ? x[(size_t)d * n + pa] : 0.0f;
+      xb[d] = pb < n ? x[(size_t)d * n + pb] : 0.0f;
+    }
+    uint32_t rgb_in[4 * (1 + FSTEPS)];
+    {
+      uint32_t fe[4 * FSTEPS];
+      nkt_wg_load_feats<FSTEPS>(feats, n, pa, pb, L.t, fe);
+#pragma unroll
+      for (int i = 0; i < 4 * FSTEPS; ++i) rgb_in[4 + i] = fe[i];
+    }
+
+    // ---- forward, keeping the relu masks and writing every layer's input
+    uint32_t m_h1[2], m_h2[2], m_r1[1], m_r2[1];
+    uint32_t h[32];
+    {
+      float acc[64];
+      nkt_wg_first_layer<TRI, I::H>(acc, Bs, L.t, xa, xb, ws + I::w_b0);
+      nkt_wg_relu_pack<true>(acc, bs + I::b_b0, L.t, h, m_h1);
+      nkt_wg_store_tile<128>(scratch, S::h1, ntiles, tile, L, h);
+      nkt_wg_forward<8>(acc, h, ws + I::w_b1);
+      nkt_wg_relu_pack<true>(acc, bs + I::b_b1, L.t, h, m_h2);
+      nkt_wg_store_tile<128>(scratch, S::h2, ntiles, tile, L, h);
+    }
+    {
+      float acc[8];
+      nkt_wg_forward<8>(acc, h, ws + I::w_b2);
+      float sigma_a, sigma_b;  // the output gradient needs no sigma_raw
+      nkt_wg_base_out(acc, bs + I::b_b2, L.t, rgb_in, &sigma_a, &sigma_b);
+      nkt_wg_store_tile<KR>(scratch, S::ri, ntiles, tile, L, rgb_in);
+    }
+    uint32_t r[16];
+    uint32_t d16[4];  // a 16-wide gradient as one k-step
+    {
+      float acc[32];
+      nkt_wg_forward<KR / 16>(acc, rgb_in, ws + I::w_r0);
+      nkt_wg_relu_pack<true>(acc, bs + I::b_r0, L.t, r, m_r1);
+      nkt_wg_store_tile<64>(scratch, S::r1, ntiles, tile, L, r);
+      nkt_wg_forward<4>(acc, r, ws + I::w_r1);
+      nkt_wg_relu_pack<true>(acc, bs + I::b_r1, L.t, r, m_r2);
+      nkt_wg_store_tile<64>(scratch, S::r2, ntiles, tile, L, r);
+    }
+    {
+      // d_rgb_pre = g[1:] * rgb * (1 - rgb) in columns 0..2, zeros beyond
+      float acc[8];
+      nkt_wg_forward<4>(acc, r, ws + I::w_r2);
+      const float2 b = *reinterpret_cast<const float2*>(bs + I::b_r2 + 2 * (L.t % 2));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = 8 * (i / 4) + 2 * L.t + i % 2;
+        const long long p = (i % 4) < 2 ? pa : pb;
+        float d = 0.0f;
+        if (c < 3) {
+          const float s = 1.0f / (1.0f + expf(-(acc[i] + (i % 2 ? b.y : b.x))));
+          const float go = p < n ? g[(size_t)(1 + c) * n + p] : 0.0f;
+          d = go * s * (1.0f - s);
+        }
+        acc[i] = d;
+      }
+      nkt_wg_colsum(acc, lane, db_r2);
+      d16[0] = nkt_pack_bf16(acc[0], acc[1]);
+      d16[1] = nkt_pack_bf16(acc[2], acc[3]);
+      d16[2] = nkt_pack_bf16(acc[4], acc[5]);
+      d16[3] = nkt_pack_bf16(acc[6], acc[7]);
+      nkt_wg_store_tile<16>(scratch, S::d_r2, ntiles, tile, L, d16);
+    }
+
+    // ---- backward through the rgb chain
+    {
+      float acc[32];
+      nkt_wg_backward<1>(acc, d16, ws + I::w_r2, 16, 0);
+      nkt_wg_dh(acc, m_r2, lane, db_r1, r);
+      nkt_wg_store_tile<64>(scratch, S::d_r1, ntiles, tile, L, r);
+      nkt_wg_backward<4>(acc, r, ws + I::w_r1, 64, 0);
+      nkt_wg_dh(acc, m_r1, lane, db_r0, r);
+      nkt_wg_store_tile<64>(scratch, S::d_r0, ntiles, tile, L, r);
+    }
+    {
+      // d_rgb_in = dh_r0 . W_r0^T: column 0 is sigma_raw's place and takes
+      // g[0], columns 1..15 are geo (together the base chain's output
+      // gradient), the rest dfeats
+      float acc[KR / 2];
+      nkt_wg_backward<4>(acc, r, ws + I::w_r0, 64, 0);
+      if (L.t == 0) {
+        acc[0] = pa < n ? g[pa] : 0.0f;
+        acc[2] = pb < n ? g[pb] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 8; i < KR / 2; ++i) {
+        const int f = 8 * (i / 4) + 2 * L.t + i % 2 - 16;
+        const long long p = (i % 4) < 2 ? pa : pb;
+        if (f < F && p < n) dfeats[(size_t)f * n + p] = acc[i];
+      }
+      float dbo[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dbo[i] = acc[i];
+      nkt_wg_colsum(dbo, lane, db_b2);
+      d16[0] = nkt_pack_bf16(dbo[0], dbo[1]);
+      d16[1] = nkt_pack_bf16(dbo[2], dbo[3]);
+      d16[2] = nkt_pack_bf16(dbo[4], dbo[5]);
+      d16[3] = nkt_pack_bf16(dbo[6], dbo[7]);
+      nkt_wg_store_tile<16>(scratch, S::d_b2, ntiles, tile, L, d16);
+    }
+
+    // ---- backward through the base chain
+    {
+      float acc[64];
+      nkt_wg_backward<1>(acc, d16, ws + I::w_b2, 16, 0);
+      nkt_wg_dh(acc, m_h2, lane, db_b1, h);
+      nkt_wg_store_tile<128>(scratch, S::d_b1, ntiles, tile, L, h);
+      nkt_wg_backward<8>(acc, h, ws + I::w_b1, 128, 0);
+      nkt_wg_dh(acc, m_h1, lane, db_b0, h);
+      nkt_wg_store_tile<128>(scratch, S::d_b0, ntiles, tile, L, h);
+      if (NEED_DX) {
+        // d_enc = dh_0 . W_0^T, the s half then the c half; dproj = d_enc
+        // times the basis derivative; dx = B . dproj, all in f32
+        float da[3] = {0.0f, 0.0f, 0.0f}, dbx[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          nkt_wg_backward<8>(acc, h, ws + I::w_b0, 128, half * I::H);
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int hh = 8 * (i / 4) + 2 * L.t + i % 2;
+            const float b0 = Bs[hh], b1 = Bs[I::H + hh], b2 = Bs[2 * I::H + hh];
+            const bool row_a = (i % 4) < 2;
+            const float u = row_a ? fmaf(b2, xa[2], fmaf(b1, xa[1], b0 * xa[0]))
+                                  : fmaf(b2, xb[2], fmaf(b1, xb[1], b0 * xb[0]));
+            float dsdu, dcdu;
+            nkt_basis_grads<TRI>(u, &dsdu, &dcdu);
+            const float w = acc[i] * (half ? dcdu : dsdu);
+            if (row_a) {
+              da[0] = fmaf(b0, w, da[0]);
+              da[1] = fmaf(b1, w, da[1]);
+              da[2] = fmaf(b2, w, da[2]);
+            } else {
+              dbx[0] = fmaf(b0, w, dbx[0]);
+              dbx[1] = fmaf(b1, w, dbx[1]);
+              dbx[2] = fmaf(b2, w, dbx[2]);
+            }
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          da[d] += __shfl_xor_sync(0xffffffffu, da[d], 1);
+          da[d] += __shfl_xor_sync(0xffffffffu, da[d], 2);
+          dbx[d] += __shfl_xor_sync(0xffffffffu, dbx[d], 1);
+          dbx[d] += __shfl_xor_sync(0xffffffffu, dbx[d], 2);
+          if (L.t == 0) {
+            if (pa < n) dx[(size_t)d * n + pa] = da[d];
+            if (pb < n) dx[(size_t)d * n + pb] = dbx[d];
+          }
+        }
+      }
+    }
+  }
+
+  // ---- the block's bias gradients: every warp's sums side by side in shared
+  // memory (over the weights, which nothing reads any more), then summed over
+  // warps in order
+  __syncthreads();
+  float* dbs = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x / 32;
+  constexpr int NW = NKT_D_WARPGROUPS * 4;
+#define NKT_DB_OUT(R, db, off)                                       \
+  _Pragma("unroll") for (int i = 0; i < nkt_db_count(R); ++i) {      \
+    const int c = nkt_db_column<R>(i, lane);                         \
+    if (c >= 0) dbs[warp * I::bias_floats + (off) + c] = db[i];      \
+  }
+  NKT_DB_OUT(64, db_b0, I::b_b0)
+  NKT_DB_OUT(64, db_b1, I::b_b1)
+  NKT_DB_OUT(8, db_b2, I::b_b2)
+  NKT_DB_OUT(32, db_r0, I::b_r0)
+  NKT_DB_OUT(32, db_r1, I::b_r1)
+  NKT_DB_OUT(8, db_r2, I::b_r2)
+#undef NKT_DB_OUT
+  __syncthreads();
+  float* gpart = partials + (size_t)blockIdx.x * stride;
+  const int off[6] = {I::b_b0, I::b_b1, I::b_b2, I::b_r0, I::b_r1, I::b_r2};
+  const int end[6] = {I::b_b1, I::b_b2, I::b_r0, I::b_r1, I::b_r2, I::bias_floats};
+  for (int l = 0; l < 6; ++l) {
+    const int dst = l < 3 ? glb.b[l] : glr.b[l - 3];
+    for (int c = threadIdx.x; c < end[l] - off[l]; c += blockDim.x) {
+      float s = 0.0f;
+      for (int w = 0; w < NW; ++w) s += dbs[w * I::bias_floats + off[l] + c];
+      gpart[dst + c] = s;
+    }
+  }
+}
+
+// Tiles in flight per block of the weight-gradient passes: a ring of
+// shared-memory buffers filled by cp.async, the copies of the next
+// NKT_DW_STAGES - 1 tiles running behind the current tile's products.
+#define NKT_DW_STAGES 4
+
+// The weight-gradient pass of one layer: dW (KF, NO) = act^T . dh over all
+// points, act (width KF) and dh (width NO) being scratch arrays of the
+// per-point pass. Each block takes a contiguous range of tiles, keeps the f32
+// accumulator in registers over the whole range (warpgroup s owns rows
+// [64 s, 64 s + 64)), and writes it once into its partial: row f of the
+// product is row f - row_shift of the layer's dW, rows outside [0, din) are
+// dropped.
+template <int KF, int NO>
+__global__ void __launch_bounds__((KF + 63) / 64 * NKT_WG_THREADS)
+    nkt_field_dw_kernel(const uint4* __restrict__ act, const uint4* __restrict__ dh, int ntiles,
+                        float* __restrict__ partials, int stride, int w_off, int row_shift,
+                        int din) {
+  constexpr int THREADS = (KF + 63) / 64 * NKT_WG_THREADS;
+  constexpr int A_V = 64 * KF / 8, B_V = 64 * NO / 8;  // 16-byte vectors per tile
+  // a 32-wide act tile is read as a 64-row slab: its buffer has the room
+  constexpr int A_BUF = 64 * (KF < 64 ? 64 : KF) * 2, BUF = A_BUF + 64 * NO * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t0 = (int)((long long)blockIdx.x * ntiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * ntiles / gridDim.x);
+  const WgLane L = nkt_wg_lane();
+  const int slab = threadIdx.x / NKT_WG_THREADS;
+  float acc[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) acc[i] = 0.0f;
+
+  auto fetch = [&](int tile, int buf) {
+    if (tile < t1) {
+      uint4* a = reinterpret_cast<uint4*>(smem + buf * BUF);
+      uint4* b = reinterpret_cast<uint4*>(smem + buf * BUF + A_BUF);
+      for (int v = threadIdx.x; v < A_V; v += THREADS)
+        nkt_cp_async16(a + v, act + (size_t)tile * A_V + v);
+      for (int v = threadIdx.x; v < B_V; v += THREADS)
+        nkt_cp_async16(b + v, dh + (size_t)tile * B_V + v);
+    }
+    nkt_cp_commit();  // an empty group past the range keeps the count in step
+  };
+  for (int s = 0; s < NKT_DW_STAGES - 1; ++s) fetch(t0 + s, s);
+  for (int tile = t0; tile < t1; ++tile) {
+    const int cur = (tile - t0) % NKT_DW_STAGES;
+    nkt_cp_wait<NKT_DW_STAGES - 2>();  // this thread's copies of `tile` have landed
+    nkt_fence_async_smem();
+    __syncthreads();  // everyone's have, and the last tile's products are done
+    fetch(tile + NKT_DW_STAGES - 1, (cur + NKT_DW_STAGES - 1) % NKT_DW_STAGES);
+    const uint32_t a_addr = nkt_smem_addr(smem + cur * BUF) + slab * 8 * 1024;
+    const uint32_t b_addr = nkt_smem_addr(smem + cur * BUF + A_BUF);
+    nkt_wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < NKT_WG_ROWS / 16; ++ks)
+      nkt_wgmma_ss<1, 1>(acc, nkt_wg_desc(a_addr + ks * 256, 128, 1024),
+                         nkt_wg_desc(b_addr + ks * 256, 128, 1024), 1);
+    nkt_wg_commit();
+    nkt_wg_wait<0>();
+  }
+  nkt_wg_settle(acc);
+  float* gw = partials + (size_t)blockIdx.x * stride + w_off;
+#pragma unroll
+  for (int j = 0; j < NO / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 64 * slab + 16 * L.w + L.g + 8 * r - row_shift;
+      if (row >= 0 && row < din)
+        *reinterpret_cast<float2*>(gw + (size_t)row * NO + 8 * j + 2 * L.t) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+}
+
+// The weight-gradient pass of the first base layer: dW_0 (2H, 128) =
+// enc(x)^T . dh_0, the encoding recomputed from x straight into A operands
+// (rows are encoding features, columns points), never stored. Four
+// warpgroups own 64 features each; dh_0 tiles come from scratch as in
+// nkt_field_dw_kernel, x tiles beside them (zeros past the ragged edge).
+template <bool TRI>
+__global__ void __launch_bounds__(4 * NKT_WG_THREADS)
+    nkt_field_dw0_kernel(const float* __restrict__ x, int n, const float* __restrict__ Bm,
+                         const uint4* __restrict__ dh, int ntiles, float* __restrict__ partials,
+                         int stride, int w_off) {
+  constexpr int H = 128, NO = 128, THREADS = 4 * NKT_WG_THREADS;
+  constexpr int B_V = 64 * NO / 8;
+  constexpr int BUF = 64 * NO * 2 + 3 * 64 * 4;  // dh tile, then x (3, 64)
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t0 = (int)((long long)blockIdx.x * ntiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * ntiles / gridDim.x);
+  const WgLane L = nkt_wg_lane();
+  const int slab = threadIdx.x / NKT_WG_THREADS;
+  const bool cos_half = slab >= 2;
+  // the thread's two encoding features and their frequencies
+  const int ha = 64 * (slab % 2) + 16 * L.w + L.g, hb = ha + 8;
+  float Ba[3], Bb[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    Ba[d] = Bm[d * H + ha];
+    Bb[d] = Bm[d * H + hb];
+  }
+  float acc[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) acc[i] = 0.0f;
+
+  auto fetch = [&](int tile, int buf) {
+    if (tile < t1) {
+      uint4* b = reinterpret_cast<uint4*>(smem + buf * BUF);
+      for (int v = threadIdx.x; v < B_V; v += THREADS)
+        nkt_cp_async16(b + v, dh + (size_t)tile * B_V + v);
+      if (threadIdx.x < 3 * 64) {
+        const long long p = (long long)tile * 64 + threadIdx.x % 64;
+        const bool valid = p < n;
+        nkt_cp_async4(reinterpret_cast<float*>(smem + buf * BUF + 64 * NO * 2) + threadIdx.x,
+                      valid ? x + (size_t)(threadIdx.x / 64) * n + p : x, valid);
+      }
+    }
+    nkt_cp_commit();
+  };
+  auto enc = [&](const float (&Bv)[3], float x0, float x1, float x2) {
+    const float u = fmaf(Bv[2], x2, fmaf(Bv[1], x1, Bv[0] * x0));
+    if (TRI) return cos_half ? nkt_tri_c(u) : nkt_tri_s(u);
+    float s, c;
+    sincosf(u, &s, &c);
+    return cos_half ? c : s;
+  };
+  for (int s = 0; s < NKT_DW_STAGES - 1; ++s) fetch(t0 + s, s);
+  for (int tile = t0; tile < t1; ++tile) {
+    const int cur = (tile - t0) % NKT_DW_STAGES;
+    nkt_cp_wait<NKT_DW_STAGES - 2>();
+    nkt_fence_async_smem();
+    __syncthreads();
+    fetch(tile + NKT_DW_STAGES - 1, (cur + NKT_DW_STAGES - 1) % NKT_DW_STAGES);
+    const float* xs = reinterpret_cast<const float*>(smem + cur * BUF + 64 * NO * 2);
+    const uint32_t b_addr = nkt_smem_addr(smem + cur * BUF);
+    uint32_t a[4 * (NKT_WG_ROWS / 16)];
+#pragma unroll
+    for (int ks = 0; ks < NKT_WG_ROWS / 16; ++ks)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 16 * ks + 8 * half + 2 * L.t;  // points p, p + 1
+        const float2 x0 = *reinterpret_cast<const float2*>(xs + p);
+        const float2 x1 = *reinterpret_cast<const float2*>(xs + 64 + p);
+        const float2 x2 = *reinterpret_cast<const float2*>(xs + 128 + p);
+        a[4 * ks + 2 * half] = nkt_pack_bf16(enc(Ba, x0.x, x1.x, x2.x), enc(Ba, x0.y, x1.y, x2.y));
+        a[4 * ks + 2 * half + 1] =
+            nkt_pack_bf16(enc(Bb, x0.x, x1.x, x2.x), enc(Bb, x0.y, x1.y, x2.y));
+      }
+    nkt_wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < NKT_WG_ROWS / 16; ++ks)
+      nkt_wgmma_rs<1>(acc, a[4 * ks], a[4 * ks + 1], a[4 * ks + 2], a[4 * ks + 3],
+                      nkt_wg_desc(b_addr + ks * 256, 128, 1024), 1);
+    nkt_wg_commit();
+    nkt_wg_wait<0>();
+  }
+  nkt_wg_settle(acc);
+  float* gw = partials + (size_t)blockIdx.x * stride + w_off;
+#pragma unroll
+  for (int j = 0; j < NO / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 64 * slab + 16 * L.w + L.g + 8 * r;
+      *reinterpret_cast<float2*>(gw + (size_t)row * NO + 8 * j + 2 * L.t) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+}
+
+template <int KF, int NO>
+static int launch_dw(const uint32_t* scratch, int act_first, int dh_first, int ntiles, int grid,
+                     float* partials, int stride, int w_off, int row_shift, int din,
+                     cudaStream_t stream) {
+  constexpr int THREADS = (KF + 63) / 64 * NKT_WG_THREADS;
+  constexpr int BUF = 64 * (KF < 64 ? 64 : KF) * 2 + 64 * NO * 2;
+  cudaError_t err = cudaFuncSetAttribute(nkt_field_dw_kernel<KF, NO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         NKT_DW_STAGES * BUF);
+  if (err != cudaSuccess) return (int)err;
+  const size_t per = (size_t)ntiles * (NKT_WG_ROWS / 2);  // words per unit of width
+  nkt_field_dw_kernel<KF, NO><<<grid, THREADS, NKT_DW_STAGES * BUF, stream>>>(
+      reinterpret_cast<const uint4*>(scratch + act_first * per),
+      reinterpret_cast<const uint4*>(scratch + dh_first * per), ntiles, partials, stride, w_off,
+      row_shift, din);
+  return (int)cudaGetLastError();
+}
+
+template <bool TRI, int KR, bool NEED_DX>
+static int launch_wgmma(const float* x, const float* feats, int n, const float* Bm,
+                        const void* image, const float* base_wb, const Chain& base,
+                        const GradLayout& glb, const float* rgb_wb, const Chain& rgb,
+                        const GradLayout& glr, const float* g, float* dx, float* dfeats,
+                        uint32_t* scratch, float* partials, int partial_rows, int stride,
+                        int* nblocks, cudaStream_t stream) {
+  using I = FieldImage<KR>;
+  using S = FieldScratch<KR>;
+  const size_t smem = I::bytes + (I::bias_floats + 3 * I::H) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fourier_field_bwd_wgmma_kernel<TRI, KR, NEED_DX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  int grid = sms;
+  if (grid > ntiles) grid = ntiles;
+  if (grid > partial_rows) grid = partial_rows;
+  *nblocks = grid;
+  fourier_field_bwd_wgmma_kernel<TRI, KR, NEED_DX>
+      <<<grid, NKT_D_WARPGROUPS * NKT_WG_THREADS, smem, stream>>>(
+          x, feats, n, Bm, reinterpret_cast<const uint4*>(image), base_wb, base, glb, rgb_wb, rgb,
+          glr, g, dx, dfeats, scratch, partials, stride);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  {
+    constexpr int smem0 = NKT_DW_STAGES * (64 * 128 * 2 + 3 * 64 * 4);
+    cudaError_t e2 = cudaFuncSetAttribute(
+        nkt_field_dw0_kernel<TRI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem0);
+    if (e2 != cudaSuccess) return (int)e2;
+    const size_t per = (size_t)ntiles * (NKT_WG_ROWS / 2);
+    nkt_field_dw0_kernel<TRI><<<grid, 4 * NKT_WG_THREADS, smem0, stream>>>(
+        x, n, Bm, reinterpret_cast<const uint4*>(scratch + S::d_b0 * per), ntiles, partials,
+        stride, glb.w[0]);
+    if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  }
+#define NKT_DW(KF, NO, a, d, off, shift, din)                                                     \
+  if ((rc = launch_dw<KF, NO>(scratch, S::a, S::d, ntiles, grid, partials, stride, off, shift,    \
+                              din, stream)) != 0)                                                 \
+    return rc;
+  NKT_DW(128, 128, h1, d_b1, glb.w[1], 0, 128)
+  NKT_DW(128, 16, h2, d_b2, glb.w[2], 0, 128)
+  NKT_DW(KR, 64, ri, d_r0, glr.w[0], 1, KR - 1)
+  NKT_DW(64, 64, r1, d_r1, glr.w[1], 0, 64)
+  NKT_DW(64, 16, r2, d_r2, glr.w[2], 0, 64)
+#undef NKT_DW
+  return 0;
+}
+
 // x (3, n), feats (F, n), Bm (3, H), base_wb / rgb_wb the packed chains with
 // f32 (unrounded) weights, g (4, n), all f32 and contiguous on the device.
 // dfeats (F, n) is always written; dx (3, n) when need_dx (it may be null
@@ -378,8 +975,13 @@ static int launch_mma(const float* x, const float* feats, int n, int F, const fl
 // partial_stride being the padded size of one block's weight gradients (over
 // the layers of both chains, pad16(in) * pad16(out) + pad16(out)). d_base_wb
 // and d_rgb_wb receive the gradients in the packed layouts of base_wb and
-// rgb_wb. Launches on `stream`, does not synchronise; returns the launch
-// error (0 on success).
+// rgb_wb. bf16 compute has two bodies, named by `variant`: 1 is the wgmma
+// design (a per-point pass, then one weight-gradient pass per layer), for the
+// flagship widths only (nkt_field_is_flagship); it needs `image`, the bf16
+// weight image (wgmma_chain.cuh FieldImage), and `scratch`, of
+// ceil(n / 64) * 64 * FieldScratch::total bf16 values. 0 is the WMMA body,
+// which takes every shape. Launches on `stream`, does not synchronise;
+// returns the launch error (0 on success).
 extern "C" int nkt_fourier_field_bwd(const float* x, const float* feats, int n, int F,
                                      const float* Bm, int H, const float* base_wb,
                                      int base_floats, const int* base_dims, int n_base,
@@ -387,7 +989,8 @@ extern "C" int nkt_fourier_field_bwd(const float* x, const float* feats, int n, 
                                      int n_rgb, int tri, int bf16, int need_dx, const float* g,
                                      float* dx, float* dfeats, float* partials, int partial_rows,
                                      int partial_stride, float* d_base_wb, float* d_rgb_wb,
-                                     void* stream) {
+                                     int variant, const void* image, int image_bytes,
+                                     void* scratch, long long scratch_bytes, void* stream) {
   Chain base, rgb;
   const int pb = nkt_chain_from_dims(&base, base_dims, n_base);
   if (pb < 0) return pb;
@@ -401,6 +1004,14 @@ extern "C" int nkt_fourier_field_bwd(const float* x, const float* feats, int n, 
       rgb_dims[0] != base_dims[n_base] - 1 + F || rgb_dims[n_rgb] != 3 ||
       stride != partial_stride || partial_rows < 1)
     return NKT_ERR_PACKING;
+  if (variant != 0) {
+    if (!(bf16 && variant == 1 && nkt_field_is_flagship(base, rgb, H, F))) return NKT_ERR_VARIANT;
+    const long long ntiles = ((long long)n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+    const int width = F == 16 ? FieldScratch<32>::total : FieldScratch<64>::total;
+    if (image_bytes != (F == 16 ? FieldImage<32>::bytes : FieldImage<64>::bytes) ||
+        scratch_bytes != ntiles * NKT_WG_ROWS * width * 2)
+      return NKT_ERR_VARIANT;
+  }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (n == 0) {
     cudaError_t err = cudaMemsetAsync(d_base_wb, 0, (size_t)base_floats * sizeof(float), s);
@@ -408,14 +1019,28 @@ extern "C" int nkt_fourier_field_bwd(const float* x, const float* feats, int n, 
     return (int)cudaMemsetAsync(d_rgb_wb, 0, (size_t)rgb_floats * sizeof(float), s);
   }
   int nblocks = 0, rc;
+  if (variant == 1) {
+#define NKT_ARGS                                                                            \
+  x, feats, n, Bm, image, base_wb, base, glb, rgb_wb, rgb, glr, g, dx, dfeats,              \
+      reinterpret_cast<uint32_t*>(scratch), partials, partial_rows, stride, &nblocks, s
+#define NKT_PICK(TRI, KR) \
+  (need_dx ? launch_wgmma<TRI, KR, true>(NKT_ARGS) : launch_wgmma<TRI, KR, false>(NKT_ARGS))
+    if (F == 16)
+      rc = tri ? NKT_PICK(true, 32) : NKT_PICK(false, 32);
+    else
+      rc = tri ? NKT_PICK(true, 64) : NKT_PICK(false, 64);
+#undef NKT_PICK
+#undef NKT_ARGS
+  } else {
 #define NKT_ARGS                                                                              \
   x, feats, n, F, Bm, H, base_wb, base, glb, rgb_wb, rgb, glr, g, need_dx, dx, dfeats, partials, \
       partial_rows, stride, &nblocks, s
-  if (bf16)
-    rc = tri ? launch_mma<true>(NKT_ARGS) : launch_mma<false>(NKT_ARGS);
-  else
-    rc = tri ? launch_f32<true>(NKT_ARGS) : launch_f32<false>(NKT_ARGS);
+    if (bf16)
+      rc = tri ? launch_mma<true>(NKT_ARGS) : launch_mma<false>(NKT_ARGS);
+    else
+      rc = tri ? launch_f32<true>(NKT_ARGS) : launch_f32<false>(NKT_ARGS);
 #undef NKT_ARGS
+  }
   if (rc != 0) return rc;
   rc = nkt_launch_reduce(partials, nblocks, stride, base, glb, d_base_wb, s);
   if (rc != 0) return rc;

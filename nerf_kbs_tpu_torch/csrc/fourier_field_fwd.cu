@@ -15,20 +15,33 @@
 // H100's ~295 bf16 FLOP/byte, so the bound is the arithmetic: ~0.18 ms for the
 // 1.57M points of one 32768-ray chunk at 989 TFLOP/s.
 //
-// What the design does about it: every intermediate (the 256-wide encoding,
-// the hidden layers, geo) stays on chip. The bf16 operating point runs on
-// the tensor cores: one persistent block per SM stages all 57,472 weights
-// once as bf16 in shared memory (~120 KB with padding) and walks over 64-point
-// tiles, each layer a bf16 WMMA product (m16n16k16, f32 accumulation) of the
-// tile's activations in shared memory with the resident weights; bias, relu,
-// the bf16 rounding, sigma, geo and the sigmoid happen in the epilogue. The
-// fragments go through shared memory (no TMA, no wgmma yet), so shared-memory
-// bandwidth, not the tensor cores, is expected to limit it.
-// f32 compute (the oracle mode) keeps the first design: one thread per
-// point, per-point shared-memory columns, f32 FMAs and weights read as
-// warp-wide broadcasts through L1/L2 (in f32 they do not fit in shared memory
-// beside the activations); 96 KB of shared memory per 64-point block.
+// What the design does about it. Three bodies:
+// - bf16 at the flagship widths (fourier_field_fwd_wgmma_kernel, see
+//   wgmma_chain.cuh): one persistent block per SM holds the six W^T matrices
+//   as bf16 in wgmma's core layout (114 KB, staged once from an image the
+//   host builds) and runs three warpgroups, each on its own 64-point tile
+//   with no block barrier, so one group's epilogue overlaps another's
+//   products. Every product is a wgmma m64nNk16 with the weights as the
+//   shared-memory operand and the accumulator in registers; the encoding is
+//   computed straight into A-operand registers, k-step by k-step behind the
+//   running product; bias, relu and the bf16 rounding pack the accumulator
+//   into the next layer's A operand in place: no activation ever lies in
+//   shared memory. The base chain's 16 outputs [sigma_raw, geo] are the rgb
+//   chain's first 16 inputs as they stand (W_r0 carries a zero row for
+//   sigma_raw), the feats come from device memory as the next k-steps.
+//   What limits it now: not the tensor cores (~0.2 ms of their time) but the
+//   f32 ALU work around them, the encoding (~3 K operations a point) and the
+//   epilogues, and each warpgroup's wait for its own product before its
+//   epilogue.
+// - bf16 at any other widths (fourier_field_fwd_mma_kernel, mma_chain.cuh):
+//   WMMA m16n16k16 tiles with activations in shared memory, 8 warps in lock
+//   step on 64-point tiles; shared-memory fragment traffic and the epilogue's
+//   scratch round trip limit it (71% of a tile's time).
+// - f32 compute (the oracle mode): one thread per point, per-point
+//   shared-memory columns, f32 FMAs and weights read as warp-wide broadcasts
+//   through L1/L2; 96 KB of shared memory per 64-point block.
 #include "mma_chain.cuh"
+#include "wgmma_chain.cuh"
 
 // ---------------------------------------------------------------------------
 // f32 compute: one thread per point (see fused_chain.cuh)
@@ -121,6 +134,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
   __nv_bfloat16* cur = reinterpret_cast<__nv_bfloat16*>(smem + L.act0);
   __nv_bfloat16* nxt = reinterpret_cast<__nv_bfloat16*>(smem + L.act1);
 
+  NKT_CLK_BEGIN()
   nkt_mma_stage(base, mbase, base_wb, ws, bs);
   nkt_mma_stage(rgb, mrgb, rgb_wb, ws, bs);
   for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) Bs[i] = Bm[i];
@@ -132,10 +146,13 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
     const long long p0 = (long long)tile * NKT_MMA_ROWS;
     // the barrier also keeps this tile's writes behind the last tile's reads
     __syncthreads();
+    NKT_CLK(tile == (int)blockIdx.x ? NKT_PH_STAGE : NKT_PH_BARRIER)
     nkt_mma_load_x(x, n, p0, xs);
     __syncthreads();
+    NKT_CLK(NKT_PH_LOAD)
     nkt_mma_encode<TRI>(xs, Bs, H, mbase.kp[0], cur, ld);
     __syncthreads();
+    NKT_CLK(NKT_PH_ENCODE)
 
     for (int l = 0; l < base.n_layers - 1; ++l) {
       __nv_bfloat16* out_buf = nxt;
@@ -145,6 +162,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
       nkt_mma_layer(cur, ld, ws + mbase.w_s[l], mbase.np[l] + 8, bs + mbase.b_s[l],
                     mbase.kp[l], mbase.np[l], scratch, relu_store);
       __syncthreads();
+      NKT_CLK(NKT_PH_BARRIER)
       __nv_bfloat16* t = cur;
       cur = nxt;
       nxt = t;
@@ -169,7 +187,9 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
         const float v = (f < F && p0 + r < n) ? feats[(size_t)f * n + p0 + r] : 0.0f;
         rgb_in[r * ld + G + f] = __float2bfloat16_rn(v);
       }
+      NKT_CLK(NKT_PH_OTHER)
       __syncthreads();
+      NKT_CLK(NKT_PH_BARRIER)
       nxt = cur;
       cur = rgb_in;
     }
@@ -181,6 +201,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
       nkt_mma_layer(cur, ld, ws + mrgb.w_s[l], mrgb.np[l] + 8, bs + mrgb.b_s[l],
                     mrgb.kp[l], mrgb.np[l], scratch, relu_store);
       __syncthreads();
+      NKT_CLK(NKT_PH_BARRIER)
       __nv_bfloat16* t = cur;
       cur = nxt;
       nxt = t;
@@ -194,6 +215,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
                     mrgb.kp[l], mrgb.np[l], scratch, sigmoid_store);
     }
   }
+  NKT_CLK_END()
 }
 
 template <bool TRI>
@@ -225,17 +247,140 @@ static int launch_mma(const float* x, const float* feats, int n, int F, const fl
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 compute at the flagship widths: wgmma (see wgmma_chain.cuh)
+// ---------------------------------------------------------------------------
+
+// warpgroups per block, each on its own tile: 384 threads leave 168 registers
+// a thread, which the F = 48 instance needs (148)
+#define NKT_B_WARPGROUPS 3
+
+template <bool TRI, int KR>
+__global__ void __launch_bounds__(NKT_B_WARPGROUPS * NKT_WG_THREADS, 1)
+    fourier_field_fwd_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ feats,
+                                   int n, const float* __restrict__ Bm,
+                                   const uint4* __restrict__ image,
+                                   const float* __restrict__ base_wb, Chain base,
+                                   const float* __restrict__ rgb_wb, Chain rgb,
+                                   float* __restrict__ out) {
+  using I = FieldImage<KR>;
+  constexpr int FSTEPS = KR / 16 - 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  nkt_field_stage<KR>(smem, image, base_wb, base, rgb_wb, rgb, Bm);
+  nkt_fence_async_smem();
+  __syncthreads();
+  const uint32_t ws = nkt_smem_addr(smem);
+  const float* bs = reinterpret_cast<const float*>(smem + I::bytes);
+  const float* Bs = bs + I::bias_floats;
+  const WgLane L = nkt_wg_lane();
+  const int wg = threadIdx.x / NKT_WG_THREADS;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+
+  // no barrier from here on: each warpgroup walks its own tiles
+  for (int tile = blockIdx.x * NKT_B_WARPGROUPS + wg; tile < ntiles;
+       tile += gridDim.x * NKT_B_WARPGROUPS) {
+    const long long pa = (long long)tile * NKT_WG_ROWS + 16 * L.w + L.g, pb = pa + 8;
+    float xa[3], xb[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      xa[d] = pa < n ? x[(size_t)d * n + pa] : 0.0f;
+      xb[d] = pb < n ? x[(size_t)d * n + pb] : 0.0f;
+    }
+    // the rgb chain's input: k-step 0 is [0; geo], the rest the feats
+    uint32_t rgb_in[4 * (1 + FSTEPS)];
+    {
+      uint32_t fe[4 * FSTEPS];
+      nkt_wg_load_feats<FSTEPS>(feats, n, pa, pb, L.t, fe);
+#pragma unroll
+      for (int i = 0; i < 4 * FSTEPS; ++i) rgb_in[4 + i] = fe[i];
+    }
+
+    uint32_t h[32];
+    {
+      float acc[64];
+      nkt_wg_first_layer<TRI, I::H>(acc, Bs, L.t, xa, xb, ws + I::w_b0);
+      nkt_wg_relu_pack<false>(acc, bs + I::b_b0, L.t, h, nullptr);
+      nkt_wg_forward<8>(acc, h, ws + I::w_b1);
+      nkt_wg_relu_pack<false>(acc, bs + I::b_b1, L.t, h, nullptr);
+    }
+    {
+      // last base layer: column 0 is sigma_raw (f32, to the output; its place
+      // in the rgb input is zeroed: that weight row is zero and the value may
+      // not be finite in bf16), columns 1..15 geo
+      float acc[8];
+      nkt_wg_forward<8>(acc, h, ws + I::w_b2);
+      float sigma_a, sigma_b;
+      nkt_wg_base_out(acc, bs + I::b_b2, L.t, rgb_in, &sigma_a, &sigma_b);
+      if (L.t == 0) {
+        if (pa < n) out[pa] = sigma_a;
+        if (pb < n) out[pb] = sigma_b;
+      }
+    }
+    uint32_t r[16];
+    {
+      float acc[32];
+      nkt_wg_forward<KR / 16>(acc, rgb_in, ws + I::w_r0);
+      nkt_wg_relu_pack<false>(acc, bs + I::b_r0, L.t, r, nullptr);
+      nkt_wg_forward<4>(acc, r, ws + I::w_r1);
+      nkt_wg_relu_pack<false>(acc, bs + I::b_r1, L.t, r, nullptr);
+    }
+    {
+      float acc[8];
+      nkt_wg_forward<4>(acc, r, ws + I::w_r2);
+      // columns 0..2 are rgb: thread t holds columns 2t, 2t + 1
+      if (L.t < 2) {
+        const float2 b = *reinterpret_cast<const float2*>(bs + I::b_r2 + 2 * L.t);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 2 * L.t + e;
+          if (c < 3) {
+            const float bias = e == 0 ? b.x : b.y;
+            if (pa < n) out[(size_t)(1 + c) * n + pa] = 1.0f / (1.0f + expf(-(acc[e] + bias)));
+            if (pb < n) out[(size_t)(1 + c) * n + pb] = 1.0f / (1.0f + expf(-(acc[2 + e] + bias)));
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool TRI, int KR>
+static int launch_wgmma(const float* x, const float* feats, int n, const float* Bm,
+                        const void* image, const float* base_wb, const Chain& base,
+                        const float* rgb_wb, const Chain& rgb, float* out, cudaStream_t stream) {
+  using I = FieldImage<KR>;
+  const size_t smem = I::bytes + (I::bias_floats + 3 * I::H) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fourier_field_fwd_wgmma_kernel<TRI, KR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  const int want = (ntiles + NKT_B_WARPGROUPS - 1) / NKT_B_WARPGROUPS;
+  const int grid = want < sms ? want : sms;
+  fourier_field_fwd_wgmma_kernel<TRI, KR>
+      <<<grid, NKT_B_WARPGROUPS * NKT_WG_THREADS, smem, stream>>>(
+          x, feats, n, Bm, reinterpret_cast<const uint4*>(image), base_wb, base, rgb_wb, rgb, out);
+  return (int)cudaGetLastError();
+}
+
 // x (3, n) f32, feats (F, n) f32, Bm (3, H) f32, base_wb / rgb_wb the packed
 // chains (see fused_chain.cuh), out (4, n) f32; all contiguous on the device.
 // The base chain ends in 1 + G outputs and the rgb chain takes G + F inputs
-// and gives 3. bf16 compute runs on the tensor cores, f32 compute on FMAs.
-// Launches on `stream`, does not synchronise; returns the launch error (0 on
-// success).
+// and gives 3. f32 compute runs on FMAs. bf16 compute has two bodies, named
+// by `variant`: 1 is the wgmma body, for the flagship widths only (see
+// nkt_field_is_flagship), and needs `image`, the bf16 weight image of
+// image_bytes (wgmma_chain.cuh FieldImage); 0 is the WMMA body, which takes
+// every shape. Launches on `stream`, does not synchronise; returns the launch
+// error (0 on success).
 extern "C" int nkt_fourier_field_fwd(const float* x, const float* feats, int n, int F,
                                      const float* Bm, int H, const float* base_wb,
                                      int base_floats, const int* base_dims, int n_base,
                                      const float* rgb_wb, int rgb_floats, const int* rgb_dims,
-                                     int n_rgb, int tri, int bf16, float* out, void* stream) {
+                                     int n_rgb, int tri, int bf16, int variant, const void* image,
+                                     int image_bytes, float* out, void* stream) {
   Chain base, rgb;
   const int pb = nkt_chain_from_dims(&base, base_dims, n_base);
   if (pb < 0) return pb;
@@ -244,8 +389,17 @@ extern "C" int nkt_fourier_field_fwd(const float* x, const float* feats, int n, 
   if (pb != base_floats || pr != rgb_floats || base_dims[0] != 2 * H ||
       rgb_dims[0] != base_dims[n_base] - 1 + F || rgb_dims[n_rgb] != 3)
     return NKT_ERR_PACKING;
+  if (variant != 0 && !(bf16 && variant == 1 && nkt_field_is_flagship(base, rgb, H, F) &&
+                        image_bytes == (F == 16 ? FieldImage<32>::bytes : FieldImage<64>::bytes)))
+    return NKT_ERR_VARIANT;
   if (n == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+#define NKT_ARGS x, feats, n, Bm, image, base_wb, base, rgb_wb, rgb, out, s
+    if (F == 16) return tri ? launch_wgmma<true, 32>(NKT_ARGS) : launch_wgmma<false, 32>(NKT_ARGS);
+    return tri ? launch_wgmma<true, 64>(NKT_ARGS) : launch_wgmma<false, 64>(NKT_ARGS);
+#undef NKT_ARGS
+  }
   if (bf16)
     return tri ? launch_mma<true>(x, feats, n, F, Bm, H, base_wb, base, rgb_wb, rgb, out, s)
                : launch_mma<false>(x, feats, n, F, Bm, H, base_wb, base, rgb_wb, rgb, out, s);

@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "fourier_mlp_fwd": (
         "nkt_fourier_mlp_fwd",
@@ -35,7 +36,7 @@ _SIGNATURES = {
     ),
     "fourier_field_fwd": (
         "nkt_fourier_field_fwd",
-        [_P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+        [_P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P],
     ),
     "fourier_mlp_bwd": (
         "nkt_fourier_mlp_bwd",
@@ -44,7 +45,12 @@ _SIGNATURES = {
     "fourier_field_bwd": (
         "nkt_fourier_field_bwd",
         [_P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-         _I, _I, _P, _P, _P],
+         _I, _I, _P, _P, _I, _P, _I, _P, _L, _P],
+    ),
+    # a test bench for the wgmma wrappers, built only when a test asks for it
+    "wgmma_probe": (
+        "nkt_wgmma_probe",
+        [_P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     ),
 }
 

@@ -21,20 +21,29 @@ spec says ``need_dx``.
 
 A wrapper given CUDA tensors launches its kernel (``csrc/``) or raises; given
 CPU tensors it runs the plain version. ``LAUNCHES`` counts kernel launches
-(a backward's reduction pass belongs to its launch).
+(a backward's passes over the points and its reduction belong to one launch).
+The two field kernels have two bf16 bodies: the wgmma body for the flagship
+widths (``_wgmma_field``), counted under the ``*_wgmma`` keys, and the WMMA
+body for every other shape.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.ops import _kernels
 
 # kernel launches per wrapper, added to only where a kernel is launched
 LAUNCHES = {"fourier_mlp": 0, "fourier_field_mlp": 0, "fourier_mlp_bwd": 0,
-            "fourier_field_mlp_bwd": 0}
+            "fourier_field_mlp_bwd": 0, "fourier_field_mlp_wgmma": 0,
+            "fourier_field_mlp_bwd_wgmma": 0}
+# measurement only: send the flagship widths through the WMMA bodies too, so
+# that one run can time both bodies on the same inputs
+FORCE_WMMA = False
 
 
 def reset_launches() -> None:
@@ -290,16 +299,95 @@ def _partial_stride(*chains) -> int:
                for dims in chains for a, b in zip(dims[:-1], dims[1:]))
 
 
+def _packed_offsets(dims):
+    """(weight offsets, bias offsets, size) of ``_pack``'s layout, in floats."""
+    w_off, b_off, off = [], [], 0
+    for a, b in zip(dims[:-1], dims[1:]):
+        w_off.append(off)
+        off = (off + a * b + 3) // 4 * 4
+        b_off.append(off)
+        off = (off + b + 3) // 4 * 4
+    return w_off, b_off, off
+
+
 def _unpack(buf: torch.Tensor, dims):
     """Views of the weights and biases inside a buffer laid out as ``_pack``
     lays it out."""
-    ws, bs, off = [], [], 0
-    for a, b in zip(dims[:-1], dims[1:]):
-        ws.append(buf[off:off + a * b].view(a, b))
-        off = (off + a * b + 3) // 4 * 4
-        bs.append(buf[off:off + b])
-        off = (off + b + 3) // 4 * 4
+    w_off, b_off, _ = _packed_offsets(dims)
+    ws = [buf[o:o + a * b].view(a, b) for o, a, b in zip(w_off, dims[:-1], dims[1:])]
+    bs = [buf[o:o + b] for o, b in zip(b_off, dims[1:])]
     return ws, bs
+
+
+def _wgmma_field(spec: "FusedFieldSpec") -> bool:
+    """True for the shapes the wgmma bodies of the two field kernels are
+    written for (csrc/wgmma_chain.cuh ``nkt_field_is_flagship``): bf16, H = 128,
+    base (256, 128, 128, 16), rgb (15 + F, 64, 64, 3) with F = 16 or 48."""
+    return (spec.bf16 and not FORCE_WMMA and spec.h_freqs == 128
+            and tuple(spec.base_dims) == (256, 128, 128, 16) and spec.feat_dim in (16, 48)
+            and tuple(spec.rgb_dims) == (15 + spec.feat_dim, 64, 64, 3))
+
+
+def _core_offset(r, c, rows: int):
+    """Element offset of (r, c) in a bf16 matrix of ``rows`` rows held as 8x8
+    core matrices of 128 contiguous bytes, core (c // 8, r // 8) at
+    (c // 8) * (rows // 8) + r // 8 (csrc/wgmma_chain.cuh)."""
+    return ((c // 8) * (rows // 8) + r // 8) * 64 + (r % 8) * 8 + c % 8
+
+
+def _shift_rgb_rows(w: torch.Tensor) -> torch.Tensor:
+    """The rgb chain's first weight matrix as the wgmma bodies hold it: a
+    zero row in front, so that the chain's input can be the base chain's
+    whole output [sigma_raw; geo] followed by the feats."""
+    return torch.cat([w.new_zeros(1, w.shape[1]), w], dim=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_image_index(base_dims: tuple, rgb_dims: tuple) -> np.ndarray:
+    """For each bf16 element of the weight image, its source in
+    cat([base packed, rgb packed, [0]]). The image holds, layer after layer,
+    W^T (pad16(out) rows of pad16(in) columns, zeros in the padding) in the
+    core layout; the rgb chain's first matrix gets ``_shift_rgb_rows``."""
+    _, _, base_floats = _packed_offsets(base_dims)
+    _, _, rgb_floats = _packed_offsets(rgb_dims)
+    zero = base_floats + rgb_floats
+    parts = []
+    for dims, start, is_rgb in ((base_dims, 0, False), (rgb_dims, base_floats, True)):
+        w_off = _packed_offsets(dims)[0]
+        for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+            shift = 1 if is_rgb and l == 0 else 0
+            K, N = _pad16(din + shift), _pad16(dout)
+            n_, k_ = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+            valid = (n_ < dout) & (k_ >= shift) & (k_ - shift < din)
+            src = np.where(valid, start + w_off[l] + (k_ - shift) * dout + n_, zero)
+            idx = np.empty(N * K, dtype=np.int64)
+            idx[_core_offset(n_, k_, N).reshape(-1)] = src.reshape(-1)
+            parts.append(idx)
+    return np.concatenate(parts)
+
+
+_image_index_on_device: dict = {}
+
+
+def _weight_image(base_wb: torch.Tensor, rgb_wb: torch.Tensor, base_dims, rgb_dims):
+    """The bf16 weight image of both packed chains (one gather, one cast)."""
+    key = (tuple(base_dims), tuple(rgb_dims), base_wb.device)
+    if key not in _image_index_on_device:
+        _image_index_on_device[key] = torch.from_numpy(
+            _weight_image_index(key[0], key[1])).to(base_wb.device)
+    src = torch.cat([base_wb, rgb_wb, base_wb.new_zeros(1)])
+    return src[_image_index_on_device[key]].to(torch.bfloat16)
+
+
+def _field_scratch_bytes(n: int, feat_dim: int) -> int:
+    """Bytes the wgmma backward's per-point pass leaves for its
+    weight-gradient pass (csrc/fourier_field_bwd.cu ``FieldScratch``): per
+    point, as bf16, every layer's input but the encoding (128 + 128 + KR + 64
+    + 64, KR = 16 + feat_dim being the rgb chain's padded input) and every
+    pre-activation gradient (128 + 128 + 16 + 64 + 64 + 16), for whole
+    64-point tiles."""
+    tiles = (n + 63) // 64
+    return tiles * 64 * (800 + 16 + feat_dim) * 2
 
 
 def _sm_count(t: torch.Tensor) -> int:
@@ -420,15 +508,19 @@ def _field_forward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_ws
     base_wb = _pack(base_ws, base_bs, spec.base_dims, spec.bf16)
     rgb_wb = _pack(rgb_ws, rgb_bs, spec.rgb_dims, spec.bf16)
     out = torch.empty(4, n, device=x.device, dtype=torch.float32)
+    wgmma = _wgmma_field(spec)
+    image = _weight_image(base_wb, rgb_wb, spec.base_dims, spec.rgb_dims) if wgmma else None
     _kernels.call(
         "fourier_field_fwd", x.data_ptr(), fe.data_ptr(), n, F, Bc.data_ptr(), H,
         base_wb.data_ptr(), base_wb.numel(), _kernels.int_array(spec.base_dims),
         len(spec.base_dims) - 1,
         rgb_wb.data_ptr(), rgb_wb.numel(), _kernels.int_array(spec.rgb_dims),
         len(spec.rgb_dims) - 1,
-        int(spec.basis == "tri"), int(spec.bf16), out.data_ptr(), _stream(x),
+        int(spec.basis == "tri"), int(spec.bf16), int(wgmma),
+        image.data_ptr() if wgmma else None, 2 * image.numel() if wgmma else 0,
+        out.data_ptr(), _stream(x),
     )
-    LAUNCHES["fourier_field_mlp"] += 1
+    LAUNCHES["fourier_field_mlp_wgmma" if wgmma else "fourier_field_mlp"] += 1
     return out
 
 
@@ -454,6 +546,11 @@ def _field_backward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_w
     dfeats = torch.empty(F, n, device=x.device, dtype=torch.float32)
     rows, stride = _sm_count(x), _partial_stride(spec.base_dims, spec.rgb_dims)
     partials = torch.empty(rows * stride, device=x.device, dtype=torch.float32)
+    wgmma = _wgmma_field(spec)
+    image = scratch = None
+    if wgmma:
+        image = _weight_image(base_wb, rgb_wb, spec.base_dims, spec.rgb_dims)
+        scratch = torch.empty(_field_scratch_bytes(n, F), device=x.device, dtype=torch.uint8)
     _kernels.call(
         "fourier_field_bwd", x.data_ptr(), fe.data_ptr(), n, F, Bc.data_ptr(), H,
         base_wb.data_ptr(), base_wb.numel(), _kernels.int_array(spec.base_dims),
@@ -462,9 +559,11 @@ def _field_backward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_w
         len(spec.rgb_dims) - 1,
         int(spec.basis == "tri"), int(spec.bf16), int(spec.need_dx), gc.data_ptr(),
         dx.data_ptr() if spec.need_dx else None, dfeats.data_ptr(), partials.data_ptr(), rows,
-        stride, d_base.data_ptr(), d_rgb.data_ptr(), _stream(x),
+        stride, d_base.data_ptr(), d_rgb.data_ptr(), int(wgmma),
+        image.data_ptr() if wgmma else None, 2 * image.numel() if wgmma else 0,
+        scratch.data_ptr() if wgmma else None, scratch.numel() if wgmma else 0, _stream(x),
     )
-    LAUNCHES["fourier_field_mlp_bwd"] += 1
+    LAUNCHES["fourier_field_mlp_bwd_wgmma" if wgmma else "fourier_field_mlp_bwd"] += 1
     d_base_ws, d_base_bs = _unpack(d_base, spec.base_dims)
     d_rgb_ws, d_rgb_bs = _unpack(d_rgb, spec.rgb_dims)
     return dx, dfeats, d_base_ws, d_base_bs, d_rgb_ws, d_rgb_bs

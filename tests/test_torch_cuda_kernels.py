@@ -155,3 +155,156 @@ def test_fourier_field_backward_kernel(dev, basis, bf16, need_dx):
     flat_a = [again[1], *again[2], *again[3], *again[4], *again[5]]
     for a, b in zip(flat_a, flat_g):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# wgmma: the layout rules of csrc/wgmma_chain.cuh, then the two field kernels
+# at the flagship widths, which run its bodies
+# ---------------------------------------------------------------------------
+
+
+def _core_image(m: torch.Tensor) -> torch.Tensor:
+    """bf16 matrix m[r][c] (c contiguous) in the 8x8 core-matrix layout."""
+    rows, cols = m.shape
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    img = torch.empty(rows * cols, dtype=torch.bfloat16, device=m.device)
+    img[torch.from_numpy(ff._core_offset(r, c, rows)).reshape(-1).to(m.device)] = \
+        m.to(torch.bfloat16).reshape(-1)
+    return img
+
+
+def _probe(a_rows, a_img, a_place, b_img, b_place, ksteps, n, trans_a, trans_b):
+    from nerf_kbs_tpu_torch.ops import _kernels
+
+    out = torch.full((64, n), float("nan"), device=b_img.device)
+    _kernels.call(
+        "wgmma_probe", None if a_rows is None else a_rows.data_ptr(),
+        0 if a_rows is None else a_rows.shape[1],
+        None if a_img is None else a_img.data_ptr(), 0 if a_img is None else 2 * a_img.numel(),
+        *a_place, b_img.data_ptr(), 2 * b_img.numel(), *b_place, ksteps, n, trans_a, trans_b,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return out
+
+
+def _rounded(t):
+    return t.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128])
+def test_wgmma_forward_layout(dev, n):
+    """A in registers, W^T [n][k] in the core layout read K-major."""
+    rng = np.random.default_rng(n)
+    a = torch.tensor(rng.normal(size=(64, 32)), dtype=torch.float32, device=dev)
+    w = torch.tensor(rng.normal(size=(32, n)), dtype=torch.float32, device=dev)
+    place = (0, 32 * n, 16 * n, 128)  # start, k-step, leading, stride
+    want = _rounded(a) @ _rounded(w)
+    got = _probe(a, None, (0, 0, 0, 0), _core_image(w.T.contiguous()), place, 2, n, 0, 0)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+def test_wgmma_backward_layout(dev):
+    """dh in registers times W^T: the same [out][in] image read with trans."""
+    rng = np.random.default_rng(5)
+    n_out, n_in, in0, n = 32, 64, 32, 32
+    dh = torch.tensor(rng.normal(size=(64, n_out)), dtype=torch.float32, device=dev)
+    w = torch.tensor(rng.normal(size=(n_in, n_out)), dtype=torch.float32, device=dev)
+    place = (in0 * 2 * n_out, 256, 128, 16 * n_out)
+    want = _rounded(dh) @ _rounded(w)[in0:in0 + n].T
+    img = _core_image(w.T.contiguous())
+    got = _probe(dh, None, (0, 0, 0, 0), img, place, n_out // 16, n, 0, 1)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n", [16, 64, 128])
+def test_wgmma_weight_gradient_layout(dev, n):
+    """act^T . dh over a tile of 64 points, both [point][feature] in shared
+    memory, read with trans on both sides."""
+    rng = np.random.default_rng(7 + n)
+    act = torch.tensor(rng.normal(size=(64, 128)), dtype=torch.float32, device=dev)
+    dh = torch.tensor(rng.normal(size=(64, n)), dtype=torch.float32, device=dev)
+    a_place = (8 * 1024, 256, 128, 1024)  # features 64..127
+    b_place = (0, 256, 128, 1024)
+    want = _rounded(act)[:, 64:].T @ _rounded(dh)
+    args = (_core_image(act), a_place, _core_image(dh), b_place)
+    got = _probe(None, args[0], a_place, args[2], b_place, 4, n, 1, 1)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+FLAGSHIP_BASE = (256, 128, 128, 16)
+EDGE_N = [1, 63, 64, 65, 64 * 3 + 1, 5000]
+
+
+def _flagship(rng, n, F, basis, dev):
+    x, B = _inputs(rng, 128, n, basis, dev)
+    rgb_dims = (15 + F, 64, 64, 3)
+    bws, bbs = _mlp(rng, FLAGSHIP_BASE, dev)
+    rws, rbs = _mlp(rng, rgb_dims, dev)
+    feats = torch.tensor(rng.normal(size=(F, n)), dtype=torch.float32, device=dev)
+    spec = dict(h_freqs=128, feat_dim=F, base_dims=FLAGSHIP_BASE, rgb_dims=rgb_dims, bf16=True,
+                basis=basis)
+    return x, B, feats, bws, bbs, rws, rbs, spec
+
+
+@pytest.mark.parametrize("basis", ["tri", "sincos"])
+@pytest.mark.parametrize("F", [16, 48])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_fourier_field_kernel_flagship(dev, basis, F, n):
+    rng = np.random.default_rng(11)
+    x, B, feats, bws, bbs, rws, rbs, kw = _flagship(rng, n, F, basis, dev)
+    spec = ff.FusedFieldSpec(**kw)
+    before = dict(ff.LAUNCHES)
+    got = ff.fourier_field_mlp(spec, x, feats, B, bws, bbs, rws, rbs)
+    assert ff.LAUNCHES["fourier_field_mlp_wgmma"] == before["fourier_field_mlp_wgmma"] + 1
+    assert ff.LAUNCHES["fourier_field_mlp"] == before["fourier_field_mlp"]
+    want = ff.fourier_field_reference(x, feats, B, bws, bbs, rws, rbs, basis, True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL[True]
+
+
+@pytest.mark.parametrize("basis", ["tri", "sincos"])
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("F", [16, 48])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_fourier_field_backward_kernel_flagship(dev, basis, need_dx, F, n):
+    rng = np.random.default_rng(13)
+    x, B, feats, bws, bbs, rws, rbs, kw = _flagship(rng, n, F, basis, dev)
+    g = torch.tensor(rng.normal(size=(4, n)), dtype=torch.float32, device=dev)
+    spec = ff.FusedFieldSpec(need_dx=need_dx, **kw)
+    before = dict(ff.LAUNCHES)
+    got = ff._field_backward(spec, x, feats, B, bws, bbs, rws, rbs, g)
+    assert ff.LAUNCHES["fourier_field_mlp_bwd_wgmma"] == before["fourier_field_mlp_bwd_wgmma"] + 1
+    assert ff.LAUNCHES["fourier_field_mlp_bwd"] == before["fourier_field_mlp_bwd"]
+    want = ff.fourier_field_backward_reference(x, feats, B, bws, bbs, rws, rbs, g, basis, True,
+                                               need_dx)
+    torch.cuda.synchronize()
+    assert (got[0] is None) == (not need_dx)
+    flat_g = [got[1], *got[2], *got[3], *got[4], *got[5]] + ([got[0]] if need_dx else [])
+    flat_w = [want[1], *want[2], *want[3], *want[4], *want[5]] + ([want[0]] if need_dx else [])
+    names = (["dfeats"] + [f"d_base_w{i}" for i in range(3)] + [f"d_base_b{i}" for i in range(3)]
+             + [f"d_rgb_w{i}" for i in range(3)] + [f"d_rgb_b{i}" for i in range(3)] + ["dx"])
+    # One bf16 rounding of a hidden activation that falls the other way in
+    # kernel and plain version can flip a relu mask downstream, at a handful
+    # of points in thousands. With this few points a weight gradient then
+    # moves by percents. So: the last rgb layer's gradients, which pass no
+    # mask, against the plain version; every output against the WMMA body,
+    # which masks and rounds at the same places (the tests above hold that
+    # body to the plain version); and the per-point outputs against the plain
+    # version at all but a few points.
+    _check_all([names[9], names[12]], [flat_g[9], flat_g[12]], [flat_w[9], flat_w[12]],
+               BWD_TOL[True])
+    ff.FORCE_WMMA = True
+    try:
+        old = ff._field_backward(spec, x, feats, B, bws, bbs, rws, rbs, g)
+    finally:
+        ff.FORCE_WMMA = False
+    flat_o = [old[1], *old[2], *old[3], *old[4], *old[5]] + ([old[0]] if need_dx else [])
+    _check_all(names, flat_g, flat_o, 1e-3)
+    for a, b in [(flat_g[0], flat_w[0])] + ([(flat_g[-1], flat_w[-1])] if need_dx else []):
+        off = ((a - b).abs() > BWD_TOL[True] * b.abs().max()).any(dim=0)
+        assert int(off.sum()) <= max(1, n // 500)
+    again = ff._field_backward(spec, x, feats, B, bws, bbs, rws, rbs, g)
+    flat_a = [again[1], *again[2], *again[3], *again[4], *again[5]]
+    for a, b in zip(flat_a, flat_g):
+        assert torch.equal(a, b)
