@@ -5,35 +5,43 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 1. device: the card (nvidia-smi name and power limit), then the four kernel
-   sources (two proposal-field kernels on WMMA; two field kernels, each with
-   a wgmma body for the flagship widths, a WMMA body for other widths and an
-   f32 body) are built from csrc/ into build/ (one nvcc per source, started
-   together);
+   sources (each with a wgmma body for the flagship widths, a WMMA body for
+   other widths and an f32 body) are built from csrc/ into build/ (one nvcc
+   per source, started together), with ptxas' registers and spills of every
+   wgmma kernel;
 2. kernel parity: each kernel against its plain PyTorch version on the card,
    both bases and both compute dtypes, at the main paths' shapes and a
-   ragged N, and the two field kernels' wgmma bodies also at N below and
-   around one tile and one block's tiles; the two backward kernels also with
+   ragged N, and every wgmma body also at N below and around one tile, one
+   block's tiles and all resident tiles; the two backward kernels also with
    and without the position gradient, every output compared, and a repeat of
    the launch must give the same bits; times of each kernel and its plain
    version at the main paths' operating point (tri basis, bf16, no position
-   gradient), for the two field kernels the wgmma body and the WMMA body in
-   turns, and the backward's two passes apart;
+   gradient), the wgmma body and the WMMA body in turns, and the backwards'
+   passes apart. A kernel's time (ms) is the CUDA-event time of back-to-back
+   calls of its wrapper; the device time of every kernel the wrapper launches
+   (device_ms, torch.profiler) stands beside it and is smaller where the host
+   cannot enqueue the wrapper's launches as fast as they run;
 3. the serving slice: nerfacto-tpu at full width in bf16 with seeded weights renders
    a 376x1241 camera through Renderer.render_camera in 1<<15-ray chunks; the
    launch counts must show 2 proposal-field and 1 field launches per chunk,
-   the field's through its wgmma body;
-   the frame time is the median of 5 more renders; a profiler pass gives the
-   device time by kernel; a small camera rendered in f32 on the card must
+   all through their wgmma bodies;
+   the frame time is the median of 5 more renders; then the frame with all
+   wgmma bodies, with the field kernel's WMMA body and with the two
+   proposal-field kernels' WMMA bodies in turns; a profiler pass gives the
+   device time by kernel, once more with the proposal-field kernels' WMMA
+   bodies; a small camera rendered in f32 on the card must
    match the CPU plain path; the viewer answers /status, /render and /orbit
    with PNGs;
 4. the training slice: 22 steps of the bench's train step (full-width bf16
    nerfacto-tpu, 16,384 random pixels of 32 cameras of 376x1241 and random
    colours per step, forward -> loss -> backward -> per-group Adam) with the
-   launch counts 2 / 1 / 2 / 1 per step (the field's two through their wgmma
+   launch counts 2 / 1 / 2 / 1 per step (all through their wgmma
    bodies) and the median step time of the last
-   20; Trainer.train(30) at full width on the synthetic sphere scene (loss
+   20; the same three turns of bodies; Trainer.train(30) at full width on the
+   synthetic sphere scene (loss
    finite and falling, metrics.jsonl, eval_image, checkpoint save and load);
-   a profiler pass over one step; 3 steps in f32 on the card against the
+   a profiler pass over one step, once more with the proposal-field kernels'
+   WMMA bodies; 3 steps in f32 on the card against the
    same 3 steps on the CPU plain path;
 5. a {"kernels": [...]} line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -104,10 +112,60 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, flops: float, bf16: bool) -> tuple[float, str]:
-    t_bytes = n_bytes / H100_BYTES
-    t_ops = flops / (H100_BF16_FLOPS if bf16 else H100_F32_FLOPS)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+# thread-instructions a second of the f32 pipes: SMs x 128 lanes x the SM
+# clock nvidia-smi reports as the card's maximum; set by phase_device
+ALU = {"per_s": None}
+
+
+def bound(n_bytes: float, flops: float, alu_ops: float, bf16: bool) -> dict:
+    """The least time the card could take: the largest of the bytes over the
+    memory rate, the matrix FLOPs over the tensor-core peak and the scalar f32
+    instructions (``alu_ops``) over the instruction rate of the f32 pipes;
+    ``bound_by`` names which: bytes, operations (the tensor cores') or alu.
+    The first two alone stay on the record as ``bound_ms_bytes_or_tensor``,
+    the bound of runs that had no ALU term."""
+    t = {"bytes": n_bytes / H100_BYTES,
+         "operations": flops / (H100_BF16_FLOPS if bf16 else H100_F32_FLOPS),
+         "alu": alu_ops / ALU["per_s"]}
+    by = max(t, key=t.get)
+    return {"bound_ms": t[by] * 1e3, "bound_by": by,
+            "bound_ms_bytes_or_tensor": max(t["bytes"], t["operations"]) * 1e3,
+            "bound_ms_alu": t["alu"] * 1e3}
+
+
+def alu_ops_per_point(kernel: str, h_freqs: int, hidden_cols: int) -> float:
+    """Scalar f32 instructions a point that the function itself defines, in
+    the tri basis: its arithmetic outside the matrix products and the
+    roundings at its cast points, one instruction per lane and clock (a
+    rounding to bf16 packs two values and counts half per value). What only a
+    body's design needs (shared-memory stores, shuffles, address arithmetic,
+    loop control) is left out.
+    - The encoding, per frequency: the projection (1 mul, 2 fma), tri_s (add,
+      floor, sub, sub under abs, fma: 5), tri_c (floor, sub, sub, fma: 4), the
+      rounding of s and of c (2 x 0.5): 13.
+    - A hidden column forward: bias add, max, its rounding: 2.5.
+    - A hidden column backward: the mask's select, the bias-gradient add, the
+      rounding of dh: 2.5.
+    - The proposal chain's width-1 layer per hidden column, in f32 on the
+      rounded activation: forward the activation back in f32 and an fma (2),
+      and one add of b_1 a point; backward (whose forward product nothing
+      needs) the activation back in f32, the dW_1 fma and the product w_1 g
+      (3, with the column's 2.5 forward and 2.5 backward: 8), and one add of
+      db_1 a point.
+    - The field's other columns: the 16 base outputs' bias add and their
+      rounding (1.5), the 16 feats' rounding (0.5), ~10 for each of 3
+      sigmoids; backward g rgb (1 - rgb) (3 each), the rounding and the
+      bias-gradient add of the 3 rgb gradients and of the 16 base-output
+      gradients (1.5 each)."""
+    enc = 13.0 * h_freqs
+    if kernel == "fourier_mlp_fwd":
+        return enc + hidden_cols * (2.5 + 2) + 1
+    if kernel == "fourier_mlp_bwd":
+        return enc + hidden_cols * (2.5 + 2.5 + 3) + 1
+    field_fwd = enc + hidden_cols * 2.5 + 16 * 1.5 + 16 * 0.5 + 3 * 10
+    if kernel == "fourier_field_fwd":
+        return field_fwd
+    return field_fwd + hidden_cols * 2.5 + 3 * 3 + (3 + 16) * 1.5
 
 
 def phase_device():
@@ -120,13 +178,29 @@ def phase_device():
     print(smi, flush=True)
     from nerf_kbs_tpu_torch.ops import _kernels
 
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ALU["per_s"] = sms * 128 * clock_mhz * 1e6
+
     t0 = time.perf_counter()
     paths = _kernels.build()
-    regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-            for n, log in _kernels.build_logs.items()}
+    build_s = time.perf_counter() - t0
+    # registers, stack and spills of every wgmma kernel
+    regs = {}
+    for n, log in _kernels.build_logs.items():
+        name = ""
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln or "Function properties" in ln:
+                name = ln.split("_Z")[-1][:60]
+            if ("wgmma" in name or "nkt_field_dw" in name) and ("registers" in ln or "spill" in ln):
+                regs.setdefault(n, []).append(
+                    f"{name}: " + ln.replace("ptxas info    : ", "").strip())
     emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": time.perf_counter() - t0, "libs": [str(p.name) for p in paths.values()],
+          "torch": torch.__version__, "cuda": torch.version.cuda, "sms": sms,
+          "max_sm_clock_mhz": clock_mhz, "alu_instructions_per_s": ALU["per_s"],
+          "build_s": build_s, "libs": [str(p.name) for p in paths.values()],
           "ptxas": regs})
 
 
@@ -215,16 +289,33 @@ def phase_kernels():
                 lambda: flat(ff.fourier_field_backward_reference(x, fe, B, bws, bbs, rws, rbs, g,
                                                                  basis, bf16, need_dx)))
 
-    def wmma_body(kern):
-        """The same call sent through the WMMA body (the flagship widths take
-        the wgmma body otherwise)."""
+    def wmma_body(kern, name):
+        """The same call with kernel ``name`` sent through its WMMA body (the
+        flagship widths take the wgmma body otherwise)."""
         def call():
-            ff.FORCE_WMMA = True
+            ff.FORCE_WMMA = frozenset({WRAPPER[name]})
             try:
                 return kern()
             finally:
-                ff.FORCE_WMMA = False
+                ff.FORCE_WMMA = frozenset()
         return call
+
+    def device_ms(fn, reps):
+        """Device time of one call: every kernel the wrapper launches, summed
+        under torch.profiler over ``reps`` calls; and that time by kernel. The
+        profiler now and then loses device events of a pass; then some
+        kernel's count is no multiple of ``reps`` and the pass is repeated."""
+        fn()
+
+        def work():
+            for _ in range(reps):
+                fn()
+        for _ in range(5):
+            events = device_events(work)[1]
+            if all(count % reps == 0 for _, _, count in events):
+                by_name = {name: us / 1e3 / reps for name, us, _ in events}
+                return sum(by_name.values()), by_name
+        raise RuntimeError("the profiler lost device events in five passes running")
 
     def rel_err(got, want):
         return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
@@ -262,6 +353,7 @@ def phase_kernels():
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
                     emit({"phase": "parity", "kernel": name, "n": n, "basis": basis,
                           "dtype": "bf16" if bf16 else "f32", "need_dx": need_dx,
+                          "body": "wgmma" if bf16 else "f32",
                           "outputs": len(got), "tol": tol, "sum_tol": SUM_TOLERANCE,
                           "max_rel_err": max(e for e, pp in zip(errs, per_point) if not pp),
                           "last_layer_rel_err": errs[-1],
@@ -292,12 +384,19 @@ def phase_kernels():
                 err = float((got - want).abs().max())
                 tol = TOLERANCE[(basis, bf16)]
                 emit({"phase": "parity", "kernel": name, "n": n, "basis": basis,
-                      "dtype": "bf16" if bf16 else "f32", "max_abs_err": err, "tol": tol,
+                      "dtype": "bf16" if bf16 else "f32", "body": "wgmma" if bf16 else "f32",
+                      "max_abs_err": err, "tol": tol,
                       "max_abs_ref": float(want.abs().max())})
                 check(err <= tol, f"{name} n={n} {basis} bf16={bf16}: err {err} > {tol}")
                 del got, want
         del x, fe
         torch.cuda.empty_cache()
+
+    ran = {k: v for k, v in ff.LAUNCHES.items() if v}
+    check(ran == {"fourier_mlp": 4, "fourier_mlp_wgmma": 4, "fourier_field_mlp": 4,
+                  "fourier_field_mlp_wgmma": 4, "fourier_mlp_bwd": 16,
+                  "fourier_mlp_bwd_wgmma": 16, "fourier_field_mlp_bwd": 16,
+                  "fourier_field_mlp_bwd_wgmma": 16}, f"parity launches {ran}")
 
     # the wgmma bodies below and around one tile and one block's tiles (a
     # block runs several tiles at once). The forward is held to its plain
@@ -317,7 +416,8 @@ def phase_kernels():
             errs = {}
             for need_dx in (False, True):
                 kern, plain = d_call(basis, True, need_dx, x, fe, g)
-                got, want, again, old = kern(), plain(), kern(), wmma_body(kern)()
+                got, want, again = kern(), plain(), kern()
+                old = wmma_body(kern, "fourier_field_bwd")()
                 check(all(bool(torch.isfinite(t).all()) for t in got),
                       f"fourier_field_bwd n={n}: non-finite output")
                 errs[need_dx] = {"last_layer_vs_plain": max(rel_err(got[-4], want[-4]),
@@ -338,43 +438,98 @@ def phase_kernels():
                   "bwd_rel_err": {"no_dx": errs[False], "dx": errs[True]},
                   "sum_tol": SUM_TOLERANCE, "repeat_bit_identical": True})
 
+    # the same for the two proposal-field kernels: a block of the forward
+    # runs 2 tiles at once, one of the backward 4, and the last size gives the
+    # resident warpgroups of a 132-SM card a second and a third tile (the
+    # backward's two tile buffers in turn, the prefetch across tiles). db_1,
+    # the sum of g, passes no mask and is held to the plain version
+    for n in (1, 63, 64, 65, 64 * 2 + 1, 64 * 3 + 1, 64 * 4 + 1, 64 * 132 * 8 + 1):
+        x = positions(n)
+        g = torch.randn(1, n, generator=gen).to(dev)
+        for basis in ("tri", "sincos"):
+            before = dict(ff.LAUNCHES)
+            kern, plain = a_call(basis, True, x)
+            got, want = kern(), plain()
+            err = float((got - want).abs().max())
+            err_old = float((got - wmma_body(kern, "fourier_mlp_fwd")()).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= TOLERANCE[(basis, True)]
+                  and err_old <= TOLERANCE[(basis, True)],
+                  f"fourier_mlp_fwd n={n} {basis}: err {err}, vs WMMA body {err_old}")
+            errs = {}
+            for need_dx in (False, True):
+                kern, plain = c_call(basis, True, need_dx, x, g)
+                got, want, again = kern(), plain(), kern()
+                old = wmma_body(kern, "fourier_mlp_bwd")()
+                check(all(bool(torch.isfinite(t).all()) for t in got),
+                      f"fourier_mlp_bwd n={n}: non-finite output")
+                errs[need_dx] = {"last_layer_vs_plain": rel_err(got[-1], want[-1]),
+                                 "all_vs_plain": max(rel_err(a, b) for a, b in zip(got, want)),
+                                 "all_vs_wmma_body": max(rel_err(a, b)
+                                                         for a, b in zip(got, old))}
+                check(errs[need_dx]["last_layer_vs_plain"] <= SUM_TOLERANCE
+                      and errs[need_dx]["all_vs_wmma_body"] <= SUM_TOLERANCE,
+                      f"fourier_mlp_bwd n={n} {basis} need_dx={need_dx}: {errs[need_dx]}")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"fourier_mlp_bwd n={n} {basis}: a repeat gave other bits")
+            moved = {k: ff.LAUNCHES[k] - before[k] for k in ff.LAUNCHES if ff.LAUNCHES[k] != before[k]}
+            check(moved == {"fourier_mlp_wgmma": 1, "fourier_mlp": 1, "fourier_mlp_bwd_wgmma": 4,
+                            "fourier_mlp_bwd": 2}, f"edge launches {moved}")
+            emit({"phase": "parity_edge", "kernels": "fourier_mlp_fwd, fourier_mlp_bwd", "n": n,
+                  "basis": basis, "dtype": "bf16", "fwd_max_abs_err": err,
+                  "fwd_vs_wmma_body": err_old, "tol": TOLERANCE[(basis, True)],
+                  "bwd_rel_err": {"no_dx": errs[False], "dx": errs[True]},
+                  "sum_tol": SUM_TOLERANCE, "repeat_bit_identical": True})
+
     # times at the main path's operating point (tri, bf16) and shapes; the
-    # inputs stay warm in L2 between launches (x of proposal round 0 is 38 MB)
+    # inputs stay warm in L2 between launches (x of proposal round 0 is 38 MB).
+    # ms is the CUDA-event time of back-to-back calls, the wgmma body (the main
+    # path's) and the WMMA body in turns; device_ms is the device time of one
+    # call (every kernel the wrapper launches, torch.profiler), the smaller
+    # where the host cannot enqueue a call as fast as it runs
+    def both_ms(fn, reps):
+        """(CUDA-event ms, profiler device ms, device ms by kernel) of fn."""
+        ev = time_ms(fn, reps)
+        dv, by_name = device_ms(fn, reps)
+        return ev, dv, by_name
+
     records = []
     a_mac = 3 * pB.shape[1] + sum(a * b for a, b in zip(pcfg.mlp.dims, pcfg.mlp.dims[1:]))
     b_mac = 3 * fB.shape[1] + sum(a * b for dims in (fcfg.base_mlp.dims, fcfg.rgb_mlp.dims)
                                   for a, b in zip(dims, dims[1:]))
     a_w = sum(t.numel() for t in (*pws, *pbs)) + pB.numel()
     b_w = sum(t.numel() for t in (*bws, *bbs, *rws, *rbs)) + fB.numel()
-    for name, n, per_point_bytes, w_floats, mac, src, line in (
-        ("fourier_mlp_fwd", n_a0, 12 + 4, a_w, a_mac, "fourier_mlp_fwd.cu", 329),
-        ("fourier_field_fwd", n_b, 12 + 64 + 16, b_w, b_mac, "fourier_field_fwd.cu", 677),
+    a_hidden = sum(pcfg.mlp.dims[1:-1])
+    b_hidden = sum(fcfg.base_mlp.dims[1:-1]) + sum(fcfg.rgb_mlp.dims[1:-1])
+    for name, n, per_point_bytes, w_floats, mac, alu, src, line in (
+        ("fourier_mlp_fwd", n_a0, 12 + 4, a_w, a_mac,
+         alu_ops_per_point("fourier_mlp_fwd", pB.shape[1], a_hidden), "fourier_mlp_fwd.cu", 329),
+        ("fourier_field_fwd", n_b, 12 + 64 + 16, b_w, b_mac,
+         alu_ops_per_point("fourier_field_fwd", fB.shape[1], b_hidden), "fourier_field_fwd.cu",
+         677),
     ):
         x = positions(n)
         kern, plain = (a_call("tri", True, x) if name == "fourier_mlp_fwd"
                        else b_call("tri", True, x, feats(n)))
         want = plain()
         err = float((kern() - want).abs().max())
-        extra = {}
-        if name == "fourier_field_fwd":
-            # the wgmma body (the main path's) and the WMMA body in turns
-            old = wmma_body(kern)
-            err_old = float((old() - want).abs().max())
-            check(err_old <= TOLERANCE[("tri", True)], f"{name} WMMA body: err {err_old}")
-            turns = [time_ms(old, 5), time_ms(kern, 20), time_ms(kern, 20), time_ms(old, 5)]
-            ms = (turns[1] + turns[2]) / 2
-            extra = {"body": "wgmma", "wmma_body_ms": (turns[0] + turns[3]) / 2,
-                     "wmma_body_max_abs_err": err_old, "turns_ms": turns}
-        else:
-            ms = time_ms(kern, 20)
+        old = wmma_body(kern, name)
+        err_old = float((old() - want).abs().max())
+        check(err_old <= TOLERANCE[("tri", True)], f"{name} WMMA body: err {err_old}")
         del want
+        turns = [both_ms(old, 5), both_ms(kern, 20), both_ms(kern, 20), both_ms(old, 5)]
+        by_name = turns[1][2]
+        ev, dv = [t[0] for t in turns], [t[1] for t in turns]
         plain_ms = time_ms(plain, 3)
-        bms, by = bound(n * per_point_bytes + 4 * w_floats, 2.0 * n * mac, bf16=True)
         rec = {"name": name, "route": "cuda", "source": f"nerf_kbs_tpu_torch/csrc/{src}",
                "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-               "bound_by": by, "library_ms": None, "n_points": n, "basis": "tri",
-               "dtype": "bf16", **extra}
+               "max_abs_err": err, "ms": (ev[1] + ev[2]) / 2, "plain_ms": plain_ms,
+               **bound(n * per_point_bytes + 4 * w_floats, 2.0 * n * mac, n * alu, bf16=True),
+               "library_ms": None, "n_points": n, "basis": "tri", "dtype": "bf16",
+               "alu_instructions_per_point": alu, "body": "wgmma",
+               "wmma_body_ms": (ev[0] + ev[3]) / 2, "wmma_body_max_abs_err": err_old,
+               "turns_ms": ev, "device_ms": (dv[1] + dv[2]) / 2,
+               "wmma_body_device_ms": (dv[0] + dv[3]) / 2, "device_turns_ms": dv,
+               "body_kernel_ms": sum(v for k, v in by_name.items() if "wgmma_kernel" in k)}
         emit({"phase": "timing", **rec})
         records.append(rec)
         del x
@@ -391,9 +546,11 @@ def phase_kernels():
     pm, bm, rm = macs(pcfg.mlp.dims), macs(fcfg.base_mlp.dims), macs(fcfg.rgb_mlp.dims)
     c_mac = 3 * pB.shape[1] + sum(pm[:-1]) + sum(pm) + sum(pm[1:])
     d_mac = b_mac + sum(bm) + sum(rm) + sum(bm[1:]) + sum(rm)
-    for name, n, per_point_bytes, w_floats, mac, src, line in (
-        ("fourier_mlp_bwd", n_c0, 12 + 4, 2 * a_w, c_mac, "fourier_mlp_bwd.cu", 381),
-        ("fourier_field_bwd", n_d, 12 + 64 + 16 + 64, 2 * b_w, d_mac, "fourier_field_bwd.cu",
+    for name, n, per_point_bytes, w_floats, mac, alu, src, line in (
+        ("fourier_mlp_bwd", n_c0, 12 + 4, 2 * a_w, c_mac,
+         alu_ops_per_point("fourier_mlp_bwd", pB.shape[1], a_hidden), "fourier_mlp_bwd.cu", 381),
+        ("fourier_field_bwd", n_d, 12 + 64 + 16 + 64, 2 * b_w, d_mac,
+         alu_ops_per_point("fourier_field_bwd", fB.shape[1], b_hidden), "fourier_field_bwd.cu",
          707),
     ):
         x = positions(n)
@@ -406,36 +563,37 @@ def phase_kernels():
         err = max(rel_err(a, b) for a, b in zip(got, want) if a.shape[-1] != n)
         out = max([outliers(a, b, BWD_TOLERANCE[("tri", True)])
                    for a, b in zip(got, want) if a.shape[-1] == n], default=None)
-        extra = {}
-        if is_c:
-            ms = time_ms(kern, 10)
-        else:
-            old = wmma_body(kern)
-            err_old = max(rel_err(a, b) for a, b in zip(old(), want) if a.shape[-1] != n)
-            check(err_old <= SUM_TOLERANCE, f"{name} WMMA body: rel err {err_old}")
-            turns = [time_ms(old, 3), time_ms(kern, 10), time_ms(kern, 10), time_ms(old, 3)]
-            ms = (turns[1] + turns[2]) / 2
-            # one launch under the profiler gives its passes apart
-            by_name = device_ms_by_kernel(kern)
-            extra = {"body": "wgmma", "wmma_body_ms": (turns[0] + turns[3]) / 2,
-                     "wmma_body_max_rel_err": err_old, "turns_ms": turns,
-                     "per_point_pass_ms": sum(v for k, v in by_name.items()
-                                              if "fourier_field_bwd_wgmma_kernel" in k),
-                     "weight_gradient_passes_ms": sum(v for k, v in by_name.items()
-                                                      if "nkt_field_dw" in k),
-                     "reduction_ms": sum(v for k, v in by_name.items()
-                                         if "nkt_reduce_partials" in k),
-                     "scratch_bytes": ff._field_scratch_bytes(n, 16)}
+        old = wmma_body(kern, name)
+        err_old = max(rel_err(a, b) for a, b in zip(old(), want) if a.shape[-1] != n)
+        check(err_old <= SUM_TOLERANCE, f"{name} WMMA body: rel err {err_old}")
         del got, want
+        turns = [both_ms(old, 3), both_ms(kern, 10), both_ms(kern, 10), both_ms(old, 3)]
+        by_name = turns[1][2]
+        ev, dv = [t[0] for t in turns], [t[1] for t in turns]
+        # the launch's passes apart
+        body_kernel = "fourier_mlp_bwd_wgmma_kernel" if is_c else "fourier_field_bwd_wgmma_kernel"
+        extra = {"per_point_pass_ms": sum(v for k, v in by_name.items() if body_kernel in k),
+                 "reduction_ms": sum(v for k, v in by_name.items() if "nkt_reduce_partials" in k),
+                 "other_kernels_ms": sum(v for k, v in by_name.items()
+                                         if not any(m in k for m in (body_kernel, "nkt_field_dw",
+                                                                     "nkt_reduce_partials")))}
+        if not is_c:
+            extra.update({"weight_gradient_passes_ms": sum(v for k, v in by_name.items()
+                                                           if "nkt_field_dw" in k),
+                          "scratch_bytes": ff._field_scratch_bytes(n, 16)})
         plain_ms = time_ms(plain, 2)
-        bms, by = bound(n * per_point_bytes + 4 * w_floats, 2.0 * n * mac, bf16=True)
         rec = {"name": name, "route": "cuda", "source": f"nerf_kbs_tpu_torch/csrc/{src}",
                "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
                "max_abs_err": err,
                "err_is": "weight and bias gradients, relative to each one's largest magnitude",
-               "per_point_outlier_share": out, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+               "per_point_outlier_share": out, "ms": (ev[1] + ev[2]) / 2,
+               "plain_ms": plain_ms,
+               **bound(n * per_point_bytes + 4 * w_floats, 2.0 * n * mac, n * alu, bf16=True),
                "library_ms": None, "n_points": n, "basis": "tri", "dtype": "bf16",
-               "need_dx": False, **extra}
+               "need_dx": False, "alu_instructions_per_point": alu, "body": "wgmma",
+               "wmma_body_ms": (ev[0] + ev[3]) / 2, "wmma_body_max_rel_err": err_old,
+               "turns_ms": ev, "device_ms": (dv[1] + dv[2]) / 2,
+               "wmma_body_device_ms": (dv[0] + dv[3]) / 2, "device_turns_ms": dv, **extra}
         emit({"phase": "timing", **rec})
         records.append(rec)
         del x, g
@@ -443,11 +601,33 @@ def phase_kernels():
     return records
 
 
-# kernel name -> its wrapper's launch counter
-# (on the main paths the two field kernels run their wgmma bodies)
-COUNTER = {"fourier_mlp_fwd": "fourier_mlp", "fourier_field_fwd": "fourier_field_mlp_wgmma",
-           "fourier_mlp_bwd": "fourier_mlp_bwd",
-           "fourier_field_bwd": "fourier_field_mlp_bwd_wgmma"}
+# kernel name -> its wrapper's name in fused_field.KERNELS, and the launch
+# counter of the body the main paths run (the wgmma body of all four)
+WRAPPER = {"fourier_mlp_fwd": "fourier_mlp", "fourier_field_fwd": "fourier_field_mlp",
+           "fourier_mlp_bwd": "fourier_mlp_bwd", "fourier_field_bwd": "fourier_field_mlp_bwd"}
+COUNTER = {k: f"{v}_wgmma" for k, v in WRAPPER.items()}
+# the turns of bodies a path is run with: every kernel's wgmma body, the field
+# kernels' WMMA bodies (the proposal-field kernels on wgmma), and the
+# proposal-field kernels' WMMA bodies (the field kernels on wgmma)
+BODY_TURNS = {"wgmma": frozenset(), "wmma": frozenset({"fourier_field_mlp",
+                                                       "fourier_field_mlp_bwd"}),
+              "mlp_wmma": frozenset({"fourier_mlp", "fourier_mlp_bwd"})}
+
+
+def body_turns(ff, work, reps: int) -> dict:
+    """Seconds of ``work()`` under each of BODY_TURNS, each taken twice in a
+    mirrored order, ``reps`` calls a turn."""
+    turns = {k: [] for k in BODY_TURNS}
+    for body in ("wmma", "mlp_wmma", "wgmma", "wgmma", "mlp_wmma", "wmma"):
+        ff.FORCE_WMMA = BODY_TURNS[body]
+        try:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                work()
+                turns[body].append(time.perf_counter() - t0)
+        finally:
+            ff.FORCE_WMMA = frozenset()
+    return turns
 
 
 def _png(url: str) -> int:
@@ -479,10 +659,6 @@ def device_events(work):
     events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
               if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
     return wall_us, sorted(events, key=lambda e: e[1], reverse=True)
-
-
-def device_ms_by_kernel(work) -> dict:
-    return {name: us / 1e3 for name, us, _ in device_events(work)[1]}
 
 
 def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12) -> None:
@@ -534,7 +710,7 @@ def phase_slice(records):
     check(bool(np.isfinite(rgb).all()), "non-finite rgb")
     check(float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0, "rgb outside [0, 1]")
     check(bool(np.isfinite(out["depth"]).all()), "non-finite depth")
-    check(launches == {**dict.fromkeys(ff.LAUNCHES, 0), "fourier_mlp": 2 * n_chunks,
+    check(launches == {**dict.fromkeys(ff.LAUNCHES, 0), "fourier_mlp_wgmma": 2 * n_chunks,
                        "fourier_field_mlp_wgmma": n_chunks},
           f"launches {launches} for {n_chunks} chunks")
     for rec in records:
@@ -547,18 +723,9 @@ def phase_slice(records):
         renderer.render_camera(0)
         times.append(time.perf_counter() - t0)
     med = sorted(times)[len(times) // 2]
-    # the same frame with the field kernel's WMMA body and its wgmma body in
-    # turns (host time varies from run to run: compare within this run only)
-    turns = {"wmma": [], "wgmma": []}
-    for body in ("wmma", "wgmma", "wgmma", "wmma"):
-        ff.FORCE_WMMA = body == "wmma"
-        try:
-            for _ in range(3):
-                t0 = time.perf_counter()
-                renderer.render_camera(0)
-                turns[body].append(time.perf_counter() - t0)
-        finally:
-            ff.FORCE_WMMA = False
+    # the same frame under each turn of bodies (host time varies from run to
+    # run: compare within this run only)
+    turns = body_turns(ff, lambda: renderer.render_camera(0), 3)
     emit({"phase": "slice_bodies", "render_s": turns,
           "median_render_s": {k: sorted(v)[len(v) // 2] for k, v in turns.items()}})
     emit({"phase": "slice", "method": "nerfacto-tpu", "compute_dtype": cfg.compute_dtype,
@@ -568,6 +735,11 @@ def phase_slice(records):
           "rgb_mean": float(rgb.mean()), "accumulation_mean": float(out["accumulation"].mean())})
 
     phase_profile(lambda: renderer.render_camera(4), h * w)
+    ff.FORCE_WMMA = BODY_TURNS["mlp_wmma"]
+    try:
+        phase_profile(lambda: renderer.render_camera(4), h * w, what="frame, mlp_wmma bodies")
+    finally:
+        ff.FORCE_WMMA = frozenset()
 
     # the whole path on the card (kernels, f32) against the CPU plain path
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -654,8 +826,8 @@ def phase_train(records):
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
     launches = dict(ff.LAUNCHES)
-    check(launches == {**dict.fromkeys(ff.LAUNCHES, 0), "fourier_mlp": 2 * n_steps,
-                       "fourier_field_mlp_wgmma": n_steps, "fourier_mlp_bwd": 2 * n_steps,
+    check(launches == {**dict.fromkeys(ff.LAUNCHES, 0), "fourier_mlp_wgmma": 2 * n_steps,
+                       "fourier_field_mlp_wgmma": n_steps, "fourier_mlp_bwd_wgmma": 2 * n_steps,
                        "fourier_field_mlp_bwd_wgmma": n_steps},
           f"train launches {launches} for {n_steps} steps")
     check(all(np.isfinite(losses)), f"non-finite train loss {losses}")
@@ -679,25 +851,23 @@ def phase_train(records):
           "lr": opt.learning_rate("fields"), "parameters_moved": sum(moved.values()),
           "parameters_frozen": len(frozen)})
 
-    # the same step with the field kernels' WMMA bodies and their wgmma
-    # bodies in turns, and the device time of a step of each
-    turns = {"wmma": [], "wgmma": []}
-    for body in ("wmma", "wgmma", "wgmma", "wmma"):
-        ff.FORCE_WMMA = body == "wmma"
-        try:
-            for _ in range(6):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                bench_step()
-                torch.cuda.synchronize()
-                turns[body].append((time.perf_counter() - t0) * 1e3)
-        finally:
-            ff.FORCE_WMMA = False
+    # the same step under each turn of bodies
+    def synced_step():
+        bench_step()
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    turns = {k: [t * 1e3 for t in v] for k, v in body_turns(ff, synced_step, 6).items()}
     emit({"phase": "train_step_bodies", "step_ms": turns,
           "median_step_ms": {k: sorted(v)[len(v) // 2] for k, v in turns.items()}})
 
     # (3) where one step's time goes
     phase_profile(bench_step, batch_rays, what="train_step")
+    ff.FORCE_WMMA = BODY_TURNS["mlp_wmma"]
+    try:
+        phase_profile(bench_step, batch_rays, what="train_step, mlp_wmma bodies")
+    finally:
+        ff.FORCE_WMMA = frozenset()
     del params, opt, start
     torch.cuda.empty_cache()
 
@@ -719,7 +889,8 @@ def phase_train(records):
     check(len(totals) == 30 and all(np.isfinite(totals)), f"trainer losses {totals}")
     first, end = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
     check(end < first, f"trainer loss did not fall: first five {first}, last five {end}")
-    check(ff.LAUNCHES["fourier_field_mlp_bwd_wgmma"] == 30 and ff.LAUNCHES["fourier_mlp_bwd"] == 60,
+    check(ff.LAUNCHES["fourier_field_mlp_bwd_wgmma"] == 30
+          and ff.LAUNCHES["fourier_mlp_bwd_wgmma"] == 60,
           f"trainer launches {ff.LAUNCHES}")
     em = trainer.eval_image(0)
     check(np.isfinite(em["psnr"]), f"eval_image {em}")

@@ -429,11 +429,8 @@ struct FieldScratch {
 template <int WIDTH>
 __device__ __forceinline__ void nkt_wg_store_tile(uint32_t* scratch, int first, int ntiles,
                                                   int tile, const WgLane& L, const uint32_t* a) {
-  uint32_t* blob = scratch + ((size_t)first * ntiles + (size_t)tile * WIDTH) * (NKT_WG_ROWS / 2);
-#pragma unroll
-  for (int j = 0; j < WIDTH / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) blob[(j * 8 + 2 * L.w + r) * 32 + L.g * 4 + L.t] = a[2 * j + r];
+  nkt_wg_put_tile<WIDTH>(
+      scratch + ((size_t)first * ntiles + (size_t)tile * WIDTH) * (NKT_WG_ROWS / 2), L, a);
 }
 
 // One step of the column-sum butterfly over the 8 lanes that share t: the

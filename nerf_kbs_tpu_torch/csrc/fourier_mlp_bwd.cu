@@ -13,21 +13,49 @@
 // rounding of dh.
 //
 // What bounds it here: at the proposal fields' shapes (H = 40, dims
-// (80, 16, 1)) without dx a point costs ~6 kFLOP (recompute, dW, W . dh)
-// against 16 bytes (x 12, g 4): about even between the H100's memory and its
-// tensor cores, ~10 us for the 1.57M points of proposal round 0.
+// (80, 16, 1)) without dx a point moves 16 bytes (x 12, g 4) and costs ~5.4
+// kFLOP on the tensor cores (recompute and dW_0): 7.5 us of memory time and
+// 8.6 us of tensor-core time for the 1.57M points of proposal round 0. As in
+// the forward, the bound is the f32 ALU work of the recomputed encoding and
+// of the width-1 step, ~650 scalar instructions a point, 31 us on the 132
+// SMs x 128 lanes of an H100 SXM at its maximum clock of 1.98 GHz.
 //
-// What the design does about it: one pass over the points, nothing of the
-// encoding or the hidden layers in device memory. Persistent blocks (several
-// per SM: ~45 KB of shared memory each) keep the weights resident as bf16 and
-// walk over 64-point tiles; the products are WMMA tiles (chain_bwd.cuh). The
-// weight gradients of a block go into a partial that it alone owns (1.3 K
-// floats, L2 resident) and a second small kernel sums the partials in block
-// order, so the result does not depend on the order blocks ran in. This first
-// version reads and writes the dW accumulators in L2 once per tile; keeping
-// them in registers across tiles is the obvious next step.
-// f32 compute (the oracle mode) runs one thread per point (chain_bwd.cuh).
+// What the design does about it. Three bodies; in all of them each block
+// leaves its weight-gradient sums in a partial of its own and a second small
+// kernel sums the partials in block order: no float atomics, and a repeat of
+// the launch gives the same bits.
+// - bf16 at the proposal fields' widths (fourier_mlp_bwd_wgmma_kernel, see
+//   wgmma_chain.cuh): one persistent block per SM of four warpgroups, each
+//   on its own 64-point tiles with no block barrier in the tile loop. The
+//   forward is the forward kernel's: positions and g of the thread's two rows
+//   prefetched into registers a tile ahead, the encoding in pair order made
+//   k-step by k-step behind the running product. The width-1 step is per
+//   thread on its four hidden columns: the relu mask from the f32
+//   pre-activation, dh = mask ? w_1 g : 0 with the unrounded w_1, and
+//   dW_1 += h g, db_1 += g, db_0 += dh as f32 sums the thread keeps in
+//   registers over all its tiles (9 registers), reduced over lanes by a
+//   shuffle butterfly and over warps in a fixed order once, at the block's
+//   end. dW_0 = enc^T . bf16(dh) contracts over points: the warpgroup leaves
+//   its A-operand words of the encoding and of dh as [point][feature] tiles
+//   in shared memory (4-byte stores, 128 contiguous bytes a warp), and after
+//   one warpgroup-wide named barrier eight m64n16k16 products read both tiles
+//   with the trans flags into 16 f32 accumulators a thread, which stay in
+//   registers over all tiles and run behind the next tile's encoding (the
+//   tiles are double-buffered, so one barrier a tile is enough). The 80
+//   feature rows take two 64-row products, features [0, 64) and [16, 80):
+//   the overlap costs idle tensor-core time and saves a padded tile. With
+//   need_dx, d_enc = bf16(dh) . W_0^T is five more n16 products on the
+//   resident image with the trans flag, whose accumulators have the
+//   encoding's layout, so the thread that made s(u), c(u) applies their
+//   derivatives and B and a quad shuffle finishes dx. Nothing per point
+//   reaches device memory but dx.
+// - bf16 at any other widths (fourier_mlp_bwd_mma_kernel, chain_bwd.cuh):
+//   WMMA tiles with activations in shared memory; each tile's act^T . dh goes
+//   through the block's partial in L2. At the proposal widths it needs about
+//   five times the wgmma body's time.
+// - f32 compute (the oracle mode): one thread per point (chain_bwd.cuh).
 #include "chain_bwd.cuh"
+#include "wgmma_chain.cuh"
 
 #define NKT_C_ROWS 64
 
@@ -102,7 +130,7 @@ static int launch_f32(const float* x, int n, const float* Bm, int H, const float
 }
 
 // ---------------------------------------------------------------------------
-// bf16 compute: tensor cores
+// bf16 compute at any widths: WMMA (see chain_bwd.cuh)
 // ---------------------------------------------------------------------------
 
 // Byte offsets of the kernel's shared-memory regions.
@@ -271,19 +299,276 @@ static int launch_mma(const float* x, int n, const float* Bm, int H, const float
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 compute at the proposal fields' widths: wgmma (see wgmma_chain.cuh)
+// ---------------------------------------------------------------------------
+
+// Warpgroups per block, one block per SM: 512 threads leave 128 registers a
+// thread, and a block leaves one partial, so the reduction reads 132 of them.
+// Shapes of 16 to 24 warps an SM timed within 6% of each other on an H100
+// 80GB HBM3 at 700 W; 32 warps leave 64 registers a thread, which spill.
+#define NKT_C_WARPGROUPS 4
+#define NKT_C_BLOCKS_PER_SM 1
+
+// A warpgroup's tile in shared memory: the encoding [64 points][80 features]
+// and dh [64 points][16] as bf16 in the core layout; two of them per warpgroup.
+#define NKT_C_ENC_BYTES (NKT_WG_ROWS * 2 * MlpImage::H * 2)
+#define NKT_C_TILE_BYTES (NKT_C_ENC_BYTES + NKT_WG_ROWS * MlpImage::HID * 2)
+#define NKT_C_SMEM (MlpImage::bytes + NKT_C_WARPGROUPS * 2 * NKT_C_TILE_BYTES)
+
+template <bool TRI, bool NEED_DX>
+__global__ void __launch_bounds__(NKT_C_WARPGROUPS * NKT_WG_THREADS, NKT_C_BLOCKS_PER_SM)
+    fourier_mlp_bwd_wgmma_kernel(const float* __restrict__ x, int n, const float* __restrict__ Bm,
+                                 const uint4* __restrict__ image, const float* __restrict__ wb,
+                                 Chain ch, GradLayout gl, const float* __restrict__ g,
+                                 float* __restrict__ dx, float* __restrict__ partials, int stride) {
+  using I = MlpImage;
+  constexpr int KSTEPS = I::H / 8, K = 2 * I::H;
+  extern __shared__ __align__(128) unsigned char smem[];
+  nkt_mlp_stage(smem, image, wb, ch, Bm, false);
+  nkt_fence_async_smem();
+  __syncthreads();
+  const uint32_t ws = nkt_smem_addr(smem);
+  const float* fs = reinterpret_cast<const float*>(smem + I::w0_bytes);
+  const float* Bs = fs + I::B;
+  const WgLane L = nkt_wg_lane();
+  const int wg = threadIdx.x / NKT_WG_THREADS;
+  unsigned char* tiles = smem + I::bytes + wg * 2 * NKT_C_TILE_BYTES;
+  // the thread's hidden columns 2t, 2t + 1, 8 + 2t, 9 + 2t: their bias and
+  // their weight in the width-1 layer (f32, unrounded)
+  float b0[4], w1[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    b0[c] = fs[I::b0 + 8 * (c / 2) + 2 * L.t + c % 2];
+    w1[c] = fs[I::w1 + 8 * (c / 2) + 2 * L.t + c % 2];
+  }
+  // sums over all of this thread's tiles: dW_0 (two 64-row products of 16
+  // columns), dW_1 and db_0 of its four columns, db_1
+  float dw0[2][8], s_dw1[4], s_db0[4], s_db1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dw0[0][i] = dw0[1][i] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) s_dw1[c] = s_db0[c] = 0.0f;
+
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  const int step = gridDim.x * NKT_C_WARPGROUPS;
+  int tile = blockIdx.x * NKT_C_WARPGROUPS + wg;
+  auto load_g = [&](long long t, float* ga, float* gb) {
+    const long long pa = t * NKT_WG_ROWS + 16 * L.w + L.g, pb = pa + 8;
+    *ga = pa < n ? g[pa] : 0.0f;
+    *gb = pb < n ? g[pb] : 0.0f;
+  };
+  float xa[3], xb[3], ga, gb;
+  nkt_wg_load_x(x, n, tile, L, xa, xb);
+  load_g(tile, &ga, &gb);
+
+  // no block barrier in this loop: each warpgroup walks its own tiles
+  for (int it = 0; tile < ntiles; tile += step, ++it) {
+    float na[3], nb[3], nga, ngb;  // the next tile's inputs, in flight behind this tile's work
+    nkt_wg_load_x(x, n, (long long)tile + step, L, na, nb);
+    load_g((long long)tile + step, &nga, &ngb);
+    // this tile's buffer: the products that read it two tiles ago are done
+    // on every warp (each passed the wait of a first layer since, and then a
+    // barrier)
+    uint32_t* enc_t = reinterpret_cast<uint32_t*>(tiles + (it & 1) * NKT_C_TILE_BYTES);
+    uint32_t* dh_t = enc_t + NKT_C_ENC_BYTES / 4;
+
+    // ---- forward: the hidden layer's pre-activation, the encoding kept
+    float acc[8];
+    nkt_wg_first_layer_pairs<TRI, I::H>(
+        acc, Bs, L.t, xa, xb, ws, [&](int ks, const uint32_t(&a)[4]) {
+          nkt_wg_put_tile<16>(enc_t + ks * (16 * NKT_WG_ROWS / 2), L, a);
+        });
+
+    // ---- the width-1 layer and the relu, per thread in f32
+    uint32_t d16[4];
+    {
+      float dh[8];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * (c / 2) + c % 2;
+        const float pa = acc[i] + b0[c], pb = acc[i + 2] + b0[c];
+        s_dw1[c] = fmaf(nkt_round_bf16(fmaxf(pa, 0.0f)), ga, s_dw1[c]);
+        s_dw1[c] = fmaf(nkt_round_bf16(fmaxf(pb, 0.0f)), gb, s_dw1[c]);
+        dh[i] = pa > 0.0f ? w1[c] * ga : 0.0f;
+        dh[i + 2] = pb > 0.0f ? w1[c] * gb : 0.0f;
+        s_db0[c] += dh[i];
+        s_db0[c] += dh[i + 2];
+      }
+      if (L.t == 0) s_db1 += ga + gb;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d16[j] = nkt_pack_bf16(dh[2 * j], dh[2 * j + 1]);
+    }
+    nkt_wg_put_tile<16>(dh_t, L, d16);
+    nkt_fence_async_smem();
+    nkt_wg_sync(wg);
+
+    // ---- dW_0 += enc^T . dh over the tile's points: features [0, 64) and
+    // [16, 80); the products run on behind what follows
+    {
+      const uint32_t a_addr = nkt_smem_addr(enc_t), b_addr = nkt_smem_addr(dh_t);
+      nkt_wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < NKT_WG_ROWS / 16; ++ks) {
+        const uint64_t bd = nkt_wg_desc(b_addr + ks * 256, 128, 1024);
+        nkt_wgmma_ss<1, 1>(dw0[0], nkt_wg_desc(a_addr + ks * 256, 128, 1024), bd, 1);
+        nkt_wgmma_ss<1, 1>(dw0[1], nkt_wg_desc(a_addr + 2 * 1024 + ks * 256, 128, 1024), bd, 1);
+      }
+      nkt_wg_commit();
+    }
+
+    if (NEED_DX) {
+      // d_enc = bf16(dh) . W_0^T, k-step by k-step of the encoding: columns
+      // 0..7 are ds, 8..15 dc of the frequencies the thread encoded; dproj =
+      // ds s' + dc c', dx = B . dproj, all in f32
+      float de[KSTEPS][8];
+      nkt_wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks)
+        nkt_wgmma_rs<1>(de[ks], d16[0], d16[1], d16[2], d16[3],
+                        nkt_wg_desc(ws + ks * 512, 128, 256), 0);
+      nkt_wg_commit();
+      nkt_wg_wait<0>();
+      float da[3] = {0.0f, 0.0f, 0.0f}, db[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        nkt_wg_settle(de[ks]);
+        const int h = 8 * ks + 2 * L.t;
+        const float2 v0 = *reinterpret_cast<const float2*>(Bs + h);
+        const float2 v1 = *reinterpret_cast<const float2*>(Bs + I::H + h);
+        const float2 v2 = *reinterpret_cast<const float2*>(Bs + 2 * I::H + h);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float c0 = e ? v0.y : v0.x, c1 = e ? v1.y : v1.x, c2 = e ? v2.y : v2.x;
+          float dsdu, dcdu;
+          nkt_basis_grads<TRI>(fmaf(c2, xa[2], fmaf(c1, xa[1], c0 * xa[0])), &dsdu, &dcdu);
+          const float wa = de[ks][e] * dsdu + de[ks][4 + e] * dcdu;
+          nkt_basis_grads<TRI>(fmaf(c2, xb[2], fmaf(c1, xb[1], c0 * xb[0])), &dsdu, &dcdu);
+          const float wb_ = de[ks][2 + e] * dsdu + de[ks][6 + e] * dcdu;
+          da[0] = fmaf(c0, wa, da[0]);
+          da[1] = fmaf(c1, wa, da[1]);
+          da[2] = fmaf(c2, wa, da[2]);
+          db[0] = fmaf(c0, wb_, db[0]);
+          db[1] = fmaf(c1, wb_, db[1]);
+          db[2] = fmaf(c2, wb_, db[2]);
+        }
+      }
+      const long long p = (long long)tile * NKT_WG_ROWS + 16 * L.w + L.g + 8 * L.t;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        da[d] += __shfl_xor_sync(0xffffffffu, da[d], 1);
+        db[d] += __shfl_xor_sync(0xffffffffu, db[d], 1);
+        da[d] += __shfl_xor_sync(0xffffffffu, da[d], 2);
+        db[d] += __shfl_xor_sync(0xffffffffu, db[d], 2);
+        // lane t = 0 stores the quad's first row, t = 1 its second
+        if (L.t < 2 && p < n) dx[(size_t)d * n + p] = L.t ? db[d] : da[d];
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      xa[d] = na[d];
+      xb[d] = nb[d];
+    }
+    ga = nga;
+    gb = ngb;
+  }
+
+  // ---- the block's sums into its partial, in a fixed order. The tile
+  // buffers, which nothing reads any more, hold every warpgroup's dW_0
+  // [K][16] and behind them every warp's 33 column sums.
+  nkt_wg_wait<0>();
+  nkt_wg_settle(dw0[0]);
+  nkt_wg_settle(dw0[1]);
+  __syncthreads();
+  constexpr int NW = NKT_C_WARPGROUPS * 4, SUMS = 36;
+  float* red = reinterpret_cast<float*>(smem + I::bytes);
+  float* sums = red + NKT_C_WARPGROUPS * K * I::HID;
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the second product's rows are features 16..79: those below 64 repeat
+        // the first product's and are dropped
+        const int k = 16 * half + 16 * L.w + L.g + 8 * r;
+        if (half == 0 || k >= 64)
+          *reinterpret_cast<float2*>(red + (wg * K + k) * I::HID + 8 * j + 2 * L.t) =
+              make_float2(dw0[half][4 * j + 2 * r], dw0[half][4 * j + 2 * r + 1]);
+      }
+#pragma unroll
+  for (int bit = 4; bit <= 16; bit <<= 1) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      s_dw1[c] += __shfl_xor_sync(0xffffffffu, s_dw1[c], bit);
+      s_db0[c] += __shfl_xor_sync(0xffffffffu, s_db0[c], bit);
+    }
+    s_db1 += __shfl_xor_sync(0xffffffffu, s_db1, bit);
+  }
+  if (L.g == 0) {
+    float* mine = sums + (threadIdx.x / 32) * SUMS;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mine[8 * (c / 2) + 2 * L.t + c % 2] = s_dw1[c];
+      mine[16 + 8 * (c / 2) + 2 * L.t + c % 2] = s_db0[c];
+    }
+    if (L.t == 0) mine[32] = s_db1;
+  }
+  __syncthreads();
+  float* gpart = partials + (size_t)blockIdx.x * stride;
+  for (int i = threadIdx.x; i < K * I::HID; i += blockDim.x) {
+    float s = 0.0f;
+    for (int w = 0; w < NKT_C_WARPGROUPS; ++w) s += red[w * K * I::HID + i];
+    // row i / 16 of the pair order is this feature of [s; c]
+    gpart[gl.w[0] + nkt_mlp_pair_feature(i / I::HID, I::H) * gl.np[0] + i % I::HID] = s;
+  }
+  for (int c = threadIdx.x; c < 33; c += blockDim.x) {
+    float s = 0.0f;
+    for (int w = 0; w < NW; ++w) s += sums[w * SUMS + c];
+    gpart[c < 16 ? gl.w[1] + c * gl.np[1] : c < 32 ? gl.b[0] + c - 16 : gl.b[1]] = s;
+  }
+}
+
+template <bool TRI, bool NEED_DX>
+static int launch_wgmma(const float* x, int n, const float* Bm, const void* image,
+                        const float* wb, const Chain& ch, const GradLayout& gl, const float* g,
+                        float* dx, float* partials, int partial_rows, int stride, int* nblocks,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fourier_mlp_bwd_wgmma_kernel<TRI, NEED_DX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, NKT_C_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  int grid = (ntiles + NKT_C_WARPGROUPS - 1) / NKT_C_WARPGROUPS;
+  if (grid > sms * NKT_C_BLOCKS_PER_SM) grid = sms * NKT_C_BLOCKS_PER_SM;
+  if (grid > partial_rows) grid = partial_rows;
+  *nblocks = grid;
+  fourier_mlp_bwd_wgmma_kernel<TRI, NEED_DX>
+      <<<grid, NKT_C_WARPGROUPS * NKT_WG_THREADS, NKT_C_SMEM, stream>>>(
+          x, n, Bm, reinterpret_cast<const uint4*>(image), wb, ch, gl, g, dx, partials, stride);
+  return (int)cudaGetLastError();
+}
+
 // x (3, n), Bm (3, H), wb the packed chain with f32 (unrounded) weights, g
 // (dims[n_layers], n), all f32 and contiguous on the device. dx (3, n) is
 // written when need_dx (it may be null otherwise). partials is scratch of
 // partial_rows x partial_stride floats, partial_stride being the padded size
 // of one block's weight gradients (sum over layers of pad16(in) * pad16(out) +
 // pad16(out)). dwb receives the gradients in wb's packed layout (the padding
-// between parts is left as it was). Launches on `stream`, does not
-// synchronise; returns the launch error (0 on success).
+// between parts is left as it was). bf16 compute has two bodies, named by
+// `variant`: 1 is the wgmma body, for the proposal fields' widths only
+// (nkt_mlp_is_flagship), and needs `image`, W_0^T as bf16 of image_bytes
+// (wgmma_chain.cuh MlpImage); 0 is the WMMA body, which takes every shape.
+// Launches on `stream`, does not synchronise; returns the launch error (0 on
+// success).
 extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H, const float* wb,
                                    int wb_floats, const int* dims, int n_layers, int tri, int bf16,
                                    int need_dx, const float* g, float* dx, float* partials,
-                                   int partial_rows, int partial_stride, float* dwb,
-                                   void* stream) {
+                                   int partial_rows, int partial_stride, float* dwb, int variant,
+                                   const void* image, int image_bytes, void* stream) {
   Chain ch;
   const int packed = nkt_chain_from_dims(&ch, dims, n_layers);
   if (packed < 0) return packed;
@@ -292,13 +577,21 @@ extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H
   nkt_grad_layout(ch, &gl, &stride);
   if (packed != wb_floats || dims[0] != 2 * H || stride != partial_stride || partial_rows < 1)
     return NKT_ERR_PACKING;
+  if (variant != 0 && !(bf16 && variant == 1 && nkt_mlp_is_flagship(ch, H) &&
+                        image_bytes == MlpImage::w0_bytes))
+    return NKT_ERR_VARIANT;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (n == 0) {
     cudaError_t err = cudaMemsetAsync(dwb, 0, (size_t)wb_floats * sizeof(float), s);
     return (int)err;
   }
   int nblocks = 0, rc;
-  if (bf16)
+#define NKT_ARGS x, n, Bm, image, wb, ch, gl, g, dx, partials, partial_rows, stride, &nblocks, s
+#define NKT_PICK(TRI) \
+  (need_dx ? launch_wgmma<TRI, true>(NKT_ARGS) : launch_wgmma<TRI, false>(NKT_ARGS))
+  if (variant == 1)
+    rc = tri ? NKT_PICK(true) : NKT_PICK(false);
+  else if (bf16)
     rc = tri ? launch_mma<true>(x, n, Bm, H, wb, ch, gl, g, need_dx, dx, partials, partial_rows,
                                 stride, &nblocks, s)
              : launch_mma<false>(x, n, Bm, H, wb, ch, gl, g, need_dx, dx, partials, partial_rows,
@@ -308,6 +601,8 @@ extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H
                                 stride, &nblocks, s)
              : launch_f32<false>(x, n, Bm, H, wb, ch, gl, g, need_dx, dx, partials, partial_rows,
                                  stride, &nblocks, s);
+#undef NKT_PICK
+#undef NKT_ARGS
   if (rc != 0) return rc;
   return nkt_launch_reduce(partials, nblocks, stride, ch, gl, dwb, s);
 }

@@ -7,20 +7,44 @@
 // feature-major: x (3, N) f32 in, out (out_dim, N) f32 out.
 //
 // What bounds it here: at the proposal fields' shapes (H = 40, dims
-// (80, 16, 1)) a point costs ~2.8 kFLOP against 16 bytes of device memory
-// (12 in, 4 out), about 177 FLOP/byte: below the H100's ~295 bf16 FLOP/byte,
-// so the bound is the bytes, ~15 us for the 3.1M points of proposal round 0.
+// (80, 16, 1)) a point moves 16 bytes of device memory (12 in, 4 out) and
+// costs ~2.8 kFLOP on the tensor cores: 15 us of memory time and 9 us of
+// tensor-core time for the 3.1M points of proposal round 0. Neither is the
+// bound. The encoding is: 40 projections of 3 FMAs, 80 waves of ~5 f32
+// operations and their rounding to bf16, with the epilogue ~590 scalar
+// instructions a point in the tri basis, which the 132 SMs x 128 lanes of an
+// H100 SXM execute in 56 us at its maximum clock of 1.98 GHz. The kernel is
+// bound by the f32 ALUs.
 //
-// What the design does about it: nothing of the (80, N) encoding or the
-// hidden layers reaches device memory, and the point axis is read and
-// written once, coalesced. At the bf16 operating point the hidden layers are
-// bf16 WMMA products on the tensor cores (mma_chain.cuh) with the few
-// weights resident in shared memory; ~37 KB per block lets several
-// persistent blocks share an SM, so one block's barriers and global loads
-// overlap another's work. A width-1 output is a dot-reduce per point, not a
-// one-column product. f32 compute (the oracle mode) runs one thread per point
-// on f32 FMAs (fused_chain.cuh).
+// What the design does about it. Three bodies:
+// - bf16 at the proposal fields' widths (fourier_mlp_fwd_wgmma_kernel, see
+//   wgmma_chain.cuh): nothing but the encoding's own arithmetic is left per
+//   point. One warpgroup owns a 64-point tile and every per-point value lives
+//   in registers. A thread reads the positions of its two rows straight from
+//   device memory, the next tile's before this tile's arithmetic, so no tile
+//   waits for memory. The encoding is made in pair order (wgmma_chain.cuh): a
+//   thread computes each projection once and gets both waves from it, packed
+//   as the A operand of a k-step, and the five m64n16k16 products of the
+//   first layer run behind the next k-step's encoding with W_0^T (2.5 KB)
+//   resident in shared memory. The epilogue stays in registers: bias, relu,
+//   the rounding to bf16, then the width-1 layer as four FMAs a row and two
+//   shuffles over the quad that shares a row; a warp's store is 64 contiguous
+//   bytes. There is no block barrier after the staging and no activation in
+//   shared memory. Blocks are small (two warpgroups, ~3 KB of shared memory)
+//   and persistent, and four of them share an SM, 32 warps. The time hardly
+//   depends on that shape (six shapes from 16 to 32 warps an SM, timed on an
+//   H100 80GB HBM3 at 700 W, lay within 8%): what is left is the rate of the
+//   encoding's own instructions, at a little under half the ALUs' peak.
+//   wgmma rather than mma.sync.m16n8k16: the tensor cores are idle either
+//   way, and the header, its layouts and its probe were there.
+// - bf16 at any other widths (fourier_mlp_fwd_mma_kernel, mma_chain.cuh):
+//   WMMA tiles with activations in shared memory and four block barriers a
+//   tile; at the proposal widths it needs about four times the wgmma body's
+//   time.
+// - f32 compute (the oracle mode): one thread per point on f32 FMAs
+//   (fused_chain.cuh).
 #include "mma_chain.cuh"
+#include "wgmma_chain.cuh"
 
 // ---------------------------------------------------------------------------
 // f32 compute: one thread per point
@@ -73,7 +97,7 @@ static int launch_f32(const float* x, int n, const float* Bm, int H, const float
 }
 
 // ---------------------------------------------------------------------------
-// bf16 compute: tensor cores (see mma_chain.cuh)
+// bf16 compute at any widths: WMMA (see mma_chain.cuh)
 // ---------------------------------------------------------------------------
 
 // MAXT bounds the column tiles a warp takes (hidden widths up to 32 * MAXT);
@@ -165,20 +189,126 @@ static int launch_mma(const float* x, int n, const float* Bm, int H, const float
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 compute at the proposal fields' widths: wgmma (see wgmma_chain.cuh)
+// ---------------------------------------------------------------------------
+
+// Warpgroups per block, each on its own tiles, and blocks per SM. The body
+// needs few registers (8 accumulators, two sets of positions, two sets of
+// A-operand words), so 64 a thread let 4 x 2 warpgroups share an SM.
+#define NKT_A_WARPGROUPS 2
+#define NKT_A_BLOCKS_PER_SM 4
+
+template <bool TRI>
+__global__ void __launch_bounds__(NKT_A_WARPGROUPS * NKT_WG_THREADS, NKT_A_BLOCKS_PER_SM)
+    fourier_mlp_fwd_wgmma_kernel(const float* __restrict__ x, int n, const float* __restrict__ Bm,
+                                 const uint4* __restrict__ image, const float* __restrict__ wb,
+                                 Chain ch, float* __restrict__ out) {
+  using I = MlpImage;
+  __shared__ __align__(128) unsigned char smem[I::bytes];
+  nkt_mlp_stage(smem, image, wb, ch, Bm, true);
+  nkt_fence_async_smem();
+  __syncthreads();
+  const uint32_t ws = nkt_smem_addr(smem);
+  const float* fs = reinterpret_cast<const float*>(smem + I::w0_bytes);
+  const float* Bs = fs + I::B;
+  const WgLane L = nkt_wg_lane();
+  // the thread's hidden columns 2t, 2t + 1, 8 + 2t, 9 + 2t: their bias and
+  // their weight in the width-1 layer (rounded to bf16 by the staging)
+  float b0[4], w1[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    b0[c] = fs[I::b0 + 8 * (c / 2) + 2 * L.t + c % 2];
+    w1[c] = fs[I::w1 + 8 * (c / 2) + 2 * L.t + c % 2];
+  }
+  const float b1 = fs[I::b1];
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  const int step = gridDim.x * NKT_A_WARPGROUPS;
+  int tile = blockIdx.x * NKT_A_WARPGROUPS + threadIdx.x / NKT_WG_THREADS;
+  float xa[3], xb[3];
+  nkt_wg_load_x(x, n, tile, L, xa, xb);
+
+  // no barrier from here on: each warpgroup walks its own tiles
+  for (; tile < ntiles; tile += step) {
+    float na[3], nb[3];  // the next tile's positions, in flight behind this tile's work
+    nkt_wg_load_x(x, n, (long long)tile + step, L, na, nb);
+    float acc[8];
+    nkt_wg_first_layer_pairs<TRI, I::H>(acc, Bs, L.t, xa, xb, ws,
+                                        [](int, const uint32_t(&)[4]) {});
+    // h = bf16(relu(acc + b_0)), out = w_1 . h + b_1 in f32: the thread's four
+    // columns, then the quad
+    float oa = 0.0f, ob = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = 4 * (c / 2) + c % 2;
+      oa = fmaf(w1[c], nkt_round_bf16(fmaxf(acc[i] + b0[c], 0.0f)), oa);
+      ob = fmaf(w1[c], nkt_round_bf16(fmaxf(acc[i + 2] + b0[c], 0.0f)), ob);
+    }
+    oa += __shfl_xor_sync(0xffffffffu, oa, 1);
+    ob += __shfl_xor_sync(0xffffffffu, ob, 1);
+    oa += __shfl_xor_sync(0xffffffffu, oa, 2);
+    ob += __shfl_xor_sync(0xffffffffu, ob, 2);
+    // lane t = 0 stores the quad's first row, t = 1 its second: 16 lanes of a
+    // warp write 64 contiguous bytes
+    if (L.t < 2) {
+      const long long p = (long long)tile * NKT_WG_ROWS + 16 * L.w + L.g + 8 * L.t;
+      if (p < n) out[p] = (L.t ? ob : oa) + b1;
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      xa[d] = na[d];
+      xb[d] = nb[d];
+    }
+  }
+}
+
+template <bool TRI>
+static int launch_wgmma(const float* x, int n, const float* Bm, const void* image,
+                        const float* wb, const Chain& ch, float* out, cudaStream_t stream) {
+  constexpr int THREADS = NKT_A_WARPGROUPS * NKT_WG_THREADS;
+  cudaError_t err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fourier_mlp_fwd_wgmma_kernel<TRI>, THREADS, 0)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return NKT_ERR_SMEM;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  const int want = (ntiles + NKT_A_WARPGROUPS - 1) / NKT_A_WARPGROUPS;
+  const int grid = want < sms * per_sm ? want : sms * per_sm;
+  fourier_mlp_fwd_wgmma_kernel<TRI><<<grid, THREADS, 0, stream>>>(
+      x, n, Bm, reinterpret_cast<const uint4*>(image), wb, ch, out);
+  return (int)cudaGetLastError();
+}
+
 // x (3, n) f32, Bm (3, H) f32, wb the packed chain (see fused_chain.cuh) whose
 // first layer takes 2H inputs, out (dims[n_layers], n) f32; all contiguous on
-// the device. bf16 compute runs on the tensor cores, f32 compute on FMAs.
+// the device. f32 compute runs on FMAs. bf16 compute has two bodies, named by
+// `variant`: 1 is the wgmma body, for the proposal fields' widths only (see
+// nkt_mlp_is_flagship), and needs `image`, W_0^T as bf16 of image_bytes
+// (wgmma_chain.cuh MlpImage); it rounds the rest of wb to bf16 itself, so wb
+// may come unrounded. 0 is the WMMA body, which takes every shape and wants
+// the weights in wb already rounded.
 // Launches on `stream`, does not synchronise; returns the launch error (0 on
 // success).
 extern "C" int nkt_fourier_mlp_fwd(const float* x, int n, const float* Bm, int H, const float* wb,
                                    int wb_floats, const int* dims, int n_layers, int tri, int bf16,
-                                   float* out, void* stream) {
+                                   int variant, const void* image, int image_bytes, float* out,
+                                   void* stream) {
   Chain ch;
   const int packed = nkt_chain_from_dims(&ch, dims, n_layers);
   if (packed < 0) return packed;
   if (packed != wb_floats || dims[0] != 2 * H) return NKT_ERR_PACKING;
+  if (variant != 0 && !(bf16 && variant == 1 && nkt_mlp_is_flagship(ch, H) &&
+                        image_bytes == MlpImage::w0_bytes))
+    return NKT_ERR_VARIANT;
   if (n == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (variant == 1)
+    return tri ? launch_wgmma<true>(x, n, Bm, image, wb, ch, out, s)
+               : launch_wgmma<false>(x, n, Bm, image, wb, ch, out, s);
   if (bf16) {
     MmaChain m;
     int w_elems = 0, b_floats = 0;

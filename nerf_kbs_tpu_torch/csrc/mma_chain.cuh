@@ -2,6 +2,11 @@
 // for a block that holds all of a chain's weights in shared memory and walks
 // over 64-point tiles of the point axis (a persistent block per SM).
 //
+// It serves the bf16 bodies of all four kernels at every width but the
+// flagship's: those (the proposal fields' H = 40, (80, 16, 1) and the field's
+// H = 128, (256, 128, 128, 16), (15 + F, 64, 64, 3)) run the wgmma bodies of
+// wgmma_chain.cuh, and come here only when a measurement forces them to.
+//
 // Layout in shared memory:
 // - activations: [point][feature] bf16, row stride ld (the widest padded
 //   width + 8, so that the 16 rows a fragment load touches fall in different

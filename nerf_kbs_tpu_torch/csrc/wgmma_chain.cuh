@@ -1,6 +1,8 @@
 // Warpgroup MLP chain on Hopper's wgmma (m64nNk16, bf16 inputs, f32
-// accumulation in registers), for the two field kernels at the flagship
-// widths (fourier_field_fwd.cu, fourier_field_bwd.cu).
+// accumulation in registers), for all four kernels at the flagship widths:
+// the two field kernels (fourier_field_fwd.cu, fourier_field_bwd.cu, see
+// FieldImage) and the two proposal-field kernels (fourier_mlp_fwd.cu,
+// fourier_mlp_bwd.cu, see MlpImage).
 //
 // One warpgroup (4 warps) owns a tile of 64 points, the M dimension of every
 // product. Thread (w, g, t) = (warp in the group, lane / 4, lane % 4) holds
@@ -97,6 +99,28 @@ __device__ __forceinline__ void nkt_wg_settle(float (&d)[R]) {
 __device__ __forceinline__ uint32_t nkt_pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float nkt_round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A barrier of one warpgroup only (named barrier 1 + wg; 0 is the block's).
+__device__ __forceinline__ void nkt_wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(NKT_WG_THREADS) : "memory");
+}
+
+// One warpgroup: its packed rows `a` (A-operand words, WIDTH / 4 a thread) as
+// a [point][feature] tile of 64 points by WIDTH features in the core layout
+// at `tile`, in shared or device memory. A warp's store of one word is one
+// core matrix, 128 contiguous bytes.
+template <int WIDTH>
+__device__ __forceinline__ void nkt_wg_put_tile(uint32_t* tile, const WgLane& L,
+                                                const uint32_t* a) {
+#pragma unroll
+  for (int j = 0; j < WIDTH / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) tile[(j * 8 + 2 * L.w + r) * 32 + L.g * 4 + L.t] = a[2 * j + r];
 }
 
 // D (64, 16) f32 += A (64, 16) bf16 from registers . B (16, 16) bf16 in shared memory.
@@ -468,4 +492,131 @@ __device__ __forceinline__ void nkt_field_stage(unsigned char* smem, const uint4
   }
   float* Bs = bs + I::bias_floats;
   for (int i = threadIdx.x; i < 3 * I::H; i += blockDim.x) Bs[i] = Bm[i];
+}
+
+// ---------------------------------------------------------------------------
+// The proposal field's chain, H = 40, dims (80, 16, 1)
+// ---------------------------------------------------------------------------
+
+// The encoding in pair order. H = 40 is no multiple of 16, so the split of
+// nkt_wg_encode (s in the first k-steps, c in the last) would fall inside a
+// k-step. The order of the 2H features along K is free as long as W_0's rows
+// follow it, so k-step ks holds in its columns 0..7 the s and in its columns
+// 8..15 the c of the frequencies [8 ks, 8 ks + 8): H / 8 k-steps, and the
+// thread that holds s(u) of a frequency also holds c(u), so each projection
+// u = B^T x is computed once. Column k of this order is feature
+// nkt_mlp_pair_feature(k) of [s; c] (ops/fused_field.py `_mlp_k_order`).
+__host__ __device__ constexpr int nkt_mlp_pair_feature(int k, int H) {
+  return k % 16 < 8 ? 8 * (k / 16) + k % 16 : H + 8 * (k / 16) + k % 16 - 8;
+}
+
+// k-step ks of the encoding of the thread's two points in pair order, Bs
+// (3, H) in shared memory: a[0], a[1] the s of frequencies 8 ks + 2t, + 1 for
+// the two rows, a[2], a[3] their c.
+template <bool TRI, int H>
+__device__ __forceinline__ void nkt_wg_encode_pairs(const float* Bs, int ks, int t,
+                                                    const float (&xa)[3], const float (&xb)[3],
+                                                    uint32_t (&a)[4]) {
+  const int h = 8 * ks + 2 * t;
+  const float2 b0 = *reinterpret_cast<const float2*>(Bs + h);
+  const float2 b1 = *reinterpret_cast<const float2*>(Bs + H + h);
+  const float2 b2 = *reinterpret_cast<const float2*>(Bs + 2 * H + h);
+  float u[4];  // (row a, h), (row a, h + 1), (row b, h), (row b, h + 1)
+  u[0] = fmaf(b2.x, xa[2], fmaf(b1.x, xa[1], b0.x * xa[0]));
+  u[1] = fmaf(b2.y, xa[2], fmaf(b1.y, xa[1], b0.y * xa[0]));
+  u[2] = fmaf(b2.x, xb[2], fmaf(b1.x, xb[1], b0.x * xb[0]));
+  u[3] = fmaf(b2.y, xb[2], fmaf(b1.y, xb[1], b0.y * xb[0]));
+  float s[4], c[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (TRI) {
+      s[i] = nkt_tri_s(u[i]);
+      c[i] = nkt_tri_c(u[i]);
+    } else {
+      sincosf(u[i], &s[i], &c[i]);
+    }
+  }
+  a[0] = nkt_pack_bf16(s[0], s[1]);
+  a[1] = nkt_pack_bf16(s[2], s[3]);
+  a[2] = nkt_pack_bf16(c[0], c[1]);
+  a[3] = nkt_pack_bf16(c[2], c[3]);
+}
+
+// First layer of a chain with 16 hidden units on the pair-order encoding:
+// acc (64, 16) = enc(x) . W_0, W_0^T [16][2H] in the core layout at w_addr
+// with its columns in pair order. As nkt_wg_first_layer, one k-step's product
+// runs while the next k-step's encoding is computed; keep(ks, a) sees every
+// k-step's A operand once it is made (the backward stores it).
+template <bool TRI, int H, class Keep>
+__device__ __forceinline__ void nkt_wg_first_layer_pairs(float (&acc)[8], const float* Bs, int t,
+                                                         const float (&xa)[3],
+                                                         const float (&xb)[3], uint32_t w_addr,
+                                                         const Keep& keep) {
+  constexpr int KSTEPS = H / 8;
+  uint32_t a[2][4];
+  nkt_wg_encode_pairs<TRI, H>(Bs, 0, t, xa, xb, a[0]);
+  keep(0, a[0]);
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    nkt_wg_fence();
+    nkt_wgmma_rs<0>(acc, a[ks % 2][0], a[ks % 2][1], a[ks % 2][2], a[ks % 2][3],
+                    nkt_wg_desc(w_addr + ks * 512, 256, 128), ks > 0);
+    nkt_wg_commit();
+    if (ks + 1 < KSTEPS) {
+      nkt_wg_wait<1>();  // step ks - 1 has read the set written next
+      nkt_wg_encode_pairs<TRI, H>(Bs, ks + 1, t, xa, xb, a[(ks + 1) % 2]);
+      keep(ks + 1, a[(ks + 1) % 2]);
+    }
+  }
+  nkt_wg_wait<0>();
+  nkt_wg_settle(acc);
+}
+
+// What a block of the two proposal-field kernels holds in shared memory:
+// W_0^T [16][80] as bf16 in the core layout with its columns in pair order
+// (the host builds it, see ops/fused_field.py `_mlp_image`), then floats:
+// b_0 (16), w_1 (16), b_1 and B (3, 40).
+struct MlpImage {
+  static constexpr int H = 40, HID = 16;
+  static constexpr int w0_bytes = HID * 2 * H * 2;
+  static constexpr int b0 = 0, w1 = 16, b1 = 32, B = 36, floats = B + 3 * H;
+  static constexpr int bytes = (w0_bytes + floats * 4 + 127) / 128 * 128;
+};
+
+// True when the chain has the widths MlpImage is written for.
+static inline bool nkt_mlp_is_flagship(const Chain& ch, int H) {
+  return H == MlpImage::H && ch.n_layers == 2 && ch.dims[0] == 2 * MlpImage::H &&
+         ch.dims[1] == MlpImage::HID && ch.dims[2] == 1;
+}
+
+// Device, whole block: the image, the f32 parts of the packed chain and B
+// into shared memory at smem; w_1 rounded to bf16 when round_w1 (the forward's
+// operand; the backward reads it unrounded). The caller follows it with
+// nkt_fence_async_smem() and a block barrier.
+__device__ __forceinline__ void nkt_mlp_stage(unsigned char* smem, const uint4* image,
+                                              const float* wb, const Chain& ch, const float* Bm,
+                                              bool round_w1) {
+  using I = MlpImage;
+  uint4* ws = reinterpret_cast<uint4*>(smem);
+  for (int i = threadIdx.x; i < I::w0_bytes / 16; i += blockDim.x) ws[i] = image[i];
+  float* fs = reinterpret_cast<float*>(smem + I::w0_bytes);
+  for (int i = threadIdx.x; i < I::HID; i += blockDim.x) {
+    fs[I::b0 + i] = wb[ch.b_off[0] + i];
+    const float w = wb[ch.w_off[1] + i];
+    fs[I::w1 + i] = round_w1 ? nkt_round_bf16(w) : w;
+  }
+  if (threadIdx.x == 0) fs[I::b1] = wb[ch.b_off[1]];
+  for (int i = threadIdx.x; i < 3 * I::H; i += blockDim.x) fs[I::B + i] = Bm[i];
+}
+
+// The positions of the thread's two rows of `tile`, zeros past the ragged
+// edge and past the last tile.
+__device__ __forceinline__ void nkt_wg_load_x(const float* __restrict__ x, int n, long long tile,
+                                              const WgLane& L, float (&xa)[3], float (&xb)[3]) {
+  const long long pa = tile * NKT_WG_ROWS + 16 * L.w + L.g, pb = pa + 8;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    xa[d] = pa < n ? x[(size_t)d * n + pa] : 0.0f;
+    xb[d] = pb < n ? x[(size_t)d * n + pb] : 0.0f;
+  }
 }

@@ -32,7 +32,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "fourier_mlp_fwd": (
         "nkt_fourier_mlp_fwd",
-        [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+        [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P],
     ),
     "fourier_field_fwd": (
         "nkt_fourier_field_fwd",
@@ -40,7 +40,7 @@ _SIGNATURES = {
     ),
     "fourier_mlp_bwd": (
         "nkt_fourier_mlp_bwd",
-        [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+        [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P],
     ),
     "fourier_field_bwd": (
         "nkt_fourier_field_bwd",

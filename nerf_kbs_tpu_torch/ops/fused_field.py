@@ -22,9 +22,9 @@ spec says ``need_dx``.
 A wrapper given CUDA tensors launches its kernel (``csrc/``) or raises; given
 CPU tensors it runs the plain version. ``LAUNCHES`` counts kernel launches
 (a backward's passes over the points and its reduction belong to one launch).
-The two field kernels have two bf16 bodies: the wgmma body for the flagship
-widths (``_wgmma_field``), counted under the ``*_wgmma`` keys, and the WMMA
-body for every other shape.
+Every kernel has two bf16 bodies: the wgmma body for the flagship widths
+(``_wgmma_field``, ``_wgmma_mlp``), counted under the ``*_wgmma`` keys, and
+the WMMA body for every other shape.
 """
 
 from __future__ import annotations
@@ -38,12 +38,12 @@ import torch
 from nerf_kbs_tpu_torch.ops import _kernels
 
 # kernel launches per wrapper, added to only where a kernel is launched
-LAUNCHES = {"fourier_mlp": 0, "fourier_field_mlp": 0, "fourier_mlp_bwd": 0,
-            "fourier_field_mlp_bwd": 0, "fourier_field_mlp_wgmma": 0,
-            "fourier_field_mlp_bwd_wgmma": 0}
-# measurement only: send the flagship widths through the WMMA bodies too, so
-# that one run can time both bodies on the same inputs
-FORCE_WMMA = False
+KERNELS = ("fourier_mlp", "fourier_field_mlp", "fourier_mlp_bwd", "fourier_field_mlp_bwd")
+LAUNCHES = {**dict.fromkeys(KERNELS, 0), **{f"{k}_wgmma": 0 for k in KERNELS}}
+# measurement only: the kernels (names from KERNELS) whose flagship widths go
+# through the WMMA body too, so that one run can time both bodies of a kernel
+# on the same inputs while the others keep their wgmma bodies
+FORCE_WMMA: frozenset = frozenset()
 
 
 def reset_launches() -> None:
@@ -323,9 +323,16 @@ def _wgmma_field(spec: "FusedFieldSpec") -> bool:
     """True for the shapes the wgmma bodies of the two field kernels are
     written for (csrc/wgmma_chain.cuh ``nkt_field_is_flagship``): bf16, H = 128,
     base (256, 128, 128, 16), rgb (15 + F, 64, 64, 3) with F = 16 or 48."""
-    return (spec.bf16 and not FORCE_WMMA and spec.h_freqs == 128
+    return (spec.bf16 and spec.h_freqs == 128
             and tuple(spec.base_dims) == (256, 128, 128, 16) and spec.feat_dim in (16, 48)
             and tuple(spec.rgb_dims) == (15 + spec.feat_dim, 64, 64, 3))
+
+
+def _wgmma_mlp(spec: "FusedMLPSpec") -> bool:
+    """True for the shapes the wgmma bodies of the two proposal-field kernels
+    are written for (csrc/wgmma_chain.cuh ``nkt_mlp_is_flagship``): bf16,
+    H = 40, dims (80, 16, 1)."""
+    return spec.bf16 and spec.h_freqs == 40 and tuple(spec.layer_dims) == (80, 16, 1)
 
 
 def _core_offset(r, c, rows: int):
@@ -369,14 +376,51 @@ def _weight_image_index(base_dims: tuple, rgb_dims: tuple) -> np.ndarray:
 _image_index_on_device: dict = {}
 
 
+def _index_on(device, build, *dims) -> torch.Tensor:
+    """``build(*dims)``, a numpy index, as a tensor on ``device``; made once."""
+    key = (build, dims, device)
+    if key not in _image_index_on_device:
+        _image_index_on_device[key] = torch.from_numpy(build(*dims)).to(device)
+    return _image_index_on_device[key]
+
+
 def _weight_image(base_wb: torch.Tensor, rgb_wb: torch.Tensor, base_dims, rgb_dims):
     """The bf16 weight image of both packed chains (one gather, one cast)."""
-    key = (tuple(base_dims), tuple(rgb_dims), base_wb.device)
-    if key not in _image_index_on_device:
-        _image_index_on_device[key] = torch.from_numpy(
-            _weight_image_index(key[0], key[1])).to(base_wb.device)
+    index = _index_on(base_wb.device, _weight_image_index, tuple(base_dims), tuple(rgb_dims))
     src = torch.cat([base_wb, rgb_wb, base_wb.new_zeros(1)])
-    return src[_image_index_on_device[key]].to(torch.bfloat16)
+    return src[index].to(torch.bfloat16)
+
+
+def _mlp_k_order(h_freqs: int) -> np.ndarray:
+    """The pair order of the 2H encoding features along the first layer's K
+    axis (csrc/wgmma_chain.cuh ``nkt_mlp_pair_feature``): entry k is the
+    feature of [s; c] that column k holds. Each 16-column k-step holds the s
+    of 8 frequencies, then their c."""
+    if h_freqs % 8:
+        raise ValueError(f"the pair order needs h_freqs % 8 == 0, got {h_freqs}")
+    k = np.arange(2 * h_freqs)
+    return np.where(k % 16 < 8, 8 * (k // 16) + k % 16, h_freqs + 8 * (k // 16) + k % 16 - 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_image_index(dims: tuple) -> np.ndarray:
+    """For each bf16 element of the proposal chain's image, its source in the
+    packed buffer: W_0^T (dims[1] rows of dims[0] columns in pair order) in
+    the core layout. Both widths must be multiples of 16: no padding."""
+    K, N = dims[0], dims[1]
+    if K % 16 or N % 16:
+        raise ValueError(f"the image needs widths that are multiples of 16, got {dims}")
+    n_, k_ = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+    src = _packed_offsets(dims)[0][0] + _mlp_k_order(K // 2)[k_] * N + n_
+    idx = np.empty(N * K, dtype=np.int64)
+    idx[_core_offset(n_, k_, N).reshape(-1)] = src.reshape(-1)
+    return idx
+
+
+def _mlp_image(wb: torch.Tensor, dims) -> torch.Tensor:
+    """The bf16 image of a packed proposal chain's first layer (one gather,
+    one cast)."""
+    return wb[_index_on(wb.device, _mlp_image_index, tuple(dims))].to(torch.bfloat16)
 
 
 def _field_scratch_bytes(n: int, feat_dim: int) -> int:
@@ -406,14 +450,19 @@ def _mlp_forward(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
         raise ValueError(f"layer_dims[0] {spec.layer_dims[0]} != 2 * h_freqs {2 * H}")
     x = x_t.contiguous()
     Bc = B.contiguous()
-    wb = _pack(ws, bs, spec.layer_dims, spec.bf16)
+    wgmma = _wgmma_mlp(spec) and "fourier_mlp" not in FORCE_WMMA
+    # the wgmma body rounds the weights itself (the image's cast, the staging)
+    wb = _pack(ws, bs, spec.layer_dims, spec.bf16 and not wgmma)
     out = torch.empty(spec.out_dim, n, device=x.device, dtype=torch.float32)
+    image = _mlp_image(wb, spec.layer_dims) if wgmma else None
     _kernels.call(
         "fourier_mlp_fwd", x.data_ptr(), n, Bc.data_ptr(), H, wb.data_ptr(), wb.numel(),
         _kernels.int_array(spec.layer_dims), spec.num_layers,
-        int(spec.basis == "tri"), int(spec.bf16), out.data_ptr(), _stream(x),
+        int(spec.basis == "tri"), int(spec.bf16), int(wgmma),
+        image.data_ptr() if wgmma else None, 2 * image.numel() if wgmma else 0,
+        out.data_ptr(), _stream(x),
     )
-    LAUNCHES["fourier_mlp"] += 1
+    LAUNCHES["fourier_mlp_wgmma" if wgmma else "fourier_mlp"] += 1
     return out
 
 
@@ -437,14 +486,17 @@ def _mlp_backward(spec: FusedMLPSpec, x_t, B, ws, bs, g):
     dx = torch.empty(3, n, device=x.device, dtype=torch.float32) if spec.need_dx else None
     rows, stride = 4 * _sm_count(x), _partial_stride(spec.layer_dims)
     partials = torch.empty(rows * stride, device=x.device, dtype=torch.float32)
+    wgmma = _wgmma_mlp(spec) and "fourier_mlp_bwd" not in FORCE_WMMA
+    image = _mlp_image(wb, spec.layer_dims) if wgmma else None
     _kernels.call(
         "fourier_mlp_bwd", x.data_ptr(), n, Bc.data_ptr(), H, wb.data_ptr(), wb.numel(),
         _kernels.int_array(spec.layer_dims), spec.num_layers,
         int(spec.basis == "tri"), int(spec.bf16), int(spec.need_dx), gc.data_ptr(),
         dx.data_ptr() if spec.need_dx else None, partials.data_ptr(), rows, stride,
-        dwb.data_ptr(), _stream(x),
+        dwb.data_ptr(), int(wgmma), image.data_ptr() if wgmma else None,
+        2 * image.numel() if wgmma else 0, _stream(x),
     )
-    LAUNCHES["fourier_mlp_bwd"] += 1
+    LAUNCHES["fourier_mlp_bwd_wgmma" if wgmma else "fourier_mlp_bwd"] += 1
     dws, dbs = _unpack(dwb, spec.layer_dims)
     return dx, dws, dbs
 
@@ -508,7 +560,7 @@ def _field_forward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_ws
     base_wb = _pack(base_ws, base_bs, spec.base_dims, spec.bf16)
     rgb_wb = _pack(rgb_ws, rgb_bs, spec.rgb_dims, spec.bf16)
     out = torch.empty(4, n, device=x.device, dtype=torch.float32)
-    wgmma = _wgmma_field(spec)
+    wgmma = _wgmma_field(spec) and "fourier_field_mlp" not in FORCE_WMMA
     image = _weight_image(base_wb, rgb_wb, spec.base_dims, spec.rgb_dims) if wgmma else None
     _kernels.call(
         "fourier_field_fwd", x.data_ptr(), fe.data_ptr(), n, F, Bc.data_ptr(), H,
@@ -546,7 +598,7 @@ def _field_backward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_w
     dfeats = torch.empty(F, n, device=x.device, dtype=torch.float32)
     rows, stride = _sm_count(x), _partial_stride(spec.base_dims, spec.rgb_dims)
     partials = torch.empty(rows * stride, device=x.device, dtype=torch.float32)
-    wgmma = _wgmma_field(spec)
+    wgmma = _wgmma_field(spec) and "fourier_field_mlp_bwd" not in FORCE_WMMA
     image = scratch = None
     if wgmma:
         image = _weight_image(base_wb, rgb_wb, spec.base_dims, spec.rgb_dims)

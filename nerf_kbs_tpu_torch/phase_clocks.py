@@ -52,7 +52,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     _kernels.NVCC_FLAGS = _kernels.NVCC_FLAGS + ("-DNKT_PHASE_CLOCKS",)
-    ff.FORCE_WMMA = True
+    ff.FORCE_WMMA = frozenset(ff.KERNELS)
     dev = torch.device("cuda")
     cfg = nerfacto_tpu_method().model_config()
     fcfg = cfg.field

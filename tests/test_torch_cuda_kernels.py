@@ -44,9 +44,10 @@ def test_fourier_mlp_kernel(dev, basis, bf16, dims, n):
     x, B = _inputs(rng, dims[0] // 2, n, basis, dev)
     ws, bs = _mlp(rng, dims, dev)
     spec = ff.FusedMLPSpec(h_freqs=dims[0] // 2, layer_dims=dims, bf16=bf16, basis=basis)
-    before = ff.LAUNCHES["fourier_mlp"]
+    key = "fourier_mlp_wgmma" if ff._wgmma_mlp(spec) else "fourier_mlp"
+    before = ff.LAUNCHES[key]
     got = ff.fourier_mlp(spec, x, B, ws, bs)
-    assert ff.LAUNCHES["fourier_mlp"] == before + 1
+    assert ff.LAUNCHES[key] == before + 1
     want = ff.fourier_mlp_reference(x, B, ws, bs, basis, bf16)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= TOL[bf16]
@@ -108,8 +109,9 @@ def test_fourier_mlp_backward_kernel(dev, basis, bf16, need_dx, dims, n):
     out = ff.fourier_mlp(spec, x, B, ws, bs)
     # a non-contiguous gradient, as autograd hands over views
     out.backward(g.T.contiguous().T)
-    assert ff.LAUNCHES["fourier_mlp"] == before["fourier_mlp"] + 1
-    assert ff.LAUNCHES["fourier_mlp_bwd"] == before["fourier_mlp_bwd"] + 1
+    body = "_wgmma" if ff._wgmma_mlp(spec) else ""
+    assert ff.LAUNCHES["fourier_mlp" + body] == before["fourier_mlp" + body] + 1
+    assert ff.LAUNCHES["fourier_mlp_bwd" + body] == before["fourier_mlp_bwd" + body] + 1
     dx, dws, dbs = ff.fourier_mlp_backward_reference(
         x.detach(), B, [w.detach() for w in ws], [b.detach() for b in bs], g, basis, bf16,
         need_dx)
@@ -231,6 +233,37 @@ def test_wgmma_weight_gradient_layout(dev, n):
     assert float((got - want).abs().max()) <= 1e-3
 
 
+def test_wgmma_backward_layout_16_columns(dev):
+    """dh (64, 16) in registers times a 16-column slice of W_0^T [16][80]:
+    the m64n16k16 shape with the trans flag, as the proposal field's dx takes
+    d_enc k-step by k-step."""
+    rng = np.random.default_rng(17)
+    n_out, n_in = 16, 80
+    dh = torch.tensor(rng.normal(size=(64, n_out)), dtype=torch.float32, device=dev)
+    w = torch.tensor(rng.normal(size=(n_in, n_out)), dtype=torch.float32, device=dev)
+    img = _core_image(w.T.contiguous())
+    for ks in range(n_in // 16):
+        place = (ks * 512, 256, 128, 16 * n_out)
+        want = _rounded(dh) @ _rounded(w)[16 * ks:16 * ks + 16].T
+        got = _probe(dh, None, (0, 0, 0, 0), img, place, 1, 16, 0, 1)
+        assert float((got - want).abs().max()) <= 1e-3, ks
+
+
+@pytest.mark.parametrize("first", [0, 16])
+def test_wgmma_weight_gradient_layout_80_features(dev, first):
+    """enc^T . dh over a tile of 64 points with enc [point][80 features] and
+    dh [point][16]: 64 feature rows from `first` on, as the proposal field's
+    dW_0 takes features [0, 64) and [16, 80)."""
+    rng = np.random.default_rng(19 + first)
+    enc = torch.tensor(rng.normal(size=(64, 80)), dtype=torch.float32, device=dev)
+    dh = torch.tensor(rng.normal(size=(64, 16)), dtype=torch.float32, device=dev)
+    a_place = (first // 8 * 1024, 256, 128, 1024)
+    b_place = (0, 256, 128, 1024)
+    want = _rounded(enc)[:, first:first + 64].T @ _rounded(dh)
+    got = _probe(None, _core_image(enc), a_place, _core_image(dh), b_place, 4, 16, 1, 1)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
 FLAGSHIP_BASE = (256, 128, 128, 16)
 EDGE_N = [1, 63, 64, 65, 64 * 3 + 1, 5000]
 
@@ -294,11 +327,11 @@ def test_fourier_field_backward_kernel_flagship(dev, basis, need_dx, F, n):
     # version at all but a few points.
     _check_all([names[9], names[12]], [flat_g[9], flat_g[12]], [flat_w[9], flat_w[12]],
                BWD_TOL[True])
-    ff.FORCE_WMMA = True
+    ff.FORCE_WMMA = frozenset({"fourier_field_mlp_bwd"})
     try:
         old = ff._field_backward(spec, x, feats, B, bws, bbs, rws, rbs, g)
     finally:
-        ff.FORCE_WMMA = False
+        ff.FORCE_WMMA = frozenset()
     flat_o = [old[1], *old[2], *old[3], *old[4], *old[5]] + ([old[0]] if need_dx else [])
     _check_all(names, flat_g, flat_o, 1e-3)
     for a, b in [(flat_g[0], flat_w[0])] + ([(flat_g[-1], flat_w[-1])] if need_dx else []):
@@ -307,4 +340,84 @@ def test_fourier_field_backward_kernel_flagship(dev, basis, need_dx, F, n):
     again = ff._field_backward(spec, x, feats, B, bws, bbs, rws, rbs, g)
     flat_a = [again[1], *again[2], *again[3], *again[4], *again[5]]
     for a, b in zip(flat_a, flat_g):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the two proposal-field kernels at the flagship widths (H = 40, (80, 16, 1)),
+# which run their wgmma bodies
+# ---------------------------------------------------------------------------
+
+MLP_DIMS = (80, 16, 1)
+# one past the tiles that the resident warpgroups of a 132-SM card take at once
+MLP_EDGE_N = EDGE_N + [64 * 132 * 8 + 1]
+
+
+@pytest.mark.parametrize("basis", ["tri", "sincos"])
+@pytest.mark.parametrize("n", MLP_EDGE_N)
+def test_fourier_mlp_kernel_flagship(dev, basis, n):
+    rng = np.random.default_rng(21)
+    x, B = _inputs(rng, 40, n, basis, dev)
+    ws, bs = _mlp(rng, MLP_DIMS, dev)
+    spec = ff.FusedMLPSpec(h_freqs=40, layer_dims=MLP_DIMS, bf16=True, basis=basis)
+    before = dict(ff.LAUNCHES)
+    got = ff.fourier_mlp(spec, x, B, ws, bs)
+    assert ff.LAUNCHES["fourier_mlp_wgmma"] == before["fourier_mlp_wgmma"] + 1
+    assert ff.LAUNCHES["fourier_mlp"] == before["fourier_mlp"]
+    want = ff.fourier_mlp_reference(x, B, ws, bs, basis, True)
+    ff.FORCE_WMMA = frozenset({"fourier_mlp"})
+    try:
+        old = ff.fourier_mlp(spec, x, B, ws, bs)
+    finally:
+        ff.FORCE_WMMA = frozenset()
+    assert ff.LAUNCHES["fourier_mlp"] == before["fourier_mlp"] + 1
+    torch.cuda.synchronize()
+    assert got.shape == (1, n) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL[True]
+    assert float((got - old).abs().max()) <= TOL[True]
+
+
+@pytest.mark.parametrize("basis", ["tri", "sincos"])
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("n", MLP_EDGE_N)
+def test_fourier_mlp_backward_kernel_flagship(dev, basis, need_dx, n):
+    rng = np.random.default_rng(23)
+    x, B = _inputs(rng, 40, n, basis, dev)
+    ws, bs = _mlp(rng, MLP_DIMS, dev)
+    g = torch.tensor(rng.normal(size=(1, n)), dtype=torch.float32, device=dev)
+    spec = ff.FusedMLPSpec(h_freqs=40, layer_dims=MLP_DIMS, bf16=True, basis=basis,
+                           need_dx=need_dx)
+
+    def flat(res):
+        return [*res[1], *res[2]] + ([res[0]] if need_dx else [])
+
+    before = dict(ff.LAUNCHES)
+    got = ff._mlp_backward(spec, x, B, ws, bs, g)
+    assert ff.LAUNCHES["fourier_mlp_bwd_wgmma"] == before["fourier_mlp_bwd_wgmma"] + 1
+    assert ff.LAUNCHES["fourier_mlp_bwd"] == before["fourier_mlp_bwd"]
+    want = ff.fourier_mlp_backward_reference(x, B, ws, bs, g, basis, True, need_dx)
+    ff.FORCE_WMMA = frozenset({"fourier_mlp_bwd"})
+    try:
+        old = ff._mlp_backward(spec, x, B, ws, bs, g)
+    finally:
+        ff.FORCE_WMMA = frozenset()
+    torch.cuda.synchronize()
+    assert (got[0] is None) == (not need_dx)
+    names = ["dW0", "dW1", "db0", "db1", "dx"]
+    # db_1 = sum of g passes no mask and no rounding: against the plain
+    # version. Every output against the WMMA body, which rounds and masks at
+    # the same places (the tests above hold that body to the plain version)
+    # and differs in the order of the f32 sums only. Against the plain version
+    # a relu mask can fall the other way at a point, which moves a gradient
+    # summed over few points by percents: there dx is held at all but a few
+    # points, and the weight gradients once the points are thousands.
+    _check_all([names[3]], [flat(got)[3]], [flat(want)[3]], 1e-4)
+    _check_all(names, flat(got), flat(old), 2e-3)
+    if n >= 5000:
+        _check_all(names[:4], flat(got)[:4], flat(want)[:4], BWD_TOL[True])
+    if need_dx:
+        off = ((got[0] - want[0]).abs() > BWD_TOL[True] * want[0].abs().max()).any(dim=0)
+        assert int(off.sum()) <= max(1, n // 500)
+    again = ff._mlp_backward(spec, x, B, ws, bs, g)
+    for a, b in zip(flat(again), flat(got)):
         assert torch.equal(a, b)
