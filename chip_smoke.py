@@ -43,7 +43,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    a profiler pass over one step, once more with the proposal-field kernels'
    WMMA bodies; 3 steps in f32 on the card against the
    same 3 steps on the CPU plain path;
-5. a {"kernels": [...]} line, then the last line
+5. kernels A and C at the nerfacto field's base widths (H = 128, (256, 128,
+   128, 16)), which the semantics path runs through their WMMA bodies: held
+   against their plain versions in both bases and dtypes (C with and without
+   dx) at run 2's train-step shape and a ragged N, and timed (part of phase 2);
+6. the street scene: the port's writer makes an 8-frame 376x1241
+   KITTI-layout scene (frames, depth, semantics, masks), timed;
+7. the two CLI runs, through nerf_kbs_tpu_torch.engine.cli.main in-process:
+   nerfacto-tpu (kernels A, B, C, D on their wgmma bodies) and semantic-nerfw
+   with nerfacto-tpu's model fields, depth, semantics and masks (the
+   proposals on A / C's wgmma bodies, the base MLP on their WMMA bodies), 30
+   steps of 4,096 rays each, then eval_all_images and a checkpoint; each
+   prints steps, step times, rays/s, the first and last loss, the eval
+   metrics and the launch counts, which must equal 30 x the per-step counts
+   plus the eval chunks x the per-chunk counts; --eval-only from run 1's
+   checkpoint must reproduce its final metrics; run 2's depth term at each
+   step (the alignment's det, scale and shift in f32 as used and in f64,
+   and whether the rendered depth carries a gradient); the eval time of
+   each split; a profile of one run-2 step, whose launch counts must be
+   run 2's per-step counts; 3 f32 steps of run 2's configuration at a
+   reduced width against the CPU plain path;
+8. a {"kernels": [...]} line, each record's "launches" counted per
+   "launches_per" (a frame, a bench step or a run-2 step), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or run from a directory without the port, it exits non-zero
@@ -55,6 +76,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from pathlib import Path
@@ -133,7 +155,7 @@ def bound(n_bytes: float, flops: float, alu_ops: float, bf16: bool) -> dict:
             "bound_ms_alu": t["alu"] * 1e3}
 
 
-def alu_ops_per_point(kernel: str, h_freqs: int, hidden_cols: int) -> float:
+def alu_ops_per_point(kernel: str, h_freqs: int, hidden_cols: int, out_dim: int = 1) -> float:
     """Scalar f32 instructions a point that the function itself defines, in
     the tri basis: its arithmetic outside the matrix products and the
     roundings at its cast points, one instruction per lane and clock (a
@@ -152,6 +174,10 @@ def alu_ops_per_point(kernel: str, h_freqs: int, hidden_cols: int) -> float:
       needs) the activation back in f32, the dW_1 fma and the product w_1 g
       (3, with the column's 2.5 forward and 2.5 backward: 8), and one add of
       db_1 a point.
+    - A chain whose last layer is wider than 1 (the base MLP that the
+      semantics path runs alone, out_dim 16) runs that layer on the tensor
+      cores: forward a bias add per output column (1), backward the rounding
+      of g and its bias-gradient add per output column (1.5).
     - The field's other columns: the 16 base outputs' bias add and their
       rounding (1.5), the 16 feats' rounding (0.5), ~10 for each of 3
       sigmoids; backward g rgb (1 - rgb) (3 each), the rounding and the
@@ -159,8 +185,12 @@ def alu_ops_per_point(kernel: str, h_freqs: int, hidden_cols: int) -> float:
       gradients (1.5 each)."""
     enc = 13.0 * h_freqs
     if kernel == "fourier_mlp_fwd":
+        if out_dim > 1:
+            return enc + hidden_cols * 2.5 + out_dim * 1.0
         return enc + hidden_cols * (2.5 + 2) + 1
     if kernel == "fourier_mlp_bwd":
+        if out_dim > 1:
+            return enc + hidden_cols * (2.5 + 2.5) + out_dim * 1.5
         return enc + hidden_cols * (2.5 + 2.5 + 3) + 1
     field_fwd = enc + hidden_cols * 2.5 + 16 * 1.5 + 16 * 0.5 + 3 * 10
     if kernel == "fourier_field_fwd":
@@ -598,6 +628,123 @@ def phase_kernels():
         records.append(rec)
         del x, g
         torch.cuda.empty_cache()
+
+    # kernels A and C at the nerfacto field's base widths (H = 128, (256, 128,
+    # 128, 16)): the semantics path runs the base MLP alone in them, through
+    # their WMMA bodies (the wgmma bodies take the proposal widths only).
+    # Parity in both bases and dtypes (C with and without dx) at run 2's
+    # train-step shape (4096 rays x 48 samples) and a ragged N; then times at
+    # the train-step shape, tri, bf16, no dx
+    hB = fB  # the field's frequencies, (3, 128)
+    base_dims = fcfg.base_mlp.dims
+    n_base = 4096 * cfg.num_nerf_samples_per_ray
+
+    def base_a(basis, bf16, x):
+        B = hB * (2 * math.pi) if basis == "sincos" else hB
+        spec = ff.FusedMLPSpec(h_freqs=B.shape[1], layer_dims=base_dims, bf16=bf16, basis=basis)
+        return (lambda: ff.fourier_mlp(spec, x, B, bws, bbs),
+                lambda: ff.fourier_mlp_reference(x, B, bws, bbs, basis, bf16))
+
+    def base_c(basis, bf16, need_dx, x, g):
+        B = hB * (2 * math.pi) if basis == "sincos" else hB
+        spec = ff.FusedMLPSpec(h_freqs=B.shape[1], layer_dims=base_dims, bf16=bf16, basis=basis,
+                               need_dx=need_dx)
+
+        def flat(res):
+            dx, dws, dbs = res
+            return ([] if dx is None else [dx]) + list(dws) + list(dbs)
+
+        return (lambda: flat(ff._mlp_backward(spec, x, B, bws, bbs, g)),
+                lambda: flat(ff.fourier_mlp_backward_reference(x, B, bws, bbs, g, basis, bf16,
+                                                               need_dx)))
+
+    ff.reset_launches()
+    for n in (n_base, 100_003):
+        x = positions(n)
+        g = torch.randn(base_dims[-1], n, generator=gen).to(dev)
+        for basis in ("tri", "sincos"):
+            for bf16 in (True, False):
+                kern, plain = base_a(basis, bf16, x)
+                got, want = kern(), plain()
+                err = float((got - want).abs().max())
+                tol = TOLERANCE[(basis, bf16)]
+                check(bool(torch.isfinite(got).all()) and err <= tol,
+                      f"fourier_mlp_fwd base widths n={n} {basis} bf16={bf16}: err {err}")
+                emit({"phase": "parity", "kernel": "fourier_mlp_fwd", "widths": "base",
+                      "dims": list(base_dims), "n": n, "basis": basis,
+                      "dtype": "bf16" if bf16 else "f32", "body": "wmma" if bf16 else "f32",
+                      "max_abs_err": err, "tol": tol, "max_abs_ref": float(want.abs().max())})
+                for need_dx in (False, True):
+                    kern, plain = base_c(basis, bf16, need_dx, x, g)
+                    got, want, again = kern(), plain(), kern()
+                    check(all(bool(torch.isfinite(t).all()) for t in got),
+                          "fourier_mlp_bwd base widths: non-finite output")
+                    tol = BWD_TOLERANCE[(basis, bf16)]
+                    per_point = [a.shape[-1] == n for a in got]
+                    errs = [rel_err(a, b) for a, b in zip(got, want)]
+                    out = [outliers(a, b, tol) for a, b, pp in zip(got, want, per_point) if pp]
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    emit({"phase": "parity", "kernel": "fourier_mlp_bwd", "widths": "base",
+                          "dims": list(base_dims), "n": n, "basis": basis,
+                          "dtype": "bf16" if bf16 else "f32", "need_dx": need_dx,
+                          "body": "wmma" if bf16 else "f32", "sum_tol": SUM_TOLERANCE,
+                          "max_rel_err": max(e for e, pp in zip(errs, per_point) if not pp),
+                          "last_layer_rel_err": errs[-1],
+                          "per_point_outlier_share": max(out, default=None),
+                          "repeat_bit_identical": same})
+                    check(all(e <= SUM_TOLERANCE for e, pp in zip(errs, per_point) if not pp),
+                          f"fourier_mlp_bwd base n={n} {basis} bf16={bf16} dx={need_dx}: {errs}")
+                    check(all(o <= PER_POINT_OUTLIERS for o in out),
+                          f"fourier_mlp_bwd base n={n} {basis} bf16={bf16}: outliers {out}")
+                    check(same, f"fourier_mlp_bwd base n={n}: a repeat gave other bits")
+                    del got, want, again
+        del x, g
+        torch.cuda.empty_cache()
+    ran = {k: v for k, v in ff.LAUNCHES.items() if v}
+    check(ran == {"fourier_mlp": 8, "fourier_mlp_bwd": 32},
+          f"base-width launches {ran} (all through the WMMA and f32 bodies)")
+
+    bm_all = macs(base_dims)
+    base_hidden = sum(base_dims[1:-1])
+    base_w = sum(t.numel() for t in (*bws, *bbs)) + fB.numel()
+    for name, per_point_bytes, w_floats, mac, src, line in (
+        ("fourier_mlp_fwd", 12 + 4 * base_dims[-1], base_w, 3 * fB.shape[1] + sum(bm_all),
+         "fourier_mlp_fwd.cu", 329),
+        ("fourier_mlp_bwd", 12 + 4 * base_dims[-1], 2 * base_w,
+         3 * fB.shape[1] + sum(bm_all[:-1]) + sum(bm_all) + sum(bm_all[1:]),
+         "fourier_mlp_bwd.cu", 381),
+    ):
+        x = positions(n_base)
+        is_c = name == "fourier_mlp_bwd"
+        g = torch.randn(base_dims[-1], n_base, generator=gen).to(dev)
+        kern, plain = base_c("tri", True, False, x, g) if is_c else base_a("tri", True, x)
+        got, want = kern(), plain()
+        err = (max(rel_err(a, b) for a, b in zip(got, want)) if is_c
+               else float((got - want).abs().max()))
+        del got, want
+        ev = [time_ms(kern, 20), time_ms(kern, 20)]
+        dv, by_name = device_ms(kern, 20)
+        plain_ms = time_ms(plain, 3)
+        alu = alu_ops_per_point(name, fB.shape[1], base_hidden, base_dims[-1])
+        rec = {"name": f"{name}_base", "route": "cuda",
+               "source": f"nerf_kbs_tpu_torch/csrc/{src}",
+               "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
+               "max_abs_err": err,
+               **({"err_is": "weight and bias gradients, relative to each one's largest "
+                             "magnitude"} if is_c else {}),
+               "ms": sum(ev) / 2, "plain_ms": plain_ms,
+               **bound(n_base * per_point_bytes + 4 * w_floats, 2.0 * n_base * mac, n_base * alu,
+                       bf16=True),
+               "library_ms": None, "n_points": n_base, "dims": list(base_dims),
+               "h_freqs": fB.shape[1], "basis": "tri", "dtype": "bf16", "body": "wmma",
+               "alu_instructions_per_point": alu, "turns_ms": ev, "device_ms": dv,
+               "device_ms_by_kernel": {k[:60]: v for k, v in by_name.items()}}
+        if is_c:
+            rec["need_dx"] = False
+        emit({"phase": "timing", **rec})
+        records.append(rec)
+        del x, g
+        torch.cuda.empty_cache()
     return records
 
 
@@ -694,7 +841,7 @@ def phase_slice(records):
     box = np.array([[-1.0] * 3, [1.0] * 3])
     h, w = 376, 1241
     cams = DataparserOutputs([], orbit_cameras(32, h=h, w=w), box).cameras()
-    chunk = spec.eval_num_rays_per_chunk
+    chunk = spec.trainer.eval_num_rays_per_chunk
     renderer = Renderer(params, cfg, cams, step=30000, eval_num_rays_per_chunk=chunk)
     renderer.render_camera(1)  # warm-up: library load, allocator, cuBLAS
     torch.cuda.synchronize()
@@ -716,6 +863,7 @@ def phase_slice(records):
     for rec in records:
         if rec["name"] in COUNTER and not rec["name"].endswith("_bwd"):
             rec["launches"] = launches[COUNTER[rec["name"]]]
+            rec["launches_per"] = "376x1241 frame"
     # the frame time: median of repeated renders of the same camera
     times = []
     for _ in range(5):
@@ -832,10 +980,15 @@ def phase_train(records):
           f"train launches {launches} for {n_steps} steps")
     check(all(np.isfinite(losses)), f"non-finite train loss {losses}")
     for rec in records:
+        if rec["name"] not in COUNTER:  # the base-width records: phase_cli
+            continue
+        # per step: the counts are exact multiples of n_steps (checked above)
         if rec["name"].endswith("_bwd"):
-            rec["launches"] = launches[COUNTER[rec["name"]]]
+            rec["launches"] = launches[COUNTER[rec["name"]]] // n_steps
+            rec["launches_per"] = "16,384-ray train step"
+            rec["bench_launches"] = launches[COUNTER[rec["name"]]]
         else:
-            rec["train_launches"] = launches[COUNTER[rec["name"]]]
+            rec["train_launches"] = launches[COUNTER[rec["name"]]] // n_steps
     moved = {}
     for (path, now), was in zip(_leaf_paths(params), start):
         moved[path] = bool((now.detach() != was).any())
@@ -926,6 +1079,282 @@ def phase_train(records):
     check(rel <= 2e-3, f"card vs CPU f32 train steps: {runs}")
 
 
+# the scene's image size: the KITTI dataparser's default, the size the serving
+# frame measures
+SCENE_HW = (376, 1241)
+
+
+def phase_scene(out_dir: str) -> str:
+    """The port's KITTI-layout dynamic street scene at SCENE_HW, 8 frames,
+    written by nerf_kbs_tpu_torch.data.synthetic_kitti (NumPy ray tracing, the
+    port's PNG encoder)."""
+    from nerf_kbs_tpu_torch.data.synthetic_kitti import write_dynamic_dataset
+
+    import numpy as np
+
+    h, w = SCENE_HW
+    t0 = time.perf_counter()
+    scene = write_dynamic_dataset(Path(out_dir) / "scene", n_frames=8, h=h, w=w)
+    seconds = time.perf_counter() - t0
+    depths = [np.load(f) for f in sorted((scene / "depth").glob("*.npy"))]
+    emit({"phase": "scene", "frames": 8, "image": [h, w], "seconds": seconds,
+          "bytes": sum(f.stat().st_size for f in scene.rglob("*") if f.is_file()),
+          "depth_max_m": [float(d.max()) for d in depths],
+          "pixels_over_1000_m": [int((d > 1000.0).sum()) for d in depths],
+          "sky_pixels": [int((d == 0).sum()) for d in depths]})
+    return str(scene)
+
+
+# the two CLI runs: nerfacto-tpu on the fully fused path, and semantic-nerfw on
+# the fused Fourier path with depth, semantics and masks (nerfacto-tpu's model
+# fields), both from the scene on disk, 8 frames, 6 train and 2 eval
+def _run_argv(scene: str, out: str) -> list:
+    return ["--dataparser.data_dir", scene, "--dataparser.first_frame", "0",
+            "--dataparser.last_frame", "8", "--dataparser.train_split_fraction", "0.75",
+            "--trainer.max_num_iterations", "30", "--trainer.output_dir", out,
+            "--trainer.log_every", "1", "--dataparser.image_height", str(SCENE_HW[0]),
+            "--dataparser.image_width", str(SCENE_HW[1])]
+
+
+RUN2_MODEL = ["--model.field_type", "fourier", "--model.hidden_dim", "128",
+              "--model.num_layers", "3", "--model.base_res", "4", "--model.max_res", "256",
+              "--model.fourier_basis", "tri", "--model.num_proposal_samples_per_ray", "96,32",
+              "--model.stop_grad_sampling", "true", "--model.interlevel_ray_fraction", "0.5",
+              "--model.appearance_embedding_dim", "0"]
+
+
+def _run2_data(scene: str) -> list:
+    return ["--dataparser.semantics_dir", f"{scene}/sem", "--dataparser.mask_dir",
+            f"{scene}/mask", "--dataparser.depth_unit_scale_factor", "1.0"]
+
+
+def _cli_run(cli, ff, method: str, argv: list, out: str, per_step: dict,
+             per_chunk: dict) -> dict:
+    """cli.main in-process: 30 steps, eval_all_images, a checkpoint. The
+    launch counts of the whole call must be 30 x per_step plus 2 eval images
+    x ceil(H * W / chunk) chunks x per_chunk, chunk being the method's
+    eval_num_rays_per_chunk."""
+    spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
+    chunk = spec.trainer.eval_num_rays_per_chunk
+    import numpy as np
+
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    cli.main([method] + argv)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    chunks = 2 * -(-SCENE_HW[0] * SCENE_HW[1] // chunk)
+    want = {k: 30 * per_step.get(k, 0) + chunks * per_chunk.get(k, 0)
+            for k in set(per_step) | set(per_chunk)}
+    check(launches == want, f"{method}: launches {launches}, want {want}")
+    lines = [json.loads(ln) for ln in
+             (Path(out) / "exp" / method / "metrics.jsonl").read_text().splitlines()]
+    steps = [ln for ln in lines if "total_loss" in ln]
+    check(len(steps) == 30, f"{method}: {len(steps)} logged steps")
+    terms = [k for k in steps[0] if k.endswith("_loss")]
+    check(all(np.isfinite(ln[k]) for ln in steps for k in terms), f"{method}: non-finite loss")
+    rays = spec.datamanager.train_num_rays_per_batch
+    step_ms = [rays / ln["rays_per_sec"] * 1e3 for ln in steps]
+    med = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    final = {k[len("eval_all_"):]: v for k, v in lines[-1].items() if k.startswith("eval_all_")}
+    check(final.get("num_images") == 2 and all(np.isfinite(v) for v in final.values()),
+          f"{method}: eval {final}")
+    rec = {"phase": f"cli_{method.replace('-', '_')}", "method": method, "steps": 30,
+           "rays_per_batch": rays, "wall_s": wall, "step_ms": step_ms,
+           "median_step_ms": med, "rays_per_s": rays / (med * 1e-3),
+           "loss_first": steps[0]["total_loss"], "loss_last": steps[-1]["total_loss"],
+           "loss_terms": {k: [ln[k] for ln in steps] for k in terms}, "eval_all": final,
+           "launches": launches, "eval_chunks": chunks,
+           "launches_per_step": per_step, "launches_per_eval_chunk": per_chunk}
+    emit(rec)
+    return rec
+
+
+def _depth_alignment_spy():
+    """Wraps ops.losses.normalized_depth_scale_and_shift, the closed-form
+    alignment of the training depth term (the trainer's eval imports its own
+    reference and is not seen), and keeps each call's inputs and outputs on
+    the card, so the step makes no extra sync. Returns (calls, summary,
+    restore); summary() gives per call the f32 det as the term computed it,
+    the same system in f64, the scale and shift used, the spread of the
+    rendered depth and whether it carries a gradient."""
+    import torch
+
+    from nerf_kbs_tpu_torch.ops import losses as L
+
+    real = L.normalized_depth_scale_and_shift
+    calls = []
+
+    def spy(pred, gt, mask):
+        scale, shift = real(pred, gt, mask)
+        calls.append((pred.requires_grad, *(t.detach().clone() for t in (pred, gt, mask)),
+                      scale.detach(), shift.detach()))
+        return scale, shift
+
+    def summary():
+        rows = []
+        for grad, pred, gt, mask, scale, shift in calls:
+            a00, a01, a11 = (torch.sum(mask * pred * pred, -1), torch.sum(mask * pred, -1),
+                             torch.sum(mask, -1))
+            p, g, m = pred.double(), gt.double(), mask.double()
+            d00, d01, d11 = (m * p * p).sum(-1), (m * p).sum(-1), m.sum(-1)
+            e0, e1 = (m * p * g).sum(-1), (m * g).sum(-1)
+            det64 = d00 * d11 - d01 * d01
+            mean = d01 / d11
+            rows.append({
+                "det": float(a00 * a11 - a01 * a01), "det_f64": float(det64),
+                "det_f64_rel": float(det64 / (d00 * d11)),
+                "scale": float(scale), "shift": float(shift),
+                "scale_f64": float((d11 * e0 - d01 * e1) / det64) if det64 > 0 else 0.0,
+                "shift_f64": float((-d01 * e0 + d00 * e1) / det64) if det64 > 0 else 0.0,
+                "depth_mean": float(mean),
+                "depth_std": float((d00 / d11 - mean ** 2).clamp_min(0).sqrt()),
+                "depth_min": float(pred.min()), "depth_max": float(pred.max()),
+                "target_rms": float(((m * g * g).sum() / d11).sqrt()), "rays": float(d11),
+                "target_max": float((m * g).max()),
+                "targets_over_1000": int(((m > 0) & (g > 1000.0)).sum()),
+                "depth_has_gradient": grad})
+        return rows
+
+    L.normalized_depth_scale_and_shift = spy
+    return calls, summary, lambda: setattr(L, "normalized_depth_scale_and_shift", real)
+
+
+def phase_cli(records, scene: str) -> None:
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.engine import cli
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    out = tempfile.mkdtemp(prefix="nkt_cli_")
+    # run 1: kernels A and C at the proposal widths, B and D at the field's,
+    # all on their wgmma bodies; eval chunks of 1 << 15 rays
+    argv1 = _run_argv(scene, out)
+    r1 = _cli_run(cli, ff, "nerfacto-tpu", argv1, out,
+                  per_step={"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1,
+                            "fourier_mlp_bwd_wgmma": 2, "fourier_field_mlp_bwd_wgmma": 1},
+                  per_chunk={"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1})
+
+    # --eval-only from run 1's checkpoint reproduces its final metrics
+    ckpt_dir = str(Path(out) / "exp" / "nerfacto-tpu")
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["nerfacto-tpu"] + argv1 + ["--eval-only", "true", "--trainer.load_dir", ckpt_dir])
+    eval_only_s = time.perf_counter() - t0
+    lines = (Path(ckpt_dir) / "metrics.jsonl").read_text().splitlines()
+    again = {k[len("eval_all_"):]: v for k, v in json.loads(lines[-1]).items()
+             if k.startswith("eval_all_")}
+    check(again == r1["eval_all"], f"--eval-only gave {again}, training ended at {r1['eval_all']}")
+    check({k: v for k, v in ff.LAUNCHES.items() if v} ==
+          {k: v - 30 * {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1}.get(k, 0)
+           for k, v in r1["launches"].items() if "bwd" not in k},
+          f"--eval-only launches {ff.LAUNCHES}")
+    # the eval time of the split: eval_all_images of a trainer built from the
+    # checkpoint, timed warm
+    spec = cli.apply_overrides(cli.method_registry["nerfacto-tpu"](),
+                               {"trainer.load_dir": ckpt_dir, **_pairs(argv1)})
+    trainer = cli.build_trainer(spec)
+    trainer.eval_all_images()
+    t0 = time.perf_counter()
+    trainer.eval_all_images()
+    split_s = time.perf_counter() - t0
+    emit({"phase": "cli_eval_only", "method": "nerfacto-tpu", "matches_training_end": True,
+          "eval_all": again, "call_s": eval_only_s, "eval_all_images_s": split_s,
+          "eval_images": 2, "ms_per_image": split_s * 1e3 / 2})
+    del trainer
+    torch.cuda.empty_cache()
+
+    # run 2: semantic-nerfw; the proposal fields on A / C's wgmma bodies, the
+    # base MLP on A / C's WMMA bodies at (256, 128, 128, 16); eval chunks of
+    # 1 << 16 rays (the method's)
+    argv2 = argv1 + RUN2_MODEL + _run2_data(scene)
+    per_step2 = {"fourier_mlp_wgmma": 2, "fourier_mlp": 1, "fourier_mlp_bwd_wgmma": 2,
+                 "fourier_mlp_bwd": 1}
+    per_chunk2 = {"fourier_mlp_wgmma": 2, "fourier_mlp": 1}
+    calls, summary, restore = _depth_alignment_spy()
+    try:
+        r2 = _cli_run(cli, ff, "semantic-nerfw", argv2, out, per_step2, per_chunk2)
+    finally:
+        restore()
+    check({"masked_psnr", "depth_mse", "semantic_accuracy"} <= set(r2["eval_all"]),
+          f"semantic-nerfw eval {r2['eval_all']}")
+    # the depth term of each of run 2's steps: its alignment, and whether any
+    # gradient of it can reach a parameter (the rendered depth must carry one)
+    rows = summary()
+    check(len(rows) == 30, f"depth term ran {len(rows)} times in 30 steps")
+    singular = [i for i, r in enumerate(rows) if r["scale"] == 0.0 and r["shift"] == 0.0]
+    parsed = cli.apply_overrides(cli.method_registry["semantic-nerfw"](), _pairs(argv2))
+    emit({"phase": "cli_semantic_nerfw_depth", "steps": len(rows),
+          "dataparser_scale": parsed.dataparser.parse("train").dataparser_scale,
+          "singular_steps": len(singular), "singular_at": singular,
+          "steps_with_depth_gradient": sum(r["depth_has_gradient"] for r in rows),
+          "stop_grad_sampling": True, "depth_loss": r2["loss_terms"]["depth_loss"],
+          "alignment": rows})
+    del calls
+    spec = cli.apply_overrides(cli.method_registry["semantic-nerfw"](),
+                               {"trainer.load_dir": str(Path(out) / "exp" / "semantic-nerfw"),
+                                **_pairs(argv2)})
+    trainer = cli.build_trainer(spec)
+    trainer.eval_all_images()
+    t0 = time.perf_counter()
+    trainer.eval_all_images()
+    split_s = time.perf_counter() - t0
+    emit({"phase": "cli_eval_split", "method": "semantic-nerfw", "eval_all_images_s": split_s,
+          "eval_images": 2, "ms_per_image": split_s * 1e3 / 2})
+
+    # one run-2 step under the profiler: the heads' products, the split
+    # kernel's calls, the glue
+    batch = trainer._to_device(trainer.dm.next_train(1000))
+    ff.reset_launches()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    one_step = {k: v for k, v in ff.LAUNCHES.items() if v}
+    check(one_step == per_step2, f"one semantic-nerfw step launched {one_step}")
+    # the base-width records count per run-2 step, as the others per frame or step
+    for rec in records:
+        if rec["name"].endswith("_base"):
+            wrapper = WRAPPER[rec["name"][:-len("_base")]]
+            rec["launches"] = one_step[wrapper]
+            rec["launches_per"] = "4,096-ray run-2 train step"
+            rec["launches_per_eval_chunk"] = per_chunk2.get(wrapper, 0)
+            rec["run2_launches"] = r2["launches"][wrapper]
+    phase_profile(lambda: trainer.train_step(batch), 4096, what="semantic-nerfw train step",
+                  top=25)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # run 2's configuration at a reduced width in f32: 3 steps on the card
+    # (the kernels' f32 bodies) against the same 3 steps on the CPU plain path
+    small = argv2 + ["--model.hidden_dim", "32", "--model.fourier_num_levels", "4",
+                     "--model.fourier_features_per_level", "16",
+                     "--model.num_proposal_samples_per_ray", "32,16",
+                     "--model.num_nerf_samples_per_ray", "16",
+                     "--datamanager.train_num_rays_per_batch", "256",
+                     "--trainer.mixed_precision", "false"]
+    spec = cli.apply_overrides(cli.method_registry["semantic-nerfw"](), _pairs(small))
+    runs = {}
+    for where in ("cuda", "cpu"):
+        t = cli.build_trainer(dataclasses.replace(
+            spec, trainer=dataclasses.replace(spec.trainer, experiment_name=f"f32_{where}")),
+            device=where)
+        check(t.model_config.compute_dtype == "float32", "f32 steps")
+        runs[where] = [float(t.train_step(t._to_device(t.dm.next_train(s)))["total_loss"])
+                       for s in range(3)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    emit({"phase": "cli_semantic_nerfw_vs_cpu", "rays": 256, "losses_card": runs["cuda"],
+          "losses_cpu": runs["cpu"], "max_rel_diff": rel, "tol": 2e-3})
+    check(rel <= 2e-3, f"card vs CPU f32 semantic-nerfw steps: {runs}")
+
+
+def _pairs(argv: list) -> dict:
+    """--k v pairs of an argv list as override paths."""
+    return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
+
+
 def _leaf_paths(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k, v in tree.items() for x in _leaf_paths(v, f"{prefix}/{k}")]
@@ -950,8 +1379,10 @@ def main() -> int:
     records = phase_kernels()
     phase_slice(records)
     phase_train(records)
+    with tempfile.TemporaryDirectory(prefix="nkt_scene_") as tmp:
+        phase_cli(records, phase_scene(tmp))
     bad = [m for m in sys.modules
-           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]
     check(not bad, f"imported {bad}")
     emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

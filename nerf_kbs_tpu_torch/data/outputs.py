@@ -1,9 +1,11 @@
-"""DataparserOutputs: host-side NumPy camera arrays and scene box, turned
-into torch Cameras on a device once."""
+"""DataparserOutputs: what a dataparser hands a datamanager. Host-side NumPy
+camera arrays, the scene box, per-frame asset paths and the semantic class
+table; the cameras are turned into torch Cameras on a device once."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -13,10 +15,31 @@ from nerf_kbs_tpu_torch.device import resolve_device
 
 
 @dataclasses.dataclass
+class Semantics:
+    """Semantic class table (from semantics_list.txt): class names, colours
+    in [0, 1], the classes to mask out of the rgb loss and the per-frame
+    label images."""
+
+    classes: list[str]
+    colors: np.ndarray  # (K, 3) in [0, 1]
+    mask_classes: list[str] = dataclasses.field(default_factory=list)
+    filenames: list[str] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class DataparserOutputs:
     image_filenames: list
     cameras_np: dict  # fx, fy, cx, cy (N,), c2w (N, 3, 4), width, height (N,), distortion?
     scene_box: np.ndarray  # (2, 3) aabb
+    mask_filenames: Optional[list] = None
+    depth_filenames: Optional[list] = None
+    depth_unit_scale_factor: float = 1.0
+    semantics: Optional[Semantics] = None
+    # the world transform and scale the parser applied to the poses
+    dataparser_transform: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)
+    )
+    dataparser_scale: float = 1.0
 
     def cameras(self, device=None) -> Cameras:
         """Cameras on ``device`` (CUDA unless ``device="cpu"``)."""

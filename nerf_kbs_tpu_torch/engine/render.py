@@ -17,7 +17,7 @@ from nerf_kbs_tpu_torch.device import resolve_device
 from nerf_kbs_tpu_torch.models import nerfacto
 from nerf_kbs_tpu_torch.utils import images
 
-_KEEP = ("rgb", "depth", "expected_depth", "accumulation", "directions_norm")
+_KEEP = ("rgb", "depth", "expected_depth", "accumulation", "directions_norm", "semantics")
 
 
 def _to_device(tree, dev):
@@ -46,8 +46,9 @@ class Renderer:
     @torch.no_grad()
     def render_camera(self, camera_idx: int, cameras: Cameras | None = None) -> dict:
         """Full image of one camera: {name: (H, W, C) float32 numpy} for rgb,
-        depth, expected_depth, accumulation and directions_norm. The last
-        chunk is padded by repeating the last pixel index."""
+        depth, expected_depth, accumulation, directions_norm and, with the
+        semantic head, semantics (logits). The last chunk is padded by
+        repeating the last pixel index."""
         cameras = self.cameras if cameras is None else cameras.to(self.device)
         h = int(cameras.height[camera_idx])
         w = int(cameras.width[camera_idx])
@@ -66,7 +67,8 @@ class Renderer:
             rays = generate_rays(cameras, idx[i:i + chunk])
             res = nerfacto.forward(self.params, self.config, rays, step=self.step, train=False)
             for k in _KEEP:
-                outs.setdefault(k, []).append(res[k])
+                if k in res:
+                    outs.setdefault(k, []).append(res[k])
         return {
             k: torch.cat(v, dim=0)[:total].reshape(h, w, -1).cpu().numpy()
             for k, v in outs.items()

@@ -109,6 +109,13 @@ class ViewerServer:
             out = self.renderer.render_camera(0, cameras=cameras)
         return images.encode_png(out["rgb"])
 
+    def serve_forever(self) -> None:
+        """Serve on this thread until interrupted."""
+        try:
+            self._server.serve_forever()
+        finally:
+            self._server.server_close()
+
     def start(self) -> "ViewerServer":
         """Serve on a daemon thread."""
         self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)

@@ -1,10 +1,16 @@
 """Fourier-feature neural fields on the fused path: the nerfacto field
-(density + rgb) and the proposal density fields.
+(density + rgb, and semantics), and the proposal density fields.
 
 Positions arrive coordinate-major, (3, R, S). Contraction, the coarse-to-fine
 window (folded into the first layer's weights), the 2*pi on B for the sincos
 basis, the density activation and the SH view features stay here, outside
 the kernels, as in the JAX package.
+
+Without semantics the nerfacto field is one fully fused kernel (base MLP and
+rgb MLP together, ``fourier_field_mlp``). With semantics it splits, as the JAX
+package's does: the base MLP runs alone in ``fourier_mlp`` (the proposal
+fields' kernel, here at the base MLP's widths), and the rgb head and the
+semantic head are plain matrix products on its output.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from nerf_kbs_tpu_torch.ops.fused_field import (
     fourier_field_mlp,
     fourier_mlp,
 )
-from nerf_kbs_tpu_torch.ops.mlp import MLPConfig, mlp_init, trunc_exp
+from nerf_kbs_tpu_torch.ops.mlp import MLPConfig, mlp_apply_t, mlp_init, trunc_exp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +49,8 @@ class NerfactoFieldConfig:
     use_average_appearance_embedding: bool = True
     sh_levels: int = 4
     use_semantics: bool = False
+    num_semantic_classes: int = 0
+    hidden_dim_semantics: int = 64
     compute_dtype: str = "float32"
 
     @property
@@ -62,6 +70,17 @@ class NerfactoFieldConfig:
             num_layers=self.num_layers_color,
             layer_width=self.hidden_dim_color,
             out_dim=3,
+            compute_dtype=self.compute_dtype,
+            out_activation="sigmoid",
+        )
+
+    @property
+    def semantic_mlp(self) -> MLPConfig:
+        return MLPConfig(
+            in_dim=self.geo_feat_dim,
+            num_layers=2,
+            layer_width=self.hidden_dim_semantics,
+            out_dim=self.num_semantic_classes,
             compute_dtype=self.compute_dtype,
         )
 
@@ -96,8 +115,6 @@ def _require_fourier(cfg) -> None:
 
 def nerfacto_field_init(cfg: NerfactoFieldConfig, generator: torch.Generator, device) -> dict:
     _require_fourier(cfg)
-    if cfg.use_semantics:
-        raise NotImplementedError("use_semantics=True: the semantics head is not ported")
     params = {
         "fourier_B": fourier_encoding_init(cfg.fourier, generator, device),
         "base_mlp": mlp_init(cfg.base_mlp, generator, device),
@@ -106,6 +123,12 @@ def nerfacto_field_init(cfg: NerfactoFieldConfig, generator: torch.Generator, de
     if cfg.appearance_embedding_dim > 0:
         emb = torch.randn(cfg.num_images, cfg.appearance_embedding_dim, generator=generator)
         params["appearance_emb"] = (emb * 0.1).to(device)
+    if cfg.use_semantics:
+        if cfg.num_semantic_classes <= 0:
+            raise ValueError(
+                "use_semantics=True needs num_semantic_classes > 0: give the dataset's "
+                "class count, or switch the semantic head off")
+        params["semantic_mlp"] = mlp_init(cfg.semantic_mlp, generator, device)
     return params
 
 
@@ -171,13 +194,12 @@ def nerfacto_field_apply_t(
     window=None,
     need_dx: bool = True,
 ) -> dict:
-    """Fully fused field: x_t (3, R, S) raw positions, directions (R, 3),
-    camera_indices (R, 1). Returns 'density' (R, S) and 'rgb_t' (3, R, S).
-    With ``train`` the appearance rows are per camera, and the table learns
-    through the kernel's dfeats summed over each ray's samples."""
+    """The field on the fused path: x_t (3, R, S) raw positions, directions
+    (R, 3), camera_indices (R, 1). Returns 'density' (R, S) and 'rgb_t' (3,
+    R, S), and with semantics 'semantics_t' (C, R, S) logits. With ``train``
+    the appearance rows are per camera, and the table learns through the
+    gradient of the per-point feats summed over each ray's samples."""
     _require_fourier(cfg)
-    if cfg.use_semantics:
-        raise NotImplementedError("use_semantics=True: the semantics branch is not ported")
     R, S = x_t.shape[1], x_t.shape[2]
 
     # per-point conditioning rows: SH view features, then appearance
@@ -190,6 +212,9 @@ def nerfacto_field_apply_t(
             rows.append(table.mean(dim=0)[:, None].expand(-1, R))
     feats = torch.cat(rows, dim=0)
     feats = feats[:, :, None].expand(-1, R, S).reshape(feats.shape[0], R * S)
+
+    if cfg.use_semantics:
+        return _split_field(params, cfg, x_t, feats, window, need_dx)
 
     x, B, ws, bs = _kernel_inputs(params, cfg.fourier, params["base_mlp"], x_t, window)
     rgb = params["rgb_mlp"]
@@ -206,4 +231,21 @@ def nerfacto_field_apply_t(
     return {
         "density": trunc_exp(out4[0].reshape(R, S) - 1.0),
         "rgb_t": out4[1:].reshape(3, R, S),
+    }
+
+
+def _split_field(params, cfg: NerfactoFieldConfig, x_t, feats, window, need_dx: bool) -> dict:
+    """The semantics path: the base MLP in ``fourier_mlp`` (its gradient on
+    all 1 + geo outputs comes back through that kernel's backward), the rgb
+    head on [geo; feats] and the semantic head on geo with its gradient
+    stopped, both plain products."""
+    R, S = x_t.shape[1], x_t.shape[2]
+    h = _fourier_fused_call("base_mlp", params, cfg.fourier, cfg.base_mlp, x_t, window, need_dx)
+    geo = h[1:].reshape(cfg.geo_feat_dim, R * S)
+    rgb_t = mlp_apply_t(params["rgb_mlp"], torch.cat([geo, feats], dim=0), cfg.rgb_mlp)
+    sem_t = mlp_apply_t(params["semantic_mlp"], geo.detach(), cfg.semantic_mlp)
+    return {
+        "density": trunc_exp(h[0] - 1.0),
+        "rgb_t": rgb_t.reshape(3, R, S),
+        "semantics_t": sem_t.reshape(-1, R, S),
     }

@@ -3,10 +3,12 @@ at eval and in training, with the training losses.
 
 Covered: the fourier field with contraction, the eval and the training
 forward, the 'last_sample' / 'white' / 'black' backgrounds, appearance
-embeddings, and the rgb, interlevel and distortion losses. Anything else
-raises NotImplementedError naming the setting: hash or cp fields, semantics,
-normals, the camera optimizer, disabled contraction, and depth, mask, flow or
-sky supervision.
+embeddings, the semantic head (the split field), and the rgb (masked when
+``use_mask``), interlevel, distortion, depth and semantic losses. Anything
+else raises NotImplementedError naming the setting: hash or cp fields,
+normals, the camera optimizer, disabled contraction, and flow or sky
+supervision. The config carries every field of the JAX package's, with its
+names and defaults, so that one override path means the same in both.
 """
 
 from __future__ import annotations
@@ -29,22 +31,26 @@ from nerf_kbs_tpu_torch.models.fields import (
 from nerf_kbs_tpu_torch.ops import losses as L
 from nerf_kbs_tpu_torch.ops import rendering as R
 from nerf_kbs_tpu_torch.ops.encoding import FourierEncodingConfig, fourier_window
+from nerf_kbs_tpu_torch.ops.metrics import masked_psnr
 from nerf_kbs_tpu_torch.ops.samplers import RaySamples, anneal_schedule, proposal_sample
 
 
 @dataclasses.dataclass(frozen=True)
 class NerfactoConfig:
-    """The surface of the JAX package's NerfactoConfig that the fused
-    Fourier path reads at eval and in training, with the same names and
-    defaults."""
+    """The JAX package's NerfactoConfig, field for field. The hash and cp
+    settings, the transient width, the normal losses and the camera
+    optimizer's penalties are carried for the override paths; a run that
+    needs them raises (see ``check_supported``)."""
 
     num_images: int = 1
-    field_type: str = "hash"
+    field_type: str = "hash"  # hash | fourier | cp; only fourier is ported
     fourier_num_levels: int = 8
     fourier_features_per_level: int = 32
     fourier_basis: str = "sincos"
     proposal_fourier_basis: str = "tri"
     proposal_fourier_features_per_level: int = 16
+    cp_features_per_level: int = 16
+    proposal_cp_features_per_level: int = 8
     fourier_anneal_steps: int = 5000
     near_plane: float = 0.001
     far_plane: float = 1000.0
@@ -52,12 +58,17 @@ class NerfactoConfig:
     hidden_dim: int = 64
     num_layers: int = 2
     hidden_dim_color: int = 64
+    hidden_dim_transient: int = 64
+    num_levels: int = 16
     base_res: int = 16
     max_res: int = 2048
+    log2_hashmap_size: int = 19
+    features_per_level: int = 2
     num_proposal_samples_per_ray: Tuple[int, ...] = (256, 96)
     num_nerf_samples_per_ray: int = 48
     num_proposal_iterations: int = 2
     proposal_hidden_dim: int = 16
+    proposal_log2_hashmap_size: int = 17
     proposal_num_levels: int = 5
     proposal_max_res: Tuple[int, ...] = (128, 256)
     proposal_initial_sampler: str = "piecewise"
@@ -66,6 +77,8 @@ class NerfactoConfig:
     # are i.i.d. pixel samples, so a prefix is an unbiased subsample)
     interlevel_ray_fraction: float = 1.0
     distortion_loss_mult: float = 0.002
+    orientation_loss_mult: float = 0.0001
+    pred_normal_loss_mult: float = 0.001
     use_proposal_weight_anneal: bool = True
     use_average_appearance_embedding: bool = True
     proposal_weights_anneal_slope: float = 10.0
@@ -76,14 +89,24 @@ class NerfactoConfig:
     stop_grad_sampling: bool = False
     predict_normals: bool = False
     disable_scene_contraction: bool = False
+    # the semantics composite takes the weights detached unless this is set
+    pass_semantic_gradients: bool = False
+    mono_depth_loss_mult: float = 0.01
+    # False: the depth target is z-depth, scaled by |direction| to the ray
+    # distance and compared scale-and-shift invariantly; True: metric MSE
+    is_euclidean_depth: bool = False
     use_depth: bool = False
     use_semantic: bool = False
     use_mask: bool = False
+    semantic_loss_weight: float = 0.001
     flow_loss_mult: float = 0.0
     sky_loss_mult: float = 0.0
+    num_semantic_classes: int = 0
     appearance_embedding_dim: int = 32
     compute_dtype: str = "float32"
     camera_optimizer: str = "off"
+    camera_opt_trans_penalty: float = 1e-2
+    camera_opt_rot_penalty: float = 1e-3
 
     @property
     def field(self) -> NerfactoFieldConfig:
@@ -103,6 +126,7 @@ class NerfactoConfig:
             appearance_embedding_dim=self.appearance_embedding_dim,
             use_average_appearance_embedding=self.use_average_appearance_embedding,
             use_semantics=self.use_semantic,
+            num_semantic_classes=self.num_semantic_classes,
             compute_dtype=self.compute_dtype,
         )
 
@@ -121,12 +145,11 @@ class NerfactoConfig:
         )
 
 
-def _check_supported(cfg: NerfactoConfig) -> None:
+def check_supported(cfg: NerfactoConfig) -> None:
+    """Raises NotImplementedError naming the first setting that is not
+    ported."""
     unsupported = {
         "field_type": cfg.field_type != "fourier",
-        "use_semantic": cfg.use_semantic,
-        "use_depth": cfg.use_depth,
-        "use_mask": cfg.use_mask,
         "flow_loss_mult": cfg.flow_loss_mult != 0.0,
         "sky_loss_mult": cfg.sky_loss_mult != 0.0,
         "predict_normals": cfg.predict_normals,
@@ -136,15 +159,15 @@ def _check_supported(cfg: NerfactoConfig) -> None:
     for name, bad in unsupported.items():
         if bad:
             raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported (fused fourier path, rgb / "
-                f"interlevel / distortion losses only)"
+                f"{name}={getattr(cfg, name)!r} is not ported (the fused fourier path, "
+                f"with rgb, interlevel, distortion, depth and semantic losses)"
             )
 
 
 def init(cfg: NerfactoConfig, seed: int = 0, device=None) -> dict:
     """Parameters from ``seed`` (drawn on the CPU with one torch.Generator,
     then moved): {"fields": {...}, "proposal_networks": [{...}, ...]}."""
-    _check_supported(cfg)
+    check_supported(cfg)
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     return {
@@ -173,11 +196,12 @@ def forward(
 ) -> dict:
     """Render a batch of rays (R,): 'rgb' (R, 3), 'accumulation', 'depth'
     (median), 'expected_depth', 'prop_depth_i', 'directions_norm' (R, 1),
-    'weights' (R, S), 'ray_samples' and 'proposal_history'. With ``train``
+    'weights' (R, S), 'ray_samples', 'proposal_history' and, with semantics,
+    'semantics' (R, C) composited logits. With ``train``
     the samplers jitter (from ``generator``, or from ``jitters``: one tensor
     per sampler call, see ``proposal_sample``), the proposal weights are
     annealed by ``step`` and appearance rows are per camera."""
-    _check_supported(cfg)
+    check_supported(cfg)
     rays = R.near_far_collider(rays, cfg.near_plane, cfg.far_plane)
     dev = rays.origins.device
 
@@ -243,6 +267,9 @@ def forward(
         "proposal_history": history,
         "directions_norm": rays.directions_norm,
     }
+    if cfg.use_semantic:
+        w_sem = weights if cfg.pass_semantic_gradients else weights.detach()
+        outputs["semantics"] = torch.einsum("rs,crs->rc", w_sem, field_out["semantics_t"])
     for i, (ps, pw) in enumerate(history):
         outputs[f"prop_depth_{i}"] = R.render_median_depth(pw, ps)
     return outputs
@@ -253,27 +280,65 @@ def _first_rays(samples: RaySamples, n: int) -> RaySamples:
                          for f in dataclasses.fields(samples)})
 
 
+def _first_ray_args(outputs: dict, n_rays: int, fraction: float):
+    """The interlevel loss's inputs, on the first ``fraction`` of the rays
+    (rays are i.i.d. pixel draws, so a prefix is an unbiased subsample)."""
+    samples, weights = outputs["ray_samples"], outputs["weights"]
+    history = outputs["proposal_history"]
+    if fraction < 1.0:
+        n = max(1, int(n_rays * fraction))
+        samples, weights = _first_rays(samples, n), weights[:n]
+        history = [(_first_rays(ps, n), pw[:n]) for ps, pw in history]
+    return samples, weights, history
+
+
+def masked_rgb_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The per-element mean over supervised pixels (mask (R, 1) weights)."""
+    m = mask.to(pred.dtype)
+    return torch.sum(m * (pred - gt) ** 2) / torch.clamp_min(torch.sum(m) * 3.0, 1.0)
+
+
+def depth_loss(cfg: NerfactoConfig, outputs: dict, batch: dict) -> torch.Tensor:
+    """The depth term (times ``mono_depth_loss_mult``): z-depth targets are
+    scaled by |direction| to ray distances and compared scale-and-shift
+    invariantly; euclidean targets by their MSE; masked by batch['mask']."""
+    gt_depth, mask = batch["depth_image"], batch.get("mask")
+    if cfg.is_euclidean_depth:
+        dl = L.euclidean_depth_loss(outputs["depth"], gt_depth, mask)
+    else:
+        dl = L.monodepth_loss(outputs["depth"], gt_depth * outputs["directions_norm"], mask)
+    return cfg.mono_depth_loss_mult * dl
+
+
 def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
-    """(total, metrics): the rgb MSE against batch['image'] (R, 3) and, in
-    training, the interlevel loss (on the first ``interlevel_ray_fraction``
-    of the rays) and the distortion loss, each times its multiplier and
-    skipped when that is 0. metrics holds every term and 'psnr'."""
-    _check_supported(cfg)
+    """(total, metrics): the rgb MSE against batch['image'] (R, 3), over the
+    pixels of batch['mask'] (R, 1) when ``use_mask``, and in training the
+    interlevel loss (on the first ``interlevel_ray_fraction`` of the rays),
+    the distortion loss, the semantic cross-entropy against
+    batch['semantics_label'] (R,) and the depth loss against
+    batch['depth_image'] (R, 1), each times its multiplier; the interlevel
+    and distortion terms are skipped when theirs is 0. metrics holds every
+    term and 'psnr' (over the masked pixels when ``use_mask``)."""
+    check_supported(cfg)
     gt, pred = batch["image"], outputs["rgb"]
-    losses = {"rgb_loss": L.mse_loss(pred, gt)}
+    masked = cfg.use_mask and "mask" in batch
+    rgb_loss = masked_rgb_loss(pred, gt, batch["mask"]) if masked else L.mse_loss(pred, gt)
+    losses = {"rgb_loss": rgb_loss}
     if train:
         if cfg.interlevel_loss_mult > 0:
-            samples, weights = outputs["ray_samples"], outputs["weights"]
-            history = outputs["proposal_history"]
-            if cfg.interlevel_ray_fraction < 1.0:
-                n = max(1, int(gt.shape[0] * cfg.interlevel_ray_fraction))
-                samples, weights = _first_rays(samples, n), weights[:n]
-                history = [(_first_rays(ps, n), pw[:n]) for ps, pw in history]
             losses["interlevel_loss"] = cfg.interlevel_loss_mult * L.interlevel_loss(
-                samples, weights, history)
+                *_first_ray_args(outputs, gt.shape[0], cfg.interlevel_ray_fraction))
         if cfg.distortion_loss_mult > 0:
             losses["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
                 outputs["ray_samples"], outputs["weights"])
+        if cfg.use_semantic and "semantics_label" in batch:
+            losses["semantic_loss"] = cfg.semantic_loss_weight * L.semantic_loss(
+                outputs["semantics"], batch["semantics_label"])
+        if cfg.use_depth and "depth_image" in batch:
+            losses["depth_loss"] = depth_loss(cfg, outputs, batch)
     total = sum(losses.values())
-    psnr = 10.0 * torch.log10(1.0 / torch.clamp_min(L.mse_loss(pred, gt).detach(), 1e-12))
+    if masked:
+        psnr = masked_psnr(pred.detach(), gt, batch["mask"][..., 0])
+    else:
+        psnr = 10.0 * torch.log10(1.0 / torch.clamp_min(L.mse_loss(pred, gt).detach(), 1e-12))
     return total, {"psnr": psnr, **losses}

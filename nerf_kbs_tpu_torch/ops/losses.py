@@ -1,5 +1,6 @@
-"""Training losses of the nerfacto slice: rgb MSE, the interlevel (proposal)
-loss and the distortion loss, all in the samplers' spacing domain."""
+"""Training losses: rgb MSE, the interlevel (proposal) loss and the
+distortion loss in the samplers' spacing domain, the monocular and euclidean
+depth losses, and the semantic cross-entropy."""
 
 from __future__ import annotations
 
@@ -85,3 +86,56 @@ def distortion_loss(samples, weights: torch.Tensor) -> torch.Tensor:
     wm_cum = torch.cumsum(weights * m, dim=-1) - weights * m
     loss_bi = 2.0 * torch.sum(weights * (m * w_cum - wm_cum), dim=-1)
     return torch.mean(loss_uni + loss_bi)
+
+
+def normalized_depth_scale_and_shift(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor):
+    """Closed-form least-squares (scale, shift) that align pred to gt over
+    the mask, per leading row; (0, 0) where the system is singular."""
+    a00 = torch.sum(mask * pred * pred, dim=-1)
+    a01 = torch.sum(mask * pred, dim=-1)
+    a11 = torch.sum(mask, dim=-1)
+    b0 = torch.sum(mask * pred * gt, dim=-1)
+    b1 = torch.sum(mask * gt, dim=-1)
+    det = a00 * a11 - a01 * a01
+    valid = det > 1e-9
+    safe = torch.where(valid, det, torch.ones_like(det))
+    zero = torch.zeros_like(det)
+    scale = torch.where(valid, (a11 * b0 - a01 * b1) / safe, zero)
+    shift = torch.where(valid, (-a01 * b0 + a00 * b1) / safe, zero)
+    return scale, shift
+
+
+def monodepth_loss(termination_depth: torch.Tensor, gt_depth: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Scale-and-shift-invariant depth loss: align the rendered depth to the
+    target in closed form, then the masked MSE."""
+    pred = termination_depth.reshape(1, -1)
+    gt = gt_depth.reshape(1, -1)
+    m = torch.ones_like(gt) if mask is None else mask.reshape(1, -1).to(gt.dtype)
+    scale, shift = normalized_depth_scale_and_shift(pred, gt, m)
+    aligned = scale[:, None] * pred + shift[:, None]
+    return torch.sum(m * (aligned - gt) ** 2) / torch.clamp_min(torch.sum(m), 1.0)
+
+
+def euclidean_depth_loss(termination_depth: torch.Tensor, gt_depth: torch.Tensor,
+                         mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Metric depth MSE, masked when a mask is given."""
+    err = (termination_depth - gt_depth) ** 2
+    if mask is None:
+        return torch.mean(err)
+    m = mask.to(err.dtype)
+    return torch.sum(m * err) / torch.clamp_min(torch.sum(m), 1.0)
+
+
+def colors_to_labels(pixel_colors: torch.Tensor, class_colors: torch.Tensor) -> torch.Tensor:
+    """Class of the nearest class colour in L1: pixel_colors (B, 3) and
+    class_colors (K, 3) in [0, 1] -> (B,) int32."""
+    d = torch.sum(torch.abs(pixel_colors[:, None, :] - class_colors[None, :, :]), dim=-1)
+    return torch.argmin(d, dim=-1).to(torch.int32)
+
+
+def semantic_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of (B, K) logits against (B,) integer labels."""
+    logp = torch.log_softmax(logits, dim=-1)
+    onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).to(logp.dtype)
+    return -torch.mean(torch.sum(logp * onehot, dim=-1))

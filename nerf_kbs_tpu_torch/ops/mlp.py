@@ -1,8 +1,15 @@
-"""MLP parameter layout and the density activation.
+"""MLP parameter layout, the plain MLPs and the density activation.
 
 Parameters are plain dicts ``{"w": [W_0, ...], "b": [b_0, ...]}`` with
 ``W_i`` of shape (in, out), the JAX package's layout, which is also the
 layout the fused kernels read.
+
+``mlp_apply_t`` and ``mlp_apply`` are the heads that run outside the fused
+kernels (the rgb and semantic heads of the split field), with the JAX
+package's rounding points: the input and every hidden activation are cast to
+the compute dtype, the weights too, products accumulate in f32 and the bias
+is added in f32. A product of two bf16 values is exact in f32, so an f32
+matrix product of rounded operands is that computation.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ class MLPConfig:
     layer_width: int
     out_dim: int
     compute_dtype: str = "float32"
+    out_activation: str | None = None  # None or 'sigmoid'
 
     @property
     def dims(self) -> tuple:
@@ -40,6 +48,41 @@ def mlp_init(config: MLPConfig, generator: torch.Generator, device) -> dict:
         params["w"].append(w.to(device))
         params["b"].append(torch.zeros(dims[i + 1], device=device))
     return params
+
+
+def _cast(t: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """Round to the compute dtype and go on in f32."""
+    return t.to(torch.bfloat16).float() if compute_dtype == "bfloat16" else t
+
+
+def _out_act(h: torch.Tensor, config: MLPConfig) -> torch.Tensor:
+    if config.out_activation is None:
+        return h
+    if config.out_activation == "sigmoid":
+        return torch.sigmoid(h)
+    raise ValueError(f"unknown out_activation {config.out_activation!r}")
+
+
+def mlp_apply_t(params: dict, x_t: torch.Tensor, config: MLPConfig) -> torch.Tensor:
+    """Feature-major relu MLP: x_t (in_dim, N) -> (out_dim, N) f32."""
+    h = _cast(x_t, config.compute_dtype)
+    n = len(params["w"])
+    for i in range(n):
+        h = _cast(params["w"][i], config.compute_dtype).T @ h + params["b"][i][:, None]
+        if i < n - 1:
+            h = _cast(torch.relu(h), config.compute_dtype)
+    return _out_act(h, config)
+
+
+def mlp_apply(params: dict, x: torch.Tensor, config: MLPConfig) -> torch.Tensor:
+    """Point-major relu MLP: x (..., in_dim) -> (..., out_dim) f32."""
+    h = _cast(x, config.compute_dtype)
+    n = len(params["w"])
+    for i in range(n):
+        h = h @ _cast(params["w"][i], config.compute_dtype) + params["b"][i]
+        if i < n - 1:
+            h = _cast(torch.relu(h), config.compute_dtype)
+    return _out_act(h, config)
 
 
 class _TruncExp(torch.autograd.Function):

@@ -1,5 +1,12 @@
-"""Image helpers: 8-bit conversion, the turbo depth colormap and a PNG
-encoder from the standard library (no imaging package is needed)."""
+"""Image helpers: 8-bit conversion, the turbo depth colormap, and a PNG
+encoder and decoder built on ``zlib`` and NumPy (no imaging package is
+needed).
+
+The decoder reads the 8-bit PNGs a dataset holds: grey, grey + alpha, RGB,
+RGBA and palette images, non-interlaced, with any of the five row filters.
+``convert`` gives the 'RGB' and 'L' views a loader asks for, with PIL's
+integer luma for 'L', so ``convert(decode_png(b), "L") > 0`` is what
+``np.asarray(Image.open(f).convert("L")) > 0`` gives."""
 
 from __future__ import annotations
 
@@ -41,16 +48,146 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
 
 
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    body = tag + data
+    return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
+
+
+# PNG colour types by channel count of an 8-bit image: grey, grey + alpha,
+# RGB, RGBA
+_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
+_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4, 3: 1}
+
+
+def encode_png_u8(pixels: np.ndarray, level: int = 6) -> bytes:
+    """(H, W) or (H, W, C) uint8, C in 1..4 -> PNG bytes. Every row uses the
+    Sub filter (the byte minus the byte one pixel to its left), which
+    compresses photographs and flat label maps well and decodes with one
+    cumulative sum."""
+    px = np.ascontiguousarray(pixels, dtype=np.uint8)
+    if px.ndim == 2:
+        px = px[:, :, None]
+    h, w, c = px.shape
+    if c not in _COLOR_TYPE:
+        raise ValueError(f"{c} channels: a PNG holds 1 to 4")
+    sub = px.copy()
+    sub[:, 1:] -= px[:, :-1]  # uint8 arithmetic wraps, as the filter does
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub.reshape(h, w * c)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + _chunk(b"IEND", b""))
+
+
 def encode_png(img: np.ndarray) -> bytes:
     """(H, W, 3) float in [0, 1] -> 8-bit RGB PNG bytes."""
-    rgb = to_uint8(img)
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[r].tobytes() for r in range(h))  # filter 0 per row
+    return encode_png_u8(to_uint8(img))
 
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        body = tag + data
-        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+def _unfilter_loop(kind: int, line: bytearray, prior: bytes, bpp: int) -> None:
+    """Average (3) and Paeth (4) in place: each byte depends on the
+    reconstructed byte to its left, so they go along the row."""
+    for i in range(len(line)):
+        a = line[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        if kind == 3:
+            line[i] = (line[i] + ((a + b) >> 1)) & 0xFF
+        else:
+            c = prior[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            line[i] = (line[i] + pred) & 0xFF
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 pixels: (H, W) grey, (H, W, 2) grey + alpha, (H, W,
+    3) RGB or (H, W, 4) RGBA; a palette image comes back as (H, W, 3) RGB
+    from its palette. Raises ValueError on interlaced and 16-bit files and on
+    a bad chunk CRC."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, palette, ihdr = 8, [], None, None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(tag + body) != crc:
+            raise ValueError(f"PNG chunk {tag!r}: bad CRC")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if ihdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color, _, _, interlace = ihdr
+    if interlace:
+        raise ValueError("interlaced PNG: not read")
+    if color not in _CHANNELS:
+        raise ValueError(f"PNG colour type {color}")
+    # 1, 2 and 4 bits a sample only for grey and palette images, as the
+    # format allows; 16-bit files are not read
+    if depth != 8 and not (depth in (1, 2, 4) and color in (0, 3)):
+        raise ValueError(f"PNG bit depth {depth} (colour type {color}): not read")
+    bpp = _CHANNELS[color]
+    stride = w * bpp if depth == 8 else (w * depth + 7) // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"PNG data of {raw.size} bytes for {h} rows of {stride + 1}")
+    rows = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for r in range(h):
+        kind, line = int(rows[r, 0]), rows[r, 1:]
+        if kind == 0:
+            out[r] = line
+        elif kind == 1:
+            out[r] = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            out[r] = line + prior
+        elif kind in (3, 4):
+            buf = bytearray(line.tobytes())
+            _unfilter_loop(kind, buf, prior.tobytes(), bpp)
+            out[r] = np.frombuffer(buf, np.uint8)
+        else:
+            raise ValueError(f"PNG row filter {kind}")
+        prior = out[r]
+    if depth < 8:
+        # samples packed from the high bits down; grey scales to 0..255
+        bits = np.unpackbits(out, axis=1).reshape(h, -1, depth)
+        out = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)[:, :w]
+        if color == 0:
+            out = out * np.uint8(255 // (2**depth - 1))
+    if color == 3:
+        if palette is None:
+            raise ValueError("palette PNG without PLTE")
+        return palette[out]
+    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+
+
+def convert(pixels: np.ndarray, mode: str) -> np.ndarray:
+    """PIL's ``convert`` of decoded 8-bit pixels: 'RGB' (H, W, 3), grey
+    repeated and alpha dropped; 'L' (H, W), the grey channel or the integer
+    luma (19595 R + 38470 G + 7471 B + 0x8000) >> 16."""
+    px = pixels[:, :, None] if pixels.ndim == 2 else pixels
+    c = px.shape[2]
+    if mode == "RGB":
+        return px[:, :, :3] if c >= 3 else np.repeat(px[:, :, :1], 3, axis=2)
+    if mode == "L":
+        if c < 3:
+            return px[:, :, 0]
+        rgb = px[:, :, :3].astype(np.uint32)
+        luma = (19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2] + 0x8000) >> 16
+        return luma.astype(np.uint8)
+    raise ValueError(f"unknown mode {mode!r}: 'RGB' or 'L'")
+
+
+def read_png(path, mode: str) -> np.ndarray:
+    """``convert(decode_png(file bytes), mode)``."""
+    with open(path, "rb") as f:
+        return convert(decode_png(f.read()), mode)

@@ -13,6 +13,10 @@ pytestmark = pytest.mark.cuda
 # f32: the same products summed in another order; bf16: as f32, plus a
 # possible flip of one bf16 rounding where an f32 sum differs in its last bit
 TOL = {False: 1e-4, True: 2e-2}
+# the nerfacto field's base MLP (H = 128) as the semantics path runs it alone
+# in the fused MLP kernels, through their WMMA bodies; enough points that a
+# weight gradient is a sum over many (see BWD_TOL)
+BASE_WIDTHS = ((256, 128, 128, 16), 20000)
 
 
 @pytest.fixture
@@ -38,7 +42,8 @@ def _inputs(rng, H, n, basis, dev):
 
 @pytest.mark.parametrize("basis", ["tri", "sincos"])
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("dims,n", [((24, 16, 5), 300), ((80, 16, 1), 1001)])
+@pytest.mark.parametrize("dims,n", [((24, 16, 5), 300), ((80, 16, 1), 1001),
+                                    BASE_WIDTHS])
 def test_fourier_mlp_kernel(dev, basis, bf16, dims, n):
     rng = np.random.default_rng(0)
     x, B = _inputs(rng, dims[0] // 2, n, basis, dev)
@@ -81,6 +86,10 @@ def _rel_err(got, want):
 # summation order; bf16: also flips of single bf16 roundings of dh and of
 # activations, which the sums over points average out
 BWD_TOL = {False: 1e-4, True: 2e-2}
+# the nerfacto field's base MLP (H = 128) as the semantics path runs it alone
+# in the fused MLP kernels, through their WMMA bodies; enough points that a
+# weight gradient is a sum over many (see BWD_TOL)
+BASE_WIDTHS = ((256, 128, 128, 16), 20000)
 
 
 def _check_all(names, got, want, tol):
@@ -94,7 +103,7 @@ def _check_all(names, got, want, tol):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("need_dx", [False, True])
 @pytest.mark.parametrize("dims,n", [((24, 16, 5), 300), ((80, 16, 1), 1001),
-                                    ((64, 32, 32, 4), 5000)])
+                                    ((64, 32, 32, 4), 5000), BASE_WIDTHS])
 def test_fourier_mlp_backward_kernel(dev, basis, bf16, need_dx, dims, n):
     rng = np.random.default_rng(2)
     x, B = _inputs(rng, dims[0] // 2, n, basis, dev)

@@ -150,8 +150,10 @@ def test_field_modules_with_window_fold(basis):
 
 
 def test_semantics_branch_not_ported():
+    """The semantics branch is ported (tests/test_torch_semantics.py); what
+    stays refused is a head without classes, as in the JAX package."""
     _, _, _, tn = _field_cfgs("tri")
-    with pytest.raises(NotImplementedError, match="semantics"):
+    with pytest.raises(ValueError, match="num_semantic_classes"):
         tfields.nerfacto_field_init(dataclasses.replace(tn, use_semantics=True),
                                     torch.Generator().manual_seed(0), "cpu")
 

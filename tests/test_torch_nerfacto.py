@@ -115,7 +115,7 @@ def test_forward_full_width_matches_jax(fused):
 
 def test_method_config_bf16_and_chunk():
     spec = t_method()
-    assert spec.eval_num_rays_per_chunk == 1 << 15
+    assert spec.trainer.eval_num_rays_per_chunk == 1 << 15
     assert spec.model_config().compute_dtype == "bfloat16"
     assert spec.model_config().field.base_mlp.dims == (256, 128, 128, 16)
     assert spec.model_config().field.rgb_mlp.dims == (31, 64, 64, 3)
@@ -179,8 +179,12 @@ def test_port_imports_no_jax():
         "import nerf_kbs_tpu_torch.engine.viewer, nerf_kbs_tpu_torch.convert\n"
         "import nerf_kbs_tpu_torch.methods, nerf_kbs_tpu_torch.ops._kernels\n"
         "import nerf_kbs_tpu_torch.engine.trainer, nerf_kbs_tpu_torch.ops.losses\n"
+        "import nerf_kbs_tpu_torch.engine.cli, nerf_kbs_tpu_torch.models.semantic_nerfw\n"
+        "import nerf_kbs_tpu_torch.data.datamanager, nerf_kbs_tpu_torch.data.synthetic_kitti\n"
+        "import nerf_kbs_tpu_torch.data.dataparsers.kitti, nerf_kbs_tpu_torch.cameras.poses\n"
+        "import nerf_kbs_tpu_torch.ops.metrics, nerf_kbs_tpu_torch.utils.images\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'nerf_kbs_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'nerf_kbs_tpu', 'PIL', 'cv2')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -201,21 +205,40 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Renderer(tnerf.init(cfg, seed=0, device="cpu"), cfg, cams)
 
 
+def _png_depth_datamanager(tmp_path):
+    """A datamanager given a PNG depth file (16-bit PNG depth is read by no
+    loader of the port)."""
+    from nerf_kbs_tpu_torch.data.datamanager import InMemoryDataManager
+    from nerf_kbs_tpu_torch.utils.images import encode_png_u8
+
+    (tmp_path / "f.png").write_bytes(encode_png_u8(np.zeros((2, 2, 3), np.uint8)))
+    out = TOutputs([str(tmp_path / "f.png")], orbit_cameras(1, h=2, w=2), np.zeros((2, 3)),
+                   depth_filenames=[str(tmp_path / "000000.png")])
+    InMemoryDataManager(out, out)
+
+
 @pytest.mark.parametrize("change,name", [
     (dict(field_type="hash"), "field_type"),
-    (dict(use_semantic=True), "use_semantic"),
+    (dict(field_type="cp"), "field_type"),
     (dict(predict_normals=True), "predict_normals"),
     (dict(camera_optimizer="SO3xR3"), "camera_optimizer"),
     (dict(disable_scene_contraction=True), "disable_scene_contraction"),
-    (dict(use_depth=True), "use_depth"),
-    (dict(use_mask=True), "use_mask"),
+    ("transient", "use_transient_embedding"),
+    ("png_depth", "16-bit PNG depth"),
     (dict(flow_loss_mult=0.001), "flow_loss_mult"),
     (dict(sky_loss_mult=0.1), "sky_loss_mult"),
 ])
-def test_unported_configs_raise(change, name):
-    cfg = dataclasses.replace(tnerf.NerfactoConfig(**SMALL), **change)
+def test_unported_configs_raise(change, name, tmp_path):
+    from nerf_kbs_tpu_torch.models import semantic_nerfw
+
     with pytest.raises(NotImplementedError, match=name):
-        tnerf.init(cfg, device="cpu")
+        if change == "transient":
+            semantic_nerfw.init(semantic_nerfw.SemanticNerfWConfig(
+                **SMALL, use_transient_embedding=True, num_semantic_classes=2), device="cpu")
+        elif change == "png_depth":
+            _png_depth_datamanager(tmp_path)
+        else:
+            tnerf.init(dataclasses.replace(tnerf.NerfactoConfig(**SMALL), **change), device="cpu")
 
 
 def test_train_forward_and_bad_background_raise():
@@ -226,10 +249,10 @@ def test_train_forward_and_bad_background_raise():
     out = tnerf.forward(r.params, r.config, tr, train=True,
                         generator=torch.Generator().manual_seed(0))
     assert out["rgb"].shape == (4, 3) and len(out["proposal_history"]) == 2
-    depth_cfg = dataclasses.replace(r.config, use_depth=True)
-    with pytest.raises(NotImplementedError, match="use_depth"):
-        tnerf.forward(r.params, depth_cfg, tr, train=True)
-    with pytest.raises(NotImplementedError, match="use_depth"):
-        tnerf.loss(depth_cfg, out, {"image": torch.zeros(4, 3)})
+    flow_cfg = dataclasses.replace(r.config, flow_loss_mult=0.001)
+    with pytest.raises(NotImplementedError, match="flow_loss_mult"):
+        tnerf.forward(r.params, flow_cfg, tr, train=True)
+    with pytest.raises(NotImplementedError, match="flow_loss_mult"):
+        tnerf.loss(flow_cfg, out, {"image": torch.zeros(4, 3)})
     with pytest.raises(ValueError, match="background_color"):
         tnerf.forward(r.params, dataclasses.replace(r.config, background_color="pink"), tr)
