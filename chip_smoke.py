@@ -63,7 +63,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    each split; a profile of one run-2 step, whose launch counts must be
    run 2's per-step counts; 3 f32 steps of run 2's configuration at a
    reduced width against the CPU plain path;
-8. a {"kernels": [...]} line, each record's "launches" counted per
+8. run 3, semantic-nerfw as registered (the hash field, 16 levels of a 2^19
+   table from 16 to 2048, proposals 5 levels of 2^17, (256, 96) -> 48
+   samples, appearance embedding 32, bf16) with depth, semantics and masks,
+   through cli.main on the same scene and window: 30 steps of 4,096 rays,
+   eval_all_images and a checkpoint on the non-fused path, with no fused
+   kernel launched; its step time and rays/s, the eval time of the split,
+   the peak memory of a step and of an eval chunk, and a profile of one step
+   by device kernel and by op (the gathers, the table scatter-adds, the MLP
+   products, the glue);
+9. the other hash presets as registered at full width (nerfacto and
+   nerfacto-big on the scene, synthetic-nerfacto on the sphere scene): 3
+   steps each, finite losses, no fused kernel launched, step times and peak
+   memory;
+10. 3 f32 steps on the card against the CPU plain path, at reduced widths, of
+   semantic-nerfw as registered and of nerfacto-tpu with predicted normals
+   and the scene contraction disabled (the second-order backward of the
+   normals on the card);
+11. a {"kernels": [...]} line, each record's "launches" counted per
    "launches_per" (a frame, a bench step or a run-2 step), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -785,11 +802,13 @@ def _png(url: str) -> int:
         return len(body)
 
 
-def device_events(work):
+def device_events(work, by_op: bool = False):
     """One call of ``work`` under torch.profiler: (wall microseconds, the
     device-side entries (kernels, copies) with their self device time in
     microseconds and call counts, longest first). An aten:: op's entry repeats
-    the time of the kernels it launched and is left out."""
+    the time of the kernels it launched and is left out; with ``by_op`` the
+    ops' entries come instead (each with the device time of the kernels it
+    launched itself)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -804,20 +823,38 @@ def device_events(work):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-              if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")]
+              if dev_us(e) > 0 and str(e.device_type).endswith("CUDA") != by_op]
     return wall_us, sorted(events, key=lambda e: e[1], reverse=True)
 
 
-def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12) -> None:
+# op names of the non-fused field's work, for the by-op profile's groups
+OP_GROUPS = (("table scatter-adds", ("index_add", "IndexSelectBackward", "index_put")),
+             ("gathers", ("index_select", "aten::index", "gather")),
+             ("MLP products", ("mm", "addmm", "matmul", "bmm", "linear")))
+
+
+def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12,
+                  by_op: bool = False) -> None:
     """Where the time of one call of ``work`` goes (a frame, a train step):
-    device time by kernel name and the device's busy share of the wall time.
-    The profiler's own overhead inflates the wall time somewhat."""
+    device time by kernel name and the device's busy share of the wall time;
+    with ``by_op`` also by the op that launched it, in OP_GROUPS and the rest
+    (glue). The profiler's own overhead inflates the wall time somewhat."""
     wall_us, events = device_events(work)
     busy = sum(us for _, us, _ in events)
-    emit({"phase": "profile", "of": what, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-          "device_idle_share": max(0.0, 1.0 - busy / wall_us), "rays": n_rays,
-          "top": [{"name": name[:80], "calls": count, "device_ms": us / 1e3, "share": us / busy}
-                  for name, us, count in events[:top]]})
+    rec = {"phase": "profile", "of": what, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": max(0.0, 1.0 - busy / wall_us), "rays": n_rays,
+           "top": [{"name": name[:80], "calls": count, "device_ms": us / 1e3, "share": us / busy}
+                   for name, us, count in events[:top]]}
+    if by_op:
+        _, ops = device_events(work, by_op=True)
+        groups = {g: 0.0 for g, _ in OP_GROUPS} | {"glue": 0.0}
+        for name, us, _ in ops:
+            g = next((g for g, keys in OP_GROUPS if any(k in name for k in keys)), "glue")
+            groups[g] += us / 1e3
+        rec["by_op"] = [{"op": name[:80], "calls": count, "device_ms": us / 1e3}
+                        for name, us, count in ops[:top]]
+        rec["by_op_group_ms"] = groups
+    emit(rec)
 
 
 def phase_slice(records):
@@ -1129,11 +1166,11 @@ def _run2_data(scene: str) -> list:
 
 
 def _cli_run(cli, ff, method: str, argv: list, out: str, per_step: dict,
-             per_chunk: dict) -> dict:
+             per_chunk: dict, phase: str | None = None) -> dict:
     """cli.main in-process: 30 steps, eval_all_images, a checkpoint. The
     launch counts of the whole call must be 30 x per_step plus 2 eval images
     x ceil(H * W / chunk) chunks x per_chunk, chunk being the method's
-    eval_num_rays_per_chunk."""
+    eval_num_rays_per_chunk (no launch at all when both are empty)."""
     spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
     chunk = spec.trainer.eval_num_rays_per_chunk
     import numpy as np
@@ -1159,7 +1196,7 @@ def _cli_run(cli, ff, method: str, argv: list, out: str, per_step: dict,
     final = {k[len("eval_all_"):]: v for k, v in lines[-1].items() if k.startswith("eval_all_")}
     check(final.get("num_images") == 2 and all(np.isfinite(v) for v in final.values()),
           f"{method}: eval {final}")
-    rec = {"phase": f"cli_{method.replace('-', '_')}", "method": method, "steps": 30,
+    rec = {"phase": phase or f"cli_{method.replace('-', '_')}", "method": method, "steps": 30,
            "rays_per_batch": rays, "wall_s": wall, "step_ms": step_ms,
            "median_step_ms": med, "rays_per_s": rays / (med * 1e-3),
            "loss_first": steps[0]["total_loss"], "loss_last": steps[-1]["total_loss"],
@@ -1221,7 +1258,6 @@ def _depth_alignment_spy():
 
 
 def phase_cli(records, scene: str) -> None:
-    import dataclasses
     import tempfile
 
     import torch
@@ -1329,13 +1365,26 @@ def phase_cli(records, scene: str) -> None:
 
     # run 2's configuration at a reduced width in f32: 3 steps on the card
     # (the kernels' f32 bodies) against the same 3 steps on the CPU plain path
-    small = argv2 + ["--model.hidden_dim", "32", "--model.fourier_num_levels", "4",
-                     "--model.fourier_features_per_level", "16",
-                     "--model.num_proposal_samples_per_ray", "32,16",
-                     "--model.num_nerf_samples_per_ray", "16",
-                     "--datamanager.train_num_rays_per_batch", "256",
-                     "--trainer.mixed_precision", "false"]
-    spec = cli.apply_overrides(cli.method_registry["semantic-nerfw"](), _pairs(small))
+    _card_vs_cpu(cli, "semantic-nerfw", argv2 + REDUCED_FOURIER, "cli_semantic_nerfw_vs_cpu")
+
+
+# reduced widths for the f32 steps on the CPU, 256 rays a step
+REDUCED = ["--model.hidden_dim", "32", "--model.num_proposal_samples_per_ray", "32,16",
+           "--model.num_nerf_samples_per_ray", "16", "--datamanager.train_num_rays_per_batch",
+           "256", "--trainer.mixed_precision", "false"]
+REDUCED_FOURIER = REDUCED + ["--model.fourier_num_levels", "4",
+                             "--model.fourier_features_per_level", "16"]
+REDUCED_HASH = REDUCED + ["--model.num_levels", "8", "--model.log2_hashmap_size", "15",
+                          "--model.max_res", "256"]
+
+
+def _card_vs_cpu(cli, method: str, argv: list, phase: str) -> None:
+    """3 f32 steps of ``method`` on the card against the same 3 steps on the
+    CPU plain path: same seeds, batches and jitter (drawn on the CPU in
+    both); the losses must agree to 2e-3."""
+    import dataclasses
+
+    spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
     runs = {}
     for where in ("cuda", "cpu"):
         t = cli.build_trainer(dataclasses.replace(
@@ -1345,14 +1394,131 @@ def phase_cli(records, scene: str) -> None:
         runs[where] = [float(t.train_step(t._to_device(t.dm.next_train(s)))["total_loss"])
                        for s in range(3)]
     rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
-    emit({"phase": "cli_semantic_nerfw_vs_cpu", "rays": 256, "losses_card": runs["cuda"],
+    emit({"phase": phase, "method": method, "rays": 256, "losses_card": runs["cuda"],
           "losses_cpu": runs["cpu"], "max_rel_diff": rel, "tol": 2e-3})
-    check(rel <= 2e-3, f"card vs CPU f32 semantic-nerfw steps: {runs}")
+    check(rel <= 2e-3, f"{phase}: card vs CPU f32 steps: {runs}")
+
+
+def _peak_mib(work) -> float:
+    """Peak device memory allocated during ``work()``, in MiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    work()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def phase_hash(scene: str) -> None:
+    """Run 3 (semantic-nerfw as registered), the other hash presets and the
+    f32 card-against-CPU checks of the non-fused path; see the module
+    docstring. No fused kernel may launch in any of them."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.cameras.cameras import generate_rays
+    from nerf_kbs_tpu_torch.engine import cli
+    from nerf_kbs_tpu_torch.models import nerfacto
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    def no_launches(what):
+        check(not any(ff.LAUNCHES.values()), f"{what}: fused kernels launched {ff.LAUNCHES}")
+
+    out = tempfile.mkdtemp(prefix="nkt_hash_")
+    argv3 = _run_argv(scene, out) + _run2_data(scene)
+    spec = cli.apply_overrides(cli.method_registry["semantic-nerfw"](), _pairs(argv3))
+    model = spec.model_config()
+    check(model.field_type == "hash" and model.compute_dtype == "bfloat16"
+          and not nerfacto.uses_fused_path(model), f"run 3 config {model}")
+    r3 = _cli_run(cli, ff, "semantic-nerfw", argv3, out, per_step={}, per_chunk={},
+                  phase="cli_run3_semantic_nerfw_hash")
+    check({"masked_psnr", "depth_mse", "semantic_accuracy"} <= set(r3["eval_all"]),
+          f"run 3 eval {r3['eval_all']}")
+
+    spec = cli.apply_overrides(cli.method_registry["semantic-nerfw"](),
+                               {"trainer.load_dir": str(Path(out) / "exp" / "semantic-nerfw"),
+                                **_pairs(argv3)})
+    trainer = cli.build_trainer(spec)
+    ff.reset_launches()
+    trainer.eval_all_images()
+    t0 = time.perf_counter()
+    trainer.eval_all_images()
+    split_s = time.perf_counter() - t0
+    batch = trainer._to_device(trainer.dm.next_train(1000))
+    step_mib = _peak_mib(lambda: trainer.train_step(batch))
+    chunk = trainer.config.eval_num_rays_per_chunk
+    h, w = SCENE_HW
+    rr, cc = torch.meshgrid(torch.arange(h, device=trainer.device),
+                            torch.arange(w, device=trainer.device), indexing="ij")
+    idx = torch.stack([torch.zeros_like(rr), rr, cc], -1).reshape(-1, 3)[:chunk].to(torch.int32)
+
+    @torch.no_grad()
+    def eval_chunk():
+        rays = generate_rays(trainer.eval_cameras, idx)
+        nerfacto.forward(trainer.params, trainer.model_config, rays, step=trainer.step)
+
+    chunk_mib = _peak_mib(eval_chunk)
+    no_launches("run 3 eval and step")
+    emit({"phase": "cli_run3_memory_and_eval", "method": "semantic-nerfw",
+          "field_type": "hash", "median_step_ms": r3["median_step_ms"],
+          "rays_per_s": r3["rays_per_s"], "eval_all_images_s": split_s, "eval_images": 2,
+          "ms_per_image": split_s * 1e3 / 2, "eval_chunk_rays": chunk,
+          "peak_mib_train_step": step_mib, "peak_mib_eval_chunk": chunk_mib,
+          "params_mib": sum(t.numel() * 4 for t in _leaf_values(trainer.params)) / 2**20})
+    phase_profile(lambda: trainer.train_step(batch), 4096, top=25, by_op=True,
+                  what="run 3 train step (semantic-nerfw, hash)")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the other hash presets as registered, full width, 3 steps each
+    for method in ("nerfacto", "nerfacto-big", "synthetic-nerfacto"):
+        argv = ["--trainer.output_dir", out]
+        if cli.method_registry[method]().dataparser is not None:
+            argv = _run_argv(scene, out)
+        trainer = cli.build_trainer(cli.apply_overrides(cli.method_registry[method](),
+                                                        _pairs(argv)))
+        cfg = trainer.model_config
+        check(cfg.field_type == "hash" and not nerfacto.uses_fused_path(cfg), f"{method} config")
+        ff.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for s in range(3):
+            b = trainer._to_device(trainer.dm.next_train(s))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(b)["total_loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(losses)), f"{method}: losses {losses}")
+        no_launches(method)
+        emit({"phase": "hash_preset", "method": method, "rays": b["ray_indices"].shape[0],
+              "compute_dtype": cfg.compute_dtype, "num_levels": cfg.num_levels,
+              "log2_hashmap_size": cfg.log2_hashmap_size, "max_res": cfg.max_res,
+              "samples": [*cfg.num_proposal_samples_per_ray, cfg.num_nerf_samples_per_ray],
+              "hidden_dim": cfg.hidden_dim, "losses": losses, "step_ms": times,
+              "peak_mib": torch.cuda.max_memory_allocated() / 2**20})
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the non-fused path in f32, card against CPU
+    ff.reset_launches()
+    _card_vs_cpu(cli, "semantic-nerfw", argv3 + REDUCED_HASH, "cli_run3_vs_cpu")
+    _card_vs_cpu(cli, "nerfacto-tpu", _run_argv(scene, out) + REDUCED_FOURIER + [
+        "--model.predict_normals", "true", "--model.disable_scene_contraction", "true"],
+        "normals_uncontracted_vs_cpu")
+    no_launches("the f32 steps of the non-fused path")
 
 
 def _pairs(argv: list) -> dict:
     """--k v pairs of an argv list as override paths."""
     return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
+
+
+def _leaf_values(tree):
+    return [t for _, t in _leaf_paths(tree)]
 
 
 def _leaf_paths(tree, prefix=""):
@@ -1380,7 +1546,9 @@ def main() -> int:
     phase_slice(records)
     phase_train(records)
     with tempfile.TemporaryDirectory(prefix="nkt_scene_") as tmp:
-        phase_cli(records, phase_scene(tmp))
+        scene = phase_scene(tmp)
+        phase_cli(records, scene)
+        phase_hash(scene)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]
     check(not bad, f"imported {bad}")

@@ -1,10 +1,14 @@
 """Parameter import from the JAX package's layout.
 
 The JAX nerfacto parameters, as nested dicts and lists with NumPy leaves
-(``{"fields": {"fourier_B", "base_mlp": {"w", "b"}, "rgb_mlp"},
-"proposal_networks": [{"fourier_B", "mlp"}, ...]}``), map leaf for leaf onto
-the port's: the port keeps B as (3, H) and every weight as (in, out), the
-layout the kernels read, so no leaf is transposed.
+(``{"fields": {<encoding>, "base_mlp": {"w", "b"}, "rgb_mlp", ...},
+"proposal_networks": [{<encoding>, "mlp"}, ...]}``), map leaf for leaf onto
+the port's, whichever encoding and heads they hold: the encoding is
+"fourier_B" (3, H), "hash_table" (the flat feature-major 1-D table) or
+"cp_tables" (a list of (3, res + 1, F) tables); the heads are
+"appearance_emb", "semantic_mlp", "transient_emb", "transient_mlp", the
+three transient heads and "pred_normal_mlp". The port keeps every weight as
+(in, out), the layout the kernels read, so no leaf is reshaped or transposed.
 """
 
 from __future__ import annotations

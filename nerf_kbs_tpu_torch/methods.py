@@ -1,14 +1,13 @@
 """Built-in methods: the JAX package's registry (``nerf_kbs_tpu/methods.py``)
 name for name, with its values.
 
-``nerfacto-tpu`` and ``nerfacto-tpu-fast`` (the Fourier field on the fused
-path) and ``semantic-nerfw`` with ``--model.field_type fourier`` (and the
-rest of nerfacto-tpu's model fields) build and train. The others build their
-specs, and building their trainers raises NotImplementedError naming what is
-not ported: the hash field of ``nerfacto``, ``nerfacto-big`` and
-``synthetic-nerfacto`` (and of ``semantic-nerfw`` as registered), the
-``vanilla-nerf`` model, and the transforms.json dataparser of
-``test-nerfacto``.
+Six build and train: ``nerfacto-tpu`` and ``nerfacto-tpu-fast`` (the Fourier
+field on the fused kernels), and ``nerfacto``, ``nerfacto-big``,
+``synthetic-nerfacto`` and ``semantic-nerfw`` as registered (the hash field
+on the non-fused path; ``semantic-nerfw`` also with ``--model.field_type
+fourier``). The other two build their specs, and building their trainers
+raises NotImplementedError naming what is not ported: the ``vanilla-nerf``
+model, and the transforms.json dataparser of ``test-nerfacto``.
 """
 
 from __future__ import annotations
@@ -74,7 +73,7 @@ def nerfacto_method() -> MethodSpec:
         optimizers={"proposal_networks": group, "fields": group},
         dataparser=KittiDataParserConfig(),
         datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
-        description="hash-grid NeRF on KITTI odometry (hash field not ported)",
+        description="hash-grid NeRF on KITTI odometry",
     )
 
 
@@ -85,7 +84,7 @@ def nerfacto_big_method() -> MethodSpec:
                                      hidden_dim_color=128, max_res=4096, log2_hashmap_size=21)
     spec.trainer = dataclasses.replace(spec.trainer, method_name="nerfacto-big",
                                        max_num_iterations=100000)
-    spec.description = "the nerfacto-big preset (hash field not ported)"
+    spec.description = "the nerfacto-big preset"
     return spec
 
 
@@ -103,8 +102,7 @@ def semantic_nerfw_method() -> MethodSpec:
         dataparser=KittiDataParserConfig(first_frame=5, last_frame=120,
                                          train_split_fraction=0.75, use_depth=True),
         datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
-        description="semantic NeRF-W on KITTI w/ depth+semantics+masks "
-                    "(--model.field_type fourier on the port)",
+        description="semantic NeRF-W on KITTI w/ depth+semantics+masks",
     )
 
 
@@ -158,7 +156,7 @@ def synthetic_nerfacto_method() -> MethodSpec:
                                        eval_num_rays_per_chunk=1 << 13)
     spec.dataparser = None
     spec.datamanager = DataManagerConfig(train_num_rays_per_batch=1024)
-    spec.description = "nerfacto on the analytic sphere scene (hash field not ported)"
+    spec.description = "nerfacto on the analytic sphere scene"
     return spec
 
 

@@ -1,16 +1,24 @@
-"""Fourier-feature neural fields on the fused path: the nerfacto field
-(density + rgb, and semantics), and the proposal density fields.
+"""Neural fields: the nerfacto field (density, rgb, and the semantic,
+transient and predicted-normal heads) and the proposal density fields, on two
+paths, as in the JAX package.
 
-Positions arrive coordinate-major, (3, R, S). Contraction, the coarse-to-fine
-window (folded into the first layer's weights), the 2*pi on B for the sincos
-basis, the density activation and the SH view features stay here, outside
-the kernels, as in the JAX package.
+The non-fused path (``nerfacto_field_apply``, ``density_field_apply``) takes
+point-major positions (R, S, 3) and runs any of the three encodings (hash
+grid, CP line grid, Fourier features) and plain MLPs, with the scene
+contraction or, when it is disabled, the [-1, 1]^3 box and zero density
+outside it. It carries every head and the analytic normals (the gradient of
+the density with respect to the positions).
 
-Without semantics the nerfacto field is one fully fused kernel (base MLP and
-rgb MLP together, ``fourier_field_mlp``). With semantics it splits, as the JAX
-package's does: the base MLP runs alone in ``fourier_mlp`` (the proposal
-fields' kernel, here at the base MLP's widths), and the rgb head and the
-semantic head are plain matrix products on its output.
+The fused path (the ``_t`` functions) is the Fourier field on the
+hand-written kernels. Positions arrive coordinate-major, (3, R, S).
+Contraction, the coarse-to-fine window (folded into the first layer's
+weights), the 2*pi on B for the sincos basis, the density activation and the
+SH view features stay here, outside the kernels. Without semantics the
+nerfacto field is one fully fused kernel (base MLP and rgb MLP together,
+``fourier_field_mlp``). With semantics it splits: the base MLP runs alone in
+``fourier_mlp`` (the proposal fields' kernel, here at the base MLP's widths),
+and the rgb head and the semantic head are plain matrix products on its
+output. The model picks the path by its config (``models.nerfacto``).
 """
 
 from __future__ import annotations
@@ -20,10 +28,22 @@ import math
 
 import torch
 
-from nerf_kbs_tpu_torch.ops.contraction import contract_to_unit_cube_t
+from nerf_kbs_tpu_torch.ops.contraction import (
+    contract_to_unit_cube,
+    contract_to_unit_cube_t,
+    normalize_aabb,
+)
 from nerf_kbs_tpu_torch.ops.encoding import (
+    CPEncodingConfig,
     FourierEncodingConfig,
+    HashEncodingConfig,
+    cp_encoding_apply,
+    cp_encoding_init,
+    fourier_encoding_apply,
     fourier_encoding_init,
+    hash_encoding_apply,
+    hash_encoding_init,
+    positional_encoding,
     sh_encoding,
 )
 from nerf_kbs_tpu_torch.ops.fused_field import (
@@ -32,14 +52,20 @@ from nerf_kbs_tpu_torch.ops.fused_field import (
     fourier_field_mlp,
     fourier_mlp,
 )
-from nerf_kbs_tpu_torch.ops.mlp import MLPConfig, mlp_apply_t, mlp_init, trunc_exp
+from nerf_kbs_tpu_torch.ops.mlp import MLPConfig, mlp_apply, mlp_apply_t, mlp_init, trunc_exp
+
+
+def _encoding_dim(cfg) -> int:
+    return {"hash": cfg.hash, "fourier": cfg.fourier, "cp": cfg.cp}[cfg.encoding].output_dim
 
 
 @dataclasses.dataclass(frozen=True)
 class NerfactoFieldConfig:
     num_images: int = 1
-    encoding: str = "hash"
+    encoding: str = "hash"  # hash | fourier | cp
+    hash: HashEncodingConfig = HashEncodingConfig()
     fourier: FourierEncodingConfig = FourierEncodingConfig()
+    cp: CPEncodingConfig = CPEncodingConfig()
     hidden_dim: int = 64
     num_layers: int = 2
     geo_feat_dim: int = 15
@@ -51,12 +77,21 @@ class NerfactoFieldConfig:
     use_semantics: bool = False
     num_semantic_classes: int = 0
     hidden_dim_semantics: int = 64
+    use_transient_embedding: bool = False
+    transient_embedding_dim: int = 16
+    hidden_dim_transient: int = 64
+    use_pred_normals: bool = False
+    disable_scene_contraction: bool = False
     compute_dtype: str = "float32"
+
+    @property
+    def encoding_dim(self) -> int:
+        return _encoding_dim(self)
 
     @property
     def base_mlp(self) -> MLPConfig:
         return MLPConfig(
-            in_dim=self.fourier.output_dim,
+            in_dim=self.encoding_dim,
             num_layers=self.num_layers,
             layer_width=self.hidden_dim,
             out_dim=1 + self.geo_feat_dim,
@@ -84,21 +119,60 @@ class NerfactoFieldConfig:
             compute_dtype=self.compute_dtype,
         )
 
+    @property
+    def transient_mlp(self) -> MLPConfig:
+        """The NeRF-W transient trunk on [geo; transient embedding]; the
+        transient density, rgb and uncertainty heads read its output."""
+        return MLPConfig(
+            in_dim=self.geo_feat_dim + self.transient_embedding_dim,
+            num_layers=2,
+            layer_width=self.hidden_dim_transient,
+            out_dim=self.hidden_dim_transient,
+            compute_dtype=self.compute_dtype,
+        )
+
+    def transient_head(self, out_dim: int) -> MLPConfig:
+        """One linear layer on the trunk's output, in f32 whatever the
+        compute dtype (the JAX package's heads take the default)."""
+        return MLPConfig(self.hidden_dim_transient, 1, self.hidden_dim_transient, out_dim)
+
+    @property
+    def pred_normal_mlp(self) -> MLPConfig:
+        return MLPConfig(
+            in_dim=self.geo_feat_dim + 3 * 2 * 4 + 3,  # positional_encoding(x, 4) with x
+            num_layers=3,
+            layer_width=64,
+            out_dim=3,
+            compute_dtype=self.compute_dtype,
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class DensityFieldConfig:
     encoding: str = "hash"
+    hash: HashEncodingConfig = HashEncodingConfig(
+        num_levels=5, features_per_level=2, log2_hashmap_size=17,
+        base_resolution=16, max_resolution=128,
+    )
     fourier: FourierEncodingConfig = FourierEncodingConfig(
         num_levels=5, features_per_level=16, base_resolution=16, max_resolution=128
     )
+    cp: CPEncodingConfig = CPEncodingConfig(
+        num_levels=5, features_per_level=8, base_resolution=16, max_resolution=128
+    )
     hidden_dim: int = 16
     num_layers: int = 2
+    disable_scene_contraction: bool = False
     compute_dtype: str = "float32"
+
+    @property
+    def encoding_dim(self) -> int:
+        return _encoding_dim(self)
 
     @property
     def mlp(self) -> MLPConfig:
         return MLPConfig(
-            in_dim=self.fourier.output_dim,
+            in_dim=self.encoding_dim,
             num_layers=self.num_layers,
             layer_width=self.hidden_dim,
             out_dim=1,
@@ -109,14 +183,29 @@ class DensityFieldConfig:
 def _require_fourier(cfg) -> None:
     if cfg.encoding != "fourier":
         raise NotImplementedError(
-            f"encoding={cfg.encoding!r}: only the fourier field is ported"
+            f"encoding={cfg.encoding!r} on the fused path: the fused kernels take the "
+            f"fourier field only (nerfacto_field_apply / density_field_apply take every one)"
         )
 
 
+def _encoding_init(cfg, generator: torch.Generator, device) -> dict:
+    if cfg.encoding == "hash":
+        return {"hash_table": hash_encoding_init(cfg.hash, generator, device)}
+    if cfg.encoding == "fourier":
+        return {"fourier_B": fourier_encoding_init(cfg.fourier, generator, device)}
+    if cfg.encoding == "cp":
+        return {"cp_tables": cp_encoding_init(cfg.cp, generator, device)}
+    raise ValueError(f"unknown encoding {cfg.encoding!r} (hash, fourier or cp)")
+
+
 def nerfacto_field_init(cfg: NerfactoFieldConfig, generator: torch.Generator, device) -> dict:
-    _require_fourier(cfg)
+    """Parameters drawn on the CPU from ``generator`` and moved to
+    ``device``: the encoding's ('hash_table', 'fourier_B' or 'cp_tables'),
+    'base_mlp', 'rgb_mlp' and, as the config asks, 'appearance_emb',
+    'semantic_mlp', the transient embedding, trunk and heads, and
+    'pred_normal_mlp'."""
     params = {
-        "fourier_B": fourier_encoding_init(cfg.fourier, generator, device),
+        **_encoding_init(cfg, generator, device),
         "base_mlp": mlp_init(cfg.base_mlp, generator, device),
         "rgb_mlp": mlp_init(cfg.rgb_mlp, generator, device),
     }
@@ -129,15 +218,170 @@ def nerfacto_field_init(cfg: NerfactoFieldConfig, generator: torch.Generator, de
                 "use_semantics=True needs num_semantic_classes > 0: give the dataset's "
                 "class count, or switch the semantic head off")
         params["semantic_mlp"] = mlp_init(cfg.semantic_mlp, generator, device)
+    if cfg.use_transient_embedding:
+        emb = torch.randn(cfg.num_images, cfg.transient_embedding_dim, generator=generator)
+        params["transient_emb"] = (emb * 0.1).to(device)
+        params["transient_mlp"] = mlp_init(cfg.transient_mlp, generator, device)
+        for name, od in (("transient_density_head", 1), ("transient_rgb_head", 3),
+                         ("uncertainty_head", 1)):
+            params[name] = mlp_init(cfg.transient_head(od), generator, device)
+    if cfg.use_pred_normals:
+        params["pred_normal_mlp"] = mlp_init(cfg.pred_normal_mlp, generator, device)
     return params
 
 
 def density_field_init(cfg: DensityFieldConfig, generator: torch.Generator, device) -> dict:
-    _require_fourier(cfg)
-    return {
-        "fourier_B": fourier_encoding_init(cfg.fourier, generator, device),
-        "mlp": mlp_init(cfg.mlp, generator, device),
-    }
+    return {**_encoding_init(cfg, generator, device), "mlp": mlp_init(cfg.mlp, generator, device)}
+
+
+# ---------------------------------------------------------------------------
+# the non-fused path: point-major positions, every encoding and head
+# ---------------------------------------------------------------------------
+
+
+def _normalize(cfg, positions: torch.Tensor) -> torch.Tensor:
+    """Positions (..., 3) -> the encodings' [0, 1]^3: the [-1, 1]^3 box when
+    the contraction is disabled, else the L-inf contraction."""
+    if cfg.disable_scene_contraction:
+        box = torch.tensor([[-1.0] * 3, [1.0] * 3], device=positions.device)
+        return normalize_aabb(positions, box)
+    return contract_to_unit_cube(positions)
+
+
+def _field_encode(params: dict, cfg, x: torch.Tensor, window=None) -> torch.Tensor:
+    """The encoding of normalised positions x (..., 3); ``window`` (fourier
+    only): the coarse-to-fine weights of ``ops.encoding.fourier_window``."""
+    if cfg.encoding == "hash":
+        return hash_encoding_apply(params["hash_table"], x, cfg.hash)
+    if cfg.encoding == "cp":
+        return cp_encoding_apply(params["cp_tables"], x, cfg.cp)
+    return fourier_encoding_apply(params["fourier_B"], x, cfg.fourier, window=window)
+
+
+def _density_from_base(h: torch.Tensor):
+    """The trunk's output split into (density, geo features); the -1 keeps
+    the field near-empty at initialisation."""
+    return trunc_exp(h[..., 0] - 1.0), h[..., 1:]
+
+
+def _in_box_selector(x: torch.Tensor) -> torch.Tensor:
+    """1 inside [0, 1]^3, else 0: without the contraction the density is
+    zero outside the box, where the encodings read their edge cells."""
+    return torch.all((x >= 0.0) & (x <= 1.0), dim=-1).float()
+
+
+def _density(params: dict, cfg, mlp_key: str, positions: torch.Tensor, window):
+    """(density, geo, x) of the non-fused path."""
+    x = _normalize(cfg, positions)
+    h = mlp_apply(params[mlp_key], _field_encode(params, cfg, x, window),
+                  getattr(cfg, mlp_key))
+    density, geo = _density_from_base(h)
+    if cfg.disable_scene_contraction:
+        density = density * _in_box_selector(x)
+    return density, geo, x
+
+
+def nerfacto_density(params: dict, cfg: NerfactoFieldConfig, positions: torch.Tensor,
+                     window=None) -> torch.Tensor:
+    """The nerfacto field's density alone, positions (..., 3) -> (...)."""
+    return _density(params, cfg, "base_mlp", positions, window)[0]
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    # eps inside the square root: finite gradients at v = 0
+    return v * torch.rsqrt(torch.sum(v * v, dim=-1, keepdim=True) + 1e-12)
+
+
+def _normals(params: dict, cfg: NerfactoFieldConfig, positions: torch.Tensor,
+             window) -> torch.Tensor:
+    """Unit normals (R, S, 3): minus the gradient of the windowed density
+    with respect to the positions. With gradients on (training), the result
+    keeps its graph, so a loss on it differentiates twice (through the
+    encoding, trunc_exp and the MLPs) and reaches the positions' own
+    parameters too; under ``torch.no_grad`` (eval) it is computed in a local
+    ``enable_grad`` and comes back detached."""
+    grad_on = torch.is_grad_enabled()
+    with torch.enable_grad():
+        p = positions if (grad_on and positions.requires_grad) else \
+            positions.detach().requires_grad_(True)
+        density = nerfacto_density(params, cfg, p, window)
+        (grad,) = torch.autograd.grad(density.sum(), p, create_graph=grad_on)
+    return _unit(-grad)
+
+
+def nerfacto_field_apply(
+    params: dict,
+    cfg: NerfactoFieldConfig,
+    positions: torch.Tensor,
+    directions: torch.Tensor,
+    camera_indices: torch.Tensor,
+    train: bool = False,
+    compute_normals: bool = False,
+    window=None,
+) -> dict:
+    """The field on the non-fused path: positions (R, S, 3), directions
+    (R, 3) unit, camera_indices (R, 1). Returns 'density' (R, S) and 'rgb'
+    (R, S, 3), and as the config asks 'semantics' (R, S, C) logits (on geo
+    with its gradient stopped), in training the transient heads
+    'transient_density' (R, S), 'transient_rgb' (R, S, 3) and 'uncertainty'
+    (R, S), 'pred_normals' (R, S, 3) and, with ``compute_normals``, 'normals'
+    (R, S, 3). Appearance rows are per camera in training and the mean row at
+    eval (with ``use_average_appearance_embedding``)."""
+    R, S, _ = positions.shape
+    density, geo, x = _density(params, cfg, "base_mlp", positions, window)
+
+    d_enc = sh_encoding(directions, cfg.sh_levels)
+    rows = [geo, d_enc[:, None, :].expand(R, S, -1)]
+    cam = camera_indices[..., 0].long()
+    if cfg.appearance_embedding_dim > 0:
+        table = params["appearance_emb"]
+        if train or not cfg.use_average_appearance_embedding:
+            app = table[cam]
+        else:
+            app = table.mean(dim=0).expand(R, -1)
+        rows.append(app[:, None, :].expand(R, S, -1))
+    out = {"density": density,
+           "rgb": mlp_apply(params["rgb_mlp"], torch.cat(rows, dim=-1), cfg.rgb_mlp)}
+
+    if cfg.use_semantics:
+        out["semantics"] = mlp_apply(params["semantic_mlp"], geo.detach(), cfg.semantic_mlp)
+
+    if cfg.use_transient_embedding and train:
+        t_emb = params["transient_emb"][cam][:, None, :].expand(R, S, -1)
+        t_h = mlp_apply(params["transient_mlp"], torch.cat([geo, t_emb], dim=-1),
+                        cfg.transient_mlp)
+
+        def head(name, od):
+            return mlp_apply(params[name], t_h, cfg.transient_head(od))
+
+        softplus = torch.nn.functional.softplus
+        out["transient_density"] = softplus(head("transient_density_head", 1)[..., 0] - 3.0)
+        out["transient_rgb"] = torch.sigmoid(head("transient_rgb_head", 3))
+        # the 0.03 floor of the uncertainty is the model's (uncertainty_min)
+        out["uncertainty"] = softplus(head("uncertainty_head", 1)[..., 0])
+
+    if cfg.use_pred_normals:
+        p_enc = positional_encoding(x, 4, include_input=True)
+        pn = mlp_apply(params["pred_normal_mlp"], torch.cat([geo, p_enc], dim=-1),
+                       cfg.pred_normal_mlp)
+        out["pred_normals"] = _unit(pn)
+
+    if compute_normals:
+        # the same windowed field that renders: without the window the early
+        # normals would be gradients of frequencies the render never sees
+        out["normals"] = _normals(params, cfg, positions, window)
+    return out
+
+
+def density_field_apply(params: dict, cfg: DensityFieldConfig, positions: torch.Tensor,
+                        window=None) -> torch.Tensor:
+    """A proposal field on the non-fused path: positions (..., 3) -> density (...)."""
+    return _density(params, cfg, "mlp", positions, window)[0]
+
+
+# ---------------------------------------------------------------------------
+# the fused path: coordinate-major positions, the Fourier field on the kernels
+# ---------------------------------------------------------------------------
 
 
 def _kernel_inputs(params, fourier_cfg, mlp_params, x_t, window):

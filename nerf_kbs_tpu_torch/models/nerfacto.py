@@ -1,14 +1,22 @@
-"""nerfacto on the fused Fourier path: proposal chain -> field -> composite,
-at eval and in training, with the training losses.
+"""nerfacto: proposal chain -> field -> composite, at eval and in training,
+with the training losses.
 
-Covered: the fourier field with contraction, the eval and the training
-forward, the 'last_sample' / 'white' / 'black' backgrounds, appearance
-embeddings, the semantic head (the split field), and the rgb (masked when
-``use_mask``), interlevel, distortion, depth and semantic losses. Anything
-else raises NotImplementedError naming the setting: hash or cp fields,
-normals, the camera optimizer, disabled contraction, and flow or sky
-supervision. The config carries every field of the JAX package's, with its
-names and defaults, so that one override path means the same in both.
+The forward takes the JAX package's route. The Fourier field with neither
+normals nor a disabled contraction runs the fused path: coordinate-major
+positions through the hand-written kernels (``models.fields``' ``_t``
+functions). Every other config runs the non-fused path: point-major
+positions, any encoding (hash grid, CP line grid, Fourier features), plain
+MLPs, the renderer heads, and with ``predict_normals`` the analytic and the
+predicted normals and their losses. The config picks the path; a failure
+never does.
+
+Covered: both paths, the 'last_sample' / 'white' / 'black' backgrounds,
+appearance embeddings, the semantic head, and the rgb (masked when
+``use_mask``), interlevel, distortion, orientation, predicted-normal, depth
+and semantic losses. The camera optimizer and flow or sky supervision raise
+NotImplementedError naming the setting. The config carries every field of
+the JAX package's, with its names and defaults, so that one override path
+means the same in both.
 """
 
 from __future__ import annotations
@@ -23,27 +31,34 @@ from nerf_kbs_tpu_torch.device import resolve_device
 from nerf_kbs_tpu_torch.models.fields import (
     DensityFieldConfig,
     NerfactoFieldConfig,
+    density_field_apply,
     density_field_apply_t,
     density_field_init,
+    nerfacto_field_apply,
     nerfacto_field_apply_t,
     nerfacto_field_init,
 )
 from nerf_kbs_tpu_torch.ops import losses as L
 from nerf_kbs_tpu_torch.ops import rendering as R
-from nerf_kbs_tpu_torch.ops.encoding import FourierEncodingConfig, fourier_window
+from nerf_kbs_tpu_torch.ops.encoding import (
+    CPEncodingConfig,
+    FourierEncodingConfig,
+    HashEncodingConfig,
+    fourier_window,
+)
 from nerf_kbs_tpu_torch.ops.metrics import masked_psnr
 from nerf_kbs_tpu_torch.ops.samplers import RaySamples, anneal_schedule, proposal_sample
 
 
 @dataclasses.dataclass(frozen=True)
 class NerfactoConfig:
-    """The JAX package's NerfactoConfig, field for field. The hash and cp
-    settings, the transient width, the normal losses and the camera
-    optimizer's penalties are carried for the override paths; a run that
-    needs them raises (see ``check_supported``)."""
+    """The JAX package's NerfactoConfig, field for field. The camera
+    optimizer's penalties and the flow and sky multipliers are carried for
+    the override paths; a run that needs them raises (see
+    ``check_supported``)."""
 
     num_images: int = 1
-    field_type: str = "hash"  # hash | fourier | cp; only fourier is ported
+    field_type: str = "hash"  # hash | fourier | cp
     fourier_num_levels: int = 8
     fourier_features_per_level: int = 32
     fourier_basis: str = "sincos"
@@ -120,13 +135,29 @@ class NerfactoConfig:
                 max_resolution=self.max_res,
                 basis=self.fourier_basis,
             ),
+            cp=CPEncodingConfig(
+                num_levels=self.fourier_num_levels,
+                features_per_level=self.cp_features_per_level,
+                base_resolution=self.base_res,
+                max_resolution=self.max_res,
+            ),
+            hash=HashEncodingConfig(
+                num_levels=self.num_levels,
+                features_per_level=self.features_per_level,
+                log2_hashmap_size=self.log2_hashmap_size,
+                base_resolution=self.base_res,
+                max_resolution=self.max_res,
+            ),
             hidden_dim=self.hidden_dim,
             num_layers=self.num_layers,
             hidden_dim_color=self.hidden_dim_color,
+            hidden_dim_transient=self.hidden_dim_transient,
             appearance_embedding_dim=self.appearance_embedding_dim,
             use_average_appearance_embedding=self.use_average_appearance_embedding,
             use_semantics=self.use_semantic,
             num_semantic_classes=self.num_semantic_classes,
+            use_pred_normals=self.predict_normals,
+            disable_scene_contraction=self.disable_scene_contraction,
             compute_dtype=self.compute_dtype,
         )
 
@@ -140,7 +171,21 @@ class NerfactoConfig:
                 max_resolution=self.proposal_max_res[i],
                 basis=self.proposal_fourier_basis,
             ),
+            cp=CPEncodingConfig(
+                num_levels=self.proposal_num_levels,
+                features_per_level=self.proposal_cp_features_per_level,
+                base_resolution=16,
+                max_resolution=self.proposal_max_res[i],
+            ),
+            hash=HashEncodingConfig(
+                num_levels=self.proposal_num_levels,
+                features_per_level=2,
+                log2_hashmap_size=self.proposal_log2_hashmap_size,
+                base_resolution=16,
+                max_resolution=self.proposal_max_res[i],
+            ),
             hidden_dim=self.proposal_hidden_dim,
+            disable_scene_contraction=self.disable_scene_contraction,
             compute_dtype=self.compute_dtype,
         )
 
@@ -149,18 +194,15 @@ def check_supported(cfg: NerfactoConfig) -> None:
     """Raises NotImplementedError naming the first setting that is not
     ported."""
     unsupported = {
-        "field_type": cfg.field_type != "fourier",
         "flow_loss_mult": cfg.flow_loss_mult != 0.0,
         "sky_loss_mult": cfg.sky_loss_mult != 0.0,
-        "predict_normals": cfg.predict_normals,
         "camera_optimizer": cfg.camera_optimizer != "off",
-        "disable_scene_contraction": cfg.disable_scene_contraction,
     }
     for name, bad in unsupported.items():
         if bad:
             raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported (the fused fourier path, "
-                f"with rgb, interlevel, distortion, depth and semantic losses)"
+                f"{name}={getattr(cfg, name)!r} is not ported (both field paths, with the "
+                f"rgb, interlevel, distortion, normal, depth and semantic losses)"
             )
 
 
@@ -185,6 +227,15 @@ def param_groups(params: dict) -> dict:
     return {k: params[k] for k in params}
 
 
+def uses_fused_path(cfg: NerfactoConfig, compute_normals: bool | None = None) -> bool:
+    """The JAX package's route: the fused kernels take the Fourier field
+    with the scene contraction and no normals; everything else runs the
+    non-fused path."""
+    compute_normals = cfg.predict_normals if compute_normals is None else compute_normals
+    return (cfg.field_type == "fourier" and not cfg.predict_normals and not compute_normals
+            and not cfg.disable_scene_contraction)
+
+
 def forward(
     params: dict,
     cfg: NerfactoConfig,
@@ -193,39 +244,59 @@ def forward(
     train: bool = False,
     generator: torch.Generator | None = None,
     jitters=None,
+    compute_normals: bool | None = None,
 ) -> dict:
     """Render a batch of rays (R,): 'rgb' (R, 3), 'accumulation', 'depth'
     (median), 'expected_depth', 'prop_depth_i', 'directions_norm' (R, 1),
-    'weights' (R, S), 'ray_samples', 'proposal_history' and, with semantics,
-    'semantics' (R, C) composited logits. With ``train``
-    the samplers jitter (from ``generator``, or from ``jitters``: one tensor
-    per sampler call, see ``proposal_sample``), the proposal weights are
-    annealed by ``step`` and appearance rows are per camera."""
+    'weights' (R, S), 'ray_samples', 'proposal_history', '_view_dirs' and
+    '_origins' (R, 3) and, with semantics, 'semantics' (R, C) composited
+    logits. ``compute_normals`` (default: ``predict_normals``) adds 'normals'
+    (R, 3) and the per-sample '_sample_normals'; ``predict_normals`` adds
+    'pred_normals' and '_sample_pred_normals'. With ``train`` the samplers
+    jitter (from ``generator``, or from ``jitters``: one tensor per sampler
+    call, see ``proposal_sample``), the proposal weights are annealed by
+    ``step`` and appearance rows are per camera."""
     check_supported(cfg)
     rays = R.near_far_collider(rays, cfg.near_plane, cfg.far_plane)
     dev = rays.origins.device
+    compute_normals = cfg.predict_normals if compute_normals is None else compute_normals
+    use_fused = uses_fused_path(cfg, compute_normals)
 
-    # the coarse-to-fine window from step (anneal_steps <= 0: fully open)
+    # the coarse-to-fine window from step (anneal_steps <= 0: fully open),
+    # for the Fourier field only
     if cfg.fourier_anneal_steps > 0:
         progress = min(max(float(step) / cfg.fourier_anneal_steps, 0.0), 1.0)
     else:
         progress = 1.0
-    field_window = fourier_window(cfg.field.fourier, progress, dev)
-    # positions are constants when sampling is detached (there is no camera
-    # optimizer here): the backward kernels then form no dx. Round 0 samples
-    # are uniform and never depend on parameters.
-    need_dx = [False] + [not cfg.stop_grad_sampling] * (cfg.num_proposal_iterations - 1)
-    density_fns = [
-        (lambda pos_t, p=params["proposal_networks"][i], c=cfg.proposal_field(i), nd=need_dx[i]:
-         density_field_apply_t(p, c, pos_t, window=fourier_window(c.fourier, progress, dev),
-                               need_dx=nd))
-        for i in range(cfg.num_proposal_iterations)
-    ]
+    fourier = cfg.field_type == "fourier"
+    field_window = fourier_window(cfg.field.fourier, progress, dev) if fourier else None
+    prop_cfgs = [cfg.proposal_field(i) for i in range(cfg.num_proposal_iterations)]
+    prop_windows = [fourier_window(c.fourier, progress, dev) if fourier else None
+                    for c in prop_cfgs]
     if cfg.use_proposal_weight_anneal and train:
         anneal = anneal_schedule(step, cfg.proposal_weights_anneal_max_num_iters,
                                  cfg.proposal_weights_anneal_slope)
     else:
         anneal = 1.0
+    props = params["proposal_networks"]
+    if use_fused:
+        # positions are constants when sampling is detached (there is no
+        # camera optimizer here): the backward kernels then form no dx.
+        # Round 0 samples are uniform and never depend on parameters.
+        need_dx = [False] + [not cfg.stop_grad_sampling] * (cfg.num_proposal_iterations - 1)
+        density_fns = [
+            (lambda pos_t, p=props[i], c=prop_cfgs[i], w=prop_windows[i], nd=need_dx[i]:
+             density_field_apply_t(p, c, pos_t, window=w, need_dx=nd))
+            for i in range(cfg.num_proposal_iterations)
+        ]
+        positions_of = lambda s: s.positions_t(rays)  # noqa: E731
+    else:
+        density_fns = [
+            (lambda pos, p=props[i], c=prop_cfgs[i], w=prop_windows[i]:
+             density_field_apply(p, c, pos, window=w))
+            for i in range(cfg.num_proposal_iterations)
+        ]
+        positions_of = None
     samples, history = proposal_sample(
         rays,
         density_fns,
@@ -237,29 +308,42 @@ def forward(
         single_jitter=cfg.use_single_jitter,
         jitters=jitters if train else None,
         stop_grad=cfg.stop_grad_sampling,
+        positions_of=positions_of,
     )
-    field_out = nerfacto_field_apply_t(
-        params["fields"], cfg.field, samples.positions_t(rays), rays.directions,
-        rays.camera_indices, train=train, window=field_window,
-        need_dx=not cfg.stop_grad_sampling,
-    )
+    if use_fused:
+        field_out = nerfacto_field_apply_t(
+            params["fields"], cfg.field, samples.positions_t(rays), rays.directions,
+            rays.camera_indices, train=train, window=field_window,
+            need_dx=not cfg.stop_grad_sampling,
+        )
+    else:
+        field_out = nerfacto_field_apply(
+            params["fields"], cfg.field, samples.positions(rays), rays.directions,
+            rays.camera_indices, train=train, compute_normals=compute_normals,
+            window=field_window,
+        )
     weights = R.render_weights(field_out["density"], samples.deltas)
 
-    rgb_t = field_out["rgb_t"]
-    comp = torch.einsum("rs,drs->rd", weights, rgb_t)
-    acc = torch.sum(weights, dim=-1, keepdim=True)
-    if cfg.background_color == "last_sample":
-        bg = rgb_t[:, :, -1].T
-    elif cfg.background_color == "white":
-        bg = torch.ones_like(comp)
-    elif cfg.background_color == "black":
-        bg = torch.zeros_like(comp)
+    if use_fused:
+        # composite in the transposed layout: rgb_t (3, R, S), weights (R, S)
+        rgb_t = field_out["rgb_t"]
+        comp = torch.einsum("rs,drs->rd", weights, rgb_t)
+        acc = torch.sum(weights, dim=-1, keepdim=True)
+        if cfg.background_color == "last_sample":
+            bg = rgb_t[:, :, -1].T
+        elif cfg.background_color == "white":
+            bg = torch.ones_like(comp)
+        elif cfg.background_color == "black":
+            bg = torch.zeros_like(comp)
+        else:
+            raise ValueError(f"unknown background_color {cfg.background_color!r}")
+        rgb = comp + bg * (1.0 - acc)
     else:
-        raise ValueError(f"unknown background_color {cfg.background_color!r}")
+        rgb = R.render_rgb(weights, field_out["rgb"], cfg.background_color)
 
     outputs = {
-        "rgb": comp + bg * (1.0 - acc),
-        "accumulation": acc,
+        "rgb": rgb,
+        "accumulation": R.render_accumulation(weights),
         "depth": R.render_median_depth(weights, samples),
         "expected_depth": R.render_expected_depth(weights, samples),
         "weights": weights,
@@ -268,10 +352,22 @@ def forward(
         "directions_norm": rays.directions_norm,
     }
     if cfg.use_semantic:
-        w_sem = weights if cfg.pass_semantic_gradients else weights.detach()
-        outputs["semantics"] = torch.einsum("rs,crs->rc", w_sem, field_out["semantics_t"])
+        if use_fused:
+            w_sem = weights if cfg.pass_semantic_gradients else weights.detach()
+            outputs["semantics"] = torch.einsum("rs,crs->rc", w_sem, field_out["semantics_t"])
+        else:
+            outputs["semantics"] = R.render_semantics(weights, field_out["semantics"],
+                                                      cfg.pass_semantic_gradients)
+    if "normals" in field_out:
+        outputs["normals"] = R.render_normals(weights, field_out["normals"])
+        outputs["_sample_normals"] = field_out["normals"]
+    if "pred_normals" in field_out:
+        outputs["pred_normals"] = R.render_normals(weights, field_out["pred_normals"])
+        outputs["_sample_pred_normals"] = field_out["pred_normals"]
     for i, (ps, pw) in enumerate(history):
         outputs[f"prop_depth_{i}"] = R.render_median_depth(pw, ps)
+    outputs["_view_dirs"] = rays.directions
+    outputs["_origins"] = rays.origins
     return outputs
 
 
@@ -314,7 +410,8 @@ def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
     """(total, metrics): the rgb MSE against batch['image'] (R, 3), over the
     pixels of batch['mask'] (R, 1) when ``use_mask``, and in training the
     interlevel loss (on the first ``interlevel_ray_fraction`` of the rays),
-    the distortion loss, the semantic cross-entropy against
+    the distortion loss, with ``predict_normals`` the orientation and
+    predicted-normal losses, the semantic cross-entropy against
     batch['semantics_label'] (R,) and the depth loss against
     batch['depth_image'] (R, 1), each times its multiplier; the interlevel
     and distortion terms are skipped when theirs is 0. metrics holds every
@@ -331,6 +428,13 @@ def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
         if cfg.distortion_loss_mult > 0:
             losses["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
                 outputs["ray_samples"], outputs["weights"])
+        if cfg.predict_normals and "_sample_normals" in outputs:
+            losses["orientation_loss"] = cfg.orientation_loss_mult * L.orientation_loss(
+                outputs["weights"], outputs["_sample_normals"], outputs["_view_dirs"])
+            # the predicted normals follow the analytic ones, not the reverse
+            losses["pred_normal_loss"] = cfg.pred_normal_loss_mult * L.pred_normal_loss(
+                outputs["weights"], outputs["_sample_normals"].detach(),
+                outputs["_sample_pred_normals"])
         if cfg.use_semantic and "semantics_label" in batch:
             losses["semantic_loss"] = cfg.semantic_loss_weight * L.semantic_loss(
                 outputs["semantics"], batch["semantics_label"])

@@ -3,13 +3,17 @@ motion masks, for driving scenes (the JAX package's
 ``models/semantic_nerfw.py``).
 
 Without the transient embedding the model is nerfacto with semantics, and the
-forward is ``nerfacto.forward`` (the split field on the fused path). The loss
+forward is ``nerfacto.forward``: as registered (the hash field) on the
+non-fused path, with ``--model.field_type fourier`` on the fused path's split
+field. The loss
 differs from nerfacto's: the interlevel and distortion terms are always
 there, the rgb term is masked when ``use_mask`` and a mask comes, the
 semantic term ('semantics_loss') also counts at eval, the depth term
 ('depth_loss') is the scale-and-shift-invariant one, and 'psnr' is over the
 masked pixels whenever the batch has a mask. The NeRF-W transient path
-(``use_transient_embedding=True``) is not ported and raises by name.
+(``use_transient_embedding=True``: the combined weights, the uncertainty and
+their loss terms) is not ported and raises by name; the field's transient
+heads are (``models.fields.nerfacto_field_apply``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,11 @@ class SemanticNerfWConfig(_nerfacto.NerfactoConfig):
     mono_depth_loss_mult: float = 0.001
     uncertainty_min: float = 0.03
     transient_density_loss_mult: float = 0.01
+
+    @property
+    def field(self):
+        return dataclasses.replace(super().field,
+                                   use_transient_embedding=self.use_transient_embedding)
 
 
 def check_supported(cfg: SemanticNerfWConfig) -> None:

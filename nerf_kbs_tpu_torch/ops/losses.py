@@ -1,6 +1,7 @@
 """Training losses: rgb MSE, the interlevel (proposal) loss and the
-distortion loss in the samplers' spacing domain, the monocular and euclidean
-depth losses, and the semantic cross-entropy."""
+distortion loss in the samplers' spacing domain, the orientation and
+predicted-normal losses, the monocular and euclidean depth losses, and the
+semantic cross-entropy."""
 
 from __future__ import annotations
 
@@ -86,6 +87,22 @@ def distortion_loss(samples, weights: torch.Tensor) -> torch.Tensor:
     wm_cum = torch.cumsum(weights * m, dim=-1) - weights * m
     loss_bi = 2.0 * torch.sum(weights * (m * w_cum - wm_cum), dim=-1)
     return torch.mean(loss_uni + loss_bi)
+
+
+def orientation_loss(weights: torch.Tensor, normals: torch.Tensor,
+                     view_dirs: torch.Tensor) -> torch.Tensor:
+    """Normals (R, S, 3) that face away from the camera, w max(0, n . d)^2,
+    summed over samples and averaged over rays; view_dirs (R, 3)."""
+    n_dot_v = torch.sum(normals * view_dirs[..., None, :], dim=-1)
+    return torch.mean(torch.sum(weights * torch.clamp_min(n_dot_v, 0.0) ** 2, dim=-1))
+
+
+def pred_normal_loss(weights: torch.Tensor, normals: torch.Tensor,
+                     pred_normals: torch.Tensor) -> torch.Tensor:
+    """w (1 - n . n_pred): ties the predicted normals to the density
+    gradient's, summed over samples and averaged over rays."""
+    sim = torch.sum(normals * pred_normals, dim=-1)
+    return torch.mean(torch.sum(weights * (1.0 - sim), dim=-1))
 
 
 def normalized_depth_scale_and_shift(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor):

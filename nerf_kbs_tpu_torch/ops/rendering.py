@@ -1,5 +1,6 @@
-"""Volume rendering: compositing weights, accumulation, depths and the
-near/far collider. Sample tensors are (R, S)."""
+"""Volume rendering: compositing weights, the renderer heads (rgb with its
+background models, accumulation, depths, semantics, normals, uncertainty) and
+the near/far collider. Sample tensors are (R, S), per-sample values (R, S, C)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,48 @@ def render_weights(density: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     accum = torch.cumsum(tau, dim=-1)
     trans = torch.exp(-(accum - tau))
     return alpha * trans
+
+
+def accumulate(weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """sum_i w_i v_i over the sample axis: weights (R, S), values (R, S, C)."""
+    return torch.sum(weights[..., None] * values, dim=-2)
+
+
+def render_rgb(weights: torch.Tensor, rgb: torch.Tensor, background: str = "last_sample",
+               bg_color: torch.Tensor | None = None) -> torch.Tensor:
+    """Composite rgb (R, S, 3) over a background: 'last_sample' (the last
+    sample's colour), 'white', 'black' or 'color' (``bg_color``, broadcast)."""
+    comp = accumulate(weights, rgb)
+    acc = torch.sum(weights, dim=-1, keepdim=True)
+    if background == "last_sample":
+        bg = rgb[..., -1, :]
+    elif background == "white":
+        bg = torch.ones_like(comp)
+    elif background == "black":
+        bg = torch.zeros_like(comp)
+    elif background == "color":
+        bg = torch.as_tensor(bg_color, dtype=comp.dtype, device=comp.device).expand_as(comp)
+    else:
+        raise ValueError(f"unknown background_color {background!r}")
+    return comp + bg * (1.0 - acc)
+
+
+def render_semantics(weights: torch.Tensor, sem_logits: torch.Tensor,
+                     pass_gradients: bool = False) -> torch.Tensor:
+    """Composite per-sample logits (R, S, K) -> (R, K), with the weights
+    detached unless ``pass_gradients``."""
+    return accumulate(weights if pass_gradients else weights.detach(), sem_logits)
+
+
+def render_uncertainty(weights: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
+    """Composite per-sample uncertainty (R, S) -> (R, 1), weights detached."""
+    return torch.sum(weights.detach() * betas, dim=-1, keepdim=True)
+
+
+def render_normals(weights: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
+    """Composite normals (R, S, 3) -> (R, 3), scaled to unit length."""
+    n = accumulate(weights, normals)
+    return n / (torch.linalg.vector_norm(n, dim=-1, keepdim=True) + 1e-10)
 
 
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:

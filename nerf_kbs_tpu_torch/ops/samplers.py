@@ -39,6 +39,10 @@ class RaySamples:
     def midpoints(self) -> torch.Tensor:
         return 0.5 * (self.starts + self.ends)
 
+    def positions(self, rays) -> torch.Tensor:
+        """(R, S, 3) point-major sample positions at interval midpoints."""
+        return rays.origins[..., None, :] + rays.directions[..., None, :] * self.midpoints[..., None]
+
     def positions_t(self, rays) -> torch.Tensor:
         """(3, R, S) coordinate-major sample positions at interval midpoints,
         the layout the fused fields take."""
@@ -188,15 +192,21 @@ def proposal_sample(
     single_jitter: bool = True,
     jitters=None,
     stop_grad: bool = False,
+    positions_of: Callable | None = None,
 ):
     """The proposal chain: uniform samples -> per round, density from
-    ``density_fns[i]`` on (3, R, S) positions -> annealed PDF resample.
+    ``density_fns[i]`` on the round's positions -> annealed PDF resample. The
+    positions are point-major (R, S, 3) unless ``positions_of`` (samples ->
+    positions) gives another layout: the fused fields take
+    ``lambda s: s.positions_t(rays)``, (3, R, S).
     Jitter (training) comes from ``generator`` or from ``jitters``, a list of
     rounds + 1 tensors in [0, 1): the first for the uniform sampler, then one
     per resample. ``stop_grad`` detaches every resample; the history keeps
     the weights from before the detach, so the interlevel loss still trains
     the proposal networks. Returns (final RaySamples, [(RaySamples, weights)
     per round])."""
+    if positions_of is None:
+        positions_of = lambda s: s.positions(rays)  # noqa: E731
     rounds = len(num_proposal_samples)
     if jitters is None:
         jitters = [None] * (rounds + 1)
@@ -205,7 +215,7 @@ def proposal_sample(
                               jitter=jitters[0])
     history = []
     for i in range(rounds):
-        density = density_fns[i](samples.positions_t(rays))
+        density = density_fns[i](positions_of(samples))
         weights = render_weights(density, samples.deltas)
         history.append((samples, weights))
         n_next = num_proposal_samples[i + 1] if i + 1 < rounds else num_nerf_samples

@@ -217,20 +217,44 @@ def _png_depth_datamanager(tmp_path):
     InMemoryDataManager(out, out)
 
 
+# settings ported since the cases were written: each case now runs the eval
+# forward on the non-fused path and matches JAX
+PORTED = ("field_type", "predict_normals", "disable_scene_contraction")
+TINY_GRIDS = dict(num_levels=4, log2_hashmap_size=10, proposal_num_levels=2,
+                  proposal_log2_hashmap_size=8)
+
+
 @pytest.mark.parametrize("change,name", [
-    (dict(field_type="hash"), "field_type"),
-    (dict(field_type="cp"), "field_type"),
+    (dict(field_type="hash", **TINY_GRIDS), "field_type"),
+    (dict(field_type="cp", cp_features_per_level=4, proposal_cp_features_per_level=4),
+     "field_type"),
     (dict(predict_normals=True), "predict_normals"),
     (dict(camera_optimizer="SO3xR3"), "camera_optimizer"),
-    (dict(disable_scene_contraction=True), "disable_scene_contraction"),
+    (dict(disable_scene_contraction=True, background_color="white"),
+     "disable_scene_contraction"),
     ("transient", "use_transient_embedding"),
     ("png_depth", "16-bit PNG depth"),
     (dict(flow_loss_mult=0.001), "flow_loss_mult"),
     (dict(sky_loss_mult=0.1), "sky_loss_mult"),
 ])
 def test_unported_configs_raise(change, name, tmp_path):
+    """What is not ported raises by name; the settings of PORTED (hash and
+    cp fields, normals, disabled contraction) run the eval forward instead,
+    on the non-fused path, and match the JAX package's."""
     from nerf_kbs_tpu_torch.models import semantic_nerfw
 
+    if name in PORTED:
+        jcfg, tcfg = _pair(**{**SMALL, **change})
+        assert not tnerf.uses_fused_path(tcfg)
+        jp, tp = _params(jcfg)
+        jr, tr = _rays(16, seed=2)
+        jout = jax.jit(lambda p, r: jnerf.forward(p, jcfg, r, key=None, step=900,
+                                                  train=False))(jp, jr)
+        with torch.no_grad():  # as the renderer and the trainer's eval call it
+            tout = tnerf.forward(tp, tcfg, tr, step=900, train=False)
+        keys = OUT_KEYS + (("normals", "pred_normals") if tcfg.predict_normals else ())
+        _compare(tout, jout, keys)
+        return
     with pytest.raises(NotImplementedError, match=name):
         if change == "transient":
             semantic_nerfw.init(semantic_nerfw.SemanticNerfWConfig(
