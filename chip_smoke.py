@@ -80,7 +80,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    semantic-nerfw as registered and of nerfacto-tpu with predicted normals
    and the scene contraction disabled (the second-order backward of the
    normals on the card);
-11. a {"kernels": [...]} line, each record's "launches" counted per
+11. the vKITTI scene: the port's writer makes an 8-frame 375x1242 Virtual
+   KITTI 2 scene (quality-97 JPEG frames, 16-bit PNG depth), timed, and the
+   vKITTI parser and the datamanager load it, timed (the NumPy JPEG decoder);
+12. the last three registry paths through cli.main at full width, 30 steps
+   of 4,096 rays each, eval_all_images and a checkpoint, none of them
+   launching a fused kernel: run 4, vanilla-nerf as registered (temporal
+   distortion, aabb collider, 64 + 128 samples, 8 x 256 MLP with a skip at
+   layer 4, f32, RAdam with the clip) on the vKITTI scene, with --eval-only
+   from its checkpoint reproducing its final metrics; run 5, test-nerfacto
+   as registered (hash nerfacto, bf16) on a transforms.json of the street
+   scene's frames; run 6, semantic-nerfw as registered with the NeRF-W
+   transient path and 20 steps of the eval appearance fit, on the street
+   scene with depth, semantics and masks (the transient loss terms finite,
+   fit_psnr and fit_psnr_right in the eval). For each: the median step time,
+   the eval time of the split, the peak memory of a step and of an eval
+   chunk, a profile of one step, and 3 f32 steps at a reduced width on the
+   card against the CPU plain path;
+13. a {"kernels": [...]} line, each record's "launches" counted per
    "launches_per" (a frame, a bench step or a run-2 step), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1166,11 +1183,12 @@ def _run2_data(scene: str) -> list:
 
 
 def _cli_run(cli, ff, method: str, argv: list, out: str, per_step: dict,
-             per_chunk: dict, phase: str | None = None) -> dict:
+             per_chunk: dict, phase: str | None = None, hw: tuple = SCENE_HW) -> dict:
     """cli.main in-process: 30 steps, eval_all_images, a checkpoint. The
     launch counts of the whole call must be 30 x per_step plus 2 eval images
     x ceil(H * W / chunk) chunks x per_chunk, chunk being the method's
-    eval_num_rays_per_chunk (no launch at all when both are empty)."""
+    eval_num_rays_per_chunk and H x W the scene's ``hw`` (no launch at all
+    when both are empty)."""
     spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
     chunk = spec.trainer.eval_num_rays_per_chunk
     import numpy as np
@@ -1180,7 +1198,7 @@ def _cli_run(cli, ff, method: str, argv: list, out: str, per_step: dict,
     cli.main([method] + argv)
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in ff.LAUNCHES.items() if v}
-    chunks = 2 * -(-SCENE_HW[0] * SCENE_HW[1] // chunk)
+    chunks = 2 * -(-hw[0] * hw[1] // chunk)
     want = {k: 30 * per_step.get(k, 0) + chunks * per_chunk.get(k, 0)
             for k in set(per_step) | set(per_chunk)}
     check(launches == want, f"{method}: launches {launches}, want {want}")
@@ -1378,10 +1396,11 @@ REDUCED_HASH = REDUCED + ["--model.num_levels", "8", "--model.log2_hashmap_size"
                           "--model.max_res", "256"]
 
 
-def _card_vs_cpu(cli, method: str, argv: list, phase: str) -> None:
+def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 3) -> None:
     """3 f32 steps of ``method`` on the card against the same 3 steps on the
     CPU plain path: same seeds, batches and jitter (drawn on the CPU in
-    both); the losses must agree to 2e-3."""
+    both); the losses of the first ``checked_steps`` must agree to 2e-3 (the
+    others are recorded)."""
     import dataclasses
 
     spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
@@ -1393,9 +1412,11 @@ def _card_vs_cpu(cli, method: str, argv: list, phase: str) -> None:
         check(t.model_config.compute_dtype == "float32", "f32 steps")
         runs[where] = [float(t.train_step(t._to_device(t.dm.next_train(s)))["total_loss"])
                        for s in range(3)]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    rels = [abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    rel = max(rels[:checked_steps])
     emit({"phase": phase, "method": method, "rays": 256, "losses_card": runs["cuda"],
-          "losses_cpu": runs["cpu"], "max_rel_diff": rel, "tol": 2e-3})
+          "losses_cpu": runs["cpu"], "rel_diff_per_step": rels, "checked_steps": checked_steps,
+          "max_rel_diff": rel, "tol": 2e-3})
     check(rel <= 2e-3, f"{phase}: card vs CPU f32 steps: {runs}")
 
 
@@ -1410,6 +1431,57 @@ def _peak_mib(work) -> float:
     return torch.cuda.max_memory_allocated() / 2**20
 
 
+def _measure_run(cli, ff, method: str, argv: list, out: str, run: dict, phase: str,
+                 what: str, hw: tuple = SCENE_HW) -> dict:
+    """After a _cli_run of ``method``: a trainer from its checkpoint, the
+    eval time of the split (eval_all_images, warm), the peak memory of a
+    train step and of one eval chunk (the first chunk of eval camera 0), and
+    a profile of one step by kernel and by op; no fused kernel may launch in
+    any of it."""
+    import torch
+
+    from nerf_kbs_tpu_torch.cameras.cameras import generate_rays
+
+    spec = cli.apply_overrides(cli.method_registry[method](),
+                               {"trainer.load_dir": str(Path(out) / "exp" / method),
+                                **_pairs(argv)})
+    trainer = cli.build_trainer(spec)
+    ff.reset_launches()
+    trainer.eval_all_images()
+    t0 = time.perf_counter()
+    trainer.eval_all_images()
+    split_s = time.perf_counter() - t0
+    batch = trainer._to_device(trainer.dm.next_train(1000))
+    step_mib = _peak_mib(lambda: trainer.train_step(batch))
+    chunk = trainer.config.eval_num_rays_per_chunk
+    h, w = hw
+    rr, cc = torch.meshgrid(torch.arange(h, device=trainer.device),
+                            torch.arange(w, device=trainer.device), indexing="ij")
+    idx = torch.stack([torch.zeros_like(rr), rr, cc], -1).reshape(-1, 3)[:chunk].to(torch.int32)
+
+    @torch.no_grad()
+    def eval_chunk():
+        rays = generate_rays(trainer.eval_cameras, idx)
+        trainer.model.forward(trainer.params, trainer.model_config, rays, step=trainer.step)
+
+    chunk_mib = _peak_mib(eval_chunk)
+    check(not any(ff.LAUNCHES.values()), f"{phase}: fused kernels launched {ff.LAUNCHES}")
+    rec = {"phase": phase, "method": method,
+           "field_type": getattr(trainer.model_config, "field_type", None),
+           "median_step_ms": run["median_step_ms"], "rays_per_s": run["rays_per_s"],
+           "eval_all_images_s": split_s, "eval_images": 2, "ms_per_image": split_s * 1e3 / 2,
+           "eval_chunk_rays": chunk, "peak_mib_train_step": step_mib,
+           "peak_mib_eval_chunk": chunk_mib,
+           "params_mib": sum(t.numel() * 4 for t in _leaf_values(trainer.params)) / 2**20}
+    emit(rec)
+    rays = batch["ray_indices"].shape[0]
+    phase_profile(lambda: trainer.train_step(batch), rays, top=25, by_op=True, what=what)
+    check(not any(ff.LAUNCHES.values()), f"{phase} profile: fused kernels launched {ff.LAUNCHES}")
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_hash(scene: str) -> None:
     """Run 3 (semantic-nerfw as registered), the other hash presets and the
     f32 card-against-CPU checks of the non-fused path; see the module
@@ -1420,7 +1492,6 @@ def phase_hash(scene: str) -> None:
     import torch
 
     import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
-    from nerf_kbs_tpu_torch.cameras.cameras import generate_rays
     from nerf_kbs_tpu_torch.engine import cli
     from nerf_kbs_tpu_torch.models import nerfacto
     from nerf_kbs_tpu_torch.ops import fused_field as ff
@@ -1439,40 +1510,8 @@ def phase_hash(scene: str) -> None:
     check({"masked_psnr", "depth_mse", "semantic_accuracy"} <= set(r3["eval_all"]),
           f"run 3 eval {r3['eval_all']}")
 
-    spec = cli.apply_overrides(cli.method_registry["semantic-nerfw"](),
-                               {"trainer.load_dir": str(Path(out) / "exp" / "semantic-nerfw"),
-                                **_pairs(argv3)})
-    trainer = cli.build_trainer(spec)
-    ff.reset_launches()
-    trainer.eval_all_images()
-    t0 = time.perf_counter()
-    trainer.eval_all_images()
-    split_s = time.perf_counter() - t0
-    batch = trainer._to_device(trainer.dm.next_train(1000))
-    step_mib = _peak_mib(lambda: trainer.train_step(batch))
-    chunk = trainer.config.eval_num_rays_per_chunk
-    h, w = SCENE_HW
-    rr, cc = torch.meshgrid(torch.arange(h, device=trainer.device),
-                            torch.arange(w, device=trainer.device), indexing="ij")
-    idx = torch.stack([torch.zeros_like(rr), rr, cc], -1).reshape(-1, 3)[:chunk].to(torch.int32)
-
-    @torch.no_grad()
-    def eval_chunk():
-        rays = generate_rays(trainer.eval_cameras, idx)
-        nerfacto.forward(trainer.params, trainer.model_config, rays, step=trainer.step)
-
-    chunk_mib = _peak_mib(eval_chunk)
-    no_launches("run 3 eval and step")
-    emit({"phase": "cli_run3_memory_and_eval", "method": "semantic-nerfw",
-          "field_type": "hash", "median_step_ms": r3["median_step_ms"],
-          "rays_per_s": r3["rays_per_s"], "eval_all_images_s": split_s, "eval_images": 2,
-          "ms_per_image": split_s * 1e3 / 2, "eval_chunk_rays": chunk,
-          "peak_mib_train_step": step_mib, "peak_mib_eval_chunk": chunk_mib,
-          "params_mib": sum(t.numel() * 4 for t in _leaf_values(trainer.params)) / 2**20})
-    phase_profile(lambda: trainer.train_step(batch), 4096, top=25, by_op=True,
-                  what="run 3 train step (semantic-nerfw, hash)")
-    del trainer
-    torch.cuda.empty_cache()
+    _measure_run(cli, ff, "semantic-nerfw", argv3, out, r3, "cli_run3_memory_and_eval",
+                 "run 3 train step (semantic-nerfw, hash)")
 
     # the other hash presets as registered, full width, 3 steps each
     for method in ("nerfacto", "nerfacto-big", "synthetic-nerfacto"):
@@ -1512,6 +1551,151 @@ def phase_hash(scene: str) -> None:
     no_launches("the f32 steps of the non-fused path")
 
 
+# the Virtual KITTI 2 scene of run 4: vKITTI 2's frame size
+VKITTI_HW = (375, 1242)
+
+
+def phase_vkitti_scene(out_dir: str) -> str:
+    """The port's vKITTI-layout scene at VKITTI_HW, 8 frames (NumPy ray
+    tracing, the port's JPEG and 16-bit PNG encoders), timed; then the
+    vKITTI parser and the datamanager load it, timed (the NumPy JPEG decoder
+    and the 16-bit PNG decoder)."""
+    import numpy as np
+
+    from nerf_kbs_tpu_torch.data.datamanager import InMemoryDataManager
+    from nerf_kbs_tpu_torch.data.dataparsers.vkitti import VKittiDataParserConfig
+    from nerf_kbs_tpu_torch.data.synthetic_kitti import write_vkitti_dataset
+    from nerf_kbs_tpu_torch.utils.jpeg import decode_jpeg
+
+    h, w = VKITTI_HW
+    t0 = time.perf_counter()
+    scene = write_vkitti_dataset(Path(out_dir) / "vkitti", n_frames=8, h=h, w=w)
+    write_s = time.perf_counter() - t0
+    cfg = VKittiDataParserConfig(data_dir=str(scene), train_split_fraction=0.75, use_depth=True)
+    t0 = time.perf_counter()
+    dm = InMemoryDataManager(cfg.parse("train"), cfg.parse("val"))
+    load_s = time.perf_counter() - t0
+    frame = scene / "frames" / "rgb" / "Camera_0" / "rgb_00000.jpg"
+    t0 = time.perf_counter()
+    decode_jpeg(frame.read_bytes())
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    images = np.concatenate([dm.train_assets["images"], dm.eval_assets["images"]])
+    depths = np.concatenate([dm.train_assets["depths"], dm.eval_assets["depths"]])
+    check(images.shape == (8, h, w, 3) and depths.shape == (8, h, w)
+          and np.isfinite(depths).all() and depths.max() > 0, f"vKITTI scene {images.shape}")
+    jpgs = sorted((scene / "frames" / "rgb" / "Camera_0").glob("*.jpg"))
+    pngs = sorted((scene / "frames" / "depth" / "Camera_0").glob("*.png"))
+    emit({"phase": "vkitti_scene", "frames": 8, "image": [h, w], "write_s": write_s,
+          "load_s": load_s, "jpeg_decode_ms_one_frame": decode_ms,
+          "jpeg_bytes": sum(f.stat().st_size for f in jpgs),
+          "depth_png_bytes": sum(f.stat().st_size for f in pngs),
+          "mean_rgb": float(images.mean()), "depth_max_scene_units": float(depths.max())})
+    return str(scene)
+
+
+def _write_transforms_json(scene: str) -> str:
+    """A transforms.json beside the street scene's frames: the cam0 poses
+    turned to OpenGL camera-to-world, P2's intrinsics, the frame size and
+    the depth .npy of each frame. Returns the scene directory."""
+    import numpy as np
+
+    root = Path(scene)
+    p2 = [ln for ln in (root / "calib.txt").read_text().splitlines() if ln.startswith("P2:")]
+    P = np.array(p2[0].split()[1:], np.float64).reshape(3, 4)
+    frames = []
+    for i, row in enumerate(np.loadtxt(root / "00.txt").reshape(-1, 3, 4)):
+        c2w = np.eye(4)
+        c2w[:3] = row
+        c2w[:3, 1:3] *= -1.0  # OpenCV camera axes -> OpenGL
+        frames.append({"file_path": f"00/{i:06}.png", "transform_matrix": c2w.tolist(),
+                       "depth_file_path": f"depth/{i:06}.npy"})
+    h, w = SCENE_HW
+    (root / "transforms.json").write_text(json.dumps(
+        {"fl_x": P[0, 0], "fl_y": P[1, 1], "cx": P[0, 2], "cy": P[1, 2], "w": w, "h": h,
+         "frames": frames}))
+    return str(root)
+
+
+# reduced widths of the f32 card-against-CPU steps of vanilla-nerf. With the
+# registered 10 position frequencies the training gradient is ill-conditioned
+# (the fine samples move with the coarse field, and the field's spatial
+# derivative grows with 2^9 pi): rounding-level differences in the first
+# step's gradient grow into ~1e-3 of the loss by step 3, so the 3-step check
+# runs at 4 frequencies, and the 10-frequency steps check the first loss
+# only (before any update) and record the rest.
+REDUCED_VANILLA = ["--model.mlp_layer_width", "64", "--model.num_coarse_samples", "16",
+                   "--model.num_importance_samples", "16", "--model.pos_frequencies", "4",
+                   "--datamanager.train_num_rays_per_batch", "256",
+                   "--trainer.mixed_precision", "false"]
+STEPS = ["--trainer.max_num_iterations", "30", "--trainer.log_every", "1"]
+
+
+def phase_registry(scene: str, vkitti: str) -> None:
+    """Runs 4, 5 and 6 (see the module docstring); no fused kernel may
+    launch in any of them."""
+    import numpy as np
+
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.engine import cli
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    out = tempfile.mkdtemp(prefix="nkt_registry_")
+
+    # run 4: vanilla-nerf as registered on the vKITTI scene
+    argv4 = ["--dataparser.data_dir", vkitti, "--dataparser.train_split_fraction", "0.75",
+             "--trainer.output_dir", out] + STEPS
+    model = cli.apply_overrides(cli.method_registry["vanilla-nerf"](), _pairs(argv4)).model
+    check(model.enable_temporal_distortion and model.collider == "aabb"
+          and model.skip_connections == (4,) and model.mlp_layer_width == 256
+          and model.num_coarse_samples + model.num_importance_samples == 192
+          and model.compute_dtype == "float32", f"run 4 config {model}")
+    r4 = _cli_run(cli, ff, "vanilla-nerf", argv4, out, per_step={}, per_chunk={},
+                  phase="cli_run4_vanilla_nerf", hw=VKITTI_HW)
+    ckpt_dir = str(Path(out) / "exp" / "vanilla-nerf")
+    cli.main(["vanilla-nerf"] + argv4 + ["--eval-only", "true", "--trainer.load_dir", ckpt_dir])
+    lines = (Path(ckpt_dir) / "metrics.jsonl").read_text().splitlines()
+    again = {k[len("eval_all_"):]: v for k, v in json.loads(lines[-1]).items()
+             if k.startswith("eval_all_")}
+    check(again == r4["eval_all"], f"run 4 --eval-only gave {again}, training {r4['eval_all']}")
+    _measure_run(cli, ff, "vanilla-nerf", argv4, out, r4, "cli_run4_memory_and_eval",
+                 "run 4 train step (vanilla-nerf)", hw=VKITTI_HW)
+
+    # run 5: test-nerfacto as registered on a transforms.json of the street scene
+    argv5 = ["--dataparser.data", _write_transforms_json(scene), "--trainer.output_dir", out]
+    argv5 += STEPS
+    model = cli.apply_overrides(cli.method_registry["test-nerfacto"](), _pairs(argv5))
+    check(model.model_config().field_type == "hash"
+          and model.model_config().compute_dtype == "bfloat16", "run 5 config")
+    r5 = _cli_run(cli, ff, "test-nerfacto", argv5, out, per_step={}, per_chunk={},
+                  phase="cli_run5_test_nerfacto")
+    _measure_run(cli, ff, "test-nerfacto", argv5, out, r5, "cli_run5_memory_and_eval",
+                 "run 5 train step (test-nerfacto, hash)")
+
+    # run 6: semantic-nerfw as registered with the NeRF-W transient path and
+    # the eval appearance fit
+    argv6 = (_run_argv(scene, out) + _run2_data(scene)
+             + ["--model.use_transient_embedding", "true",
+                "--trainer.eval_fit_appearance_steps", "20"])
+    r6 = _cli_run(cli, ff, "semantic-nerfw", argv6, out, per_step={}, per_chunk={},
+                  phase="cli_run6_semantic_nerfw_transient")
+    check({"uncertainty_loss", "density_loss", "rgb_loss"} <= set(r6["loss_terms"]),
+          f"run 6 loss terms {sorted(r6['loss_terms'])}")
+    check({"fit_psnr", "fit_psnr_right"} <= set(r6["eval_all"])
+          and all(np.isfinite(r6["eval_all"][k]) for k in ("fit_psnr", "fit_psnr_right")),
+          f"run 6 eval {r6['eval_all']}")
+    _measure_run(cli, ff, "semantic-nerfw", argv6, out, r6, "cli_run6_memory_and_eval",
+                 "run 6 train step (semantic-nerfw, transient)")
+
+    # the three in f32 at reduced widths, card against CPU
+    ff.reset_launches()
+    _card_vs_cpu(cli, "vanilla-nerf", argv4 + REDUCED_VANILLA, "cli_run4_vs_cpu")
+    _card_vs_cpu(cli, "vanilla-nerf", argv4 + REDUCED_VANILLA + ["--model.pos_frequencies", "10"],
+                 "cli_run4_vs_cpu_10_frequencies", checked_steps=1)
+    _card_vs_cpu(cli, "test-nerfacto", argv5 + REDUCED_HASH, "cli_run5_vs_cpu")
+    _card_vs_cpu(cli, "semantic-nerfw", argv6 + REDUCED_HASH, "cli_run6_vs_cpu")
+    check(not any(ff.LAUNCHES.values()), f"runs 4-6 f32 steps launched {ff.LAUNCHES}")
+
+
 def _pairs(argv: list) -> dict:
     """--k v pairs of an argv list as override paths."""
     return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
@@ -1549,6 +1733,7 @@ def main() -> int:
         scene = phase_scene(tmp)
         phase_cli(records, scene)
         phase_hash(scene)
+        phase_registry(scene, phase_vkitti_scene(tmp))
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]
     check(not bad, f"imported {bad}")

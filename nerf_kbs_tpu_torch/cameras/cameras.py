@@ -21,6 +21,7 @@ class Cameras:
     c2w:            (N, 3, 4) f32 camera-to-world, OpenGL convention.
     width, height:  (N,) int32.
     distortion:     (N, 6) f32 (k1, k2, k3, k4, p1, p2) or None.
+    times:          (N,) f32 normalised capture times or None.
     """
 
     fx: torch.Tensor
@@ -31,6 +32,7 @@ class Cameras:
     width: torch.Tensor
     height: torch.Tensor
     distortion: Optional[torch.Tensor] = None
+    times: Optional[torch.Tensor] = None
 
     def __len__(self) -> int:
         return self.fx.shape[0]
@@ -52,6 +54,7 @@ class RayBundle:
     directions_norm:     (..., 1) norm before normalisation (z-depth to
                          along-ray distance).
     nears, fars:         (..., 1) or None, set by a collider.
+    times:               (..., 1) the camera's time, or None.
     """
 
     origins: torch.Tensor
@@ -61,6 +64,7 @@ class RayBundle:
     directions_norm: torch.Tensor
     nears: Optional[torch.Tensor] = None
     fars: Optional[torch.Tensor] = None
+    times: Optional[torch.Tensor] = None
 
 
 def _undistort_iterative_rows(x, y, d_rows, iters: int = 3):
@@ -116,4 +120,5 @@ def generate_rays(cameras: Cameras, ray_indices: torch.Tensor) -> RayBundle:
         pixel_area=pixel_area,
         camera_indices=ray_indices[..., 0:1],
         directions_norm=NORM[0].reshape(batch_shape)[..., None],
+        times=None if cameras.times is None else cameras.times[idx].reshape(batch_shape)[..., None],
     )

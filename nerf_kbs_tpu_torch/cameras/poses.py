@@ -50,6 +50,17 @@ def opencv_to_world(c2w: np.ndarray) -> np.ndarray:
     return out
 
 
+def invert_se3(T: np.ndarray) -> np.ndarray:
+    """Invert (..., 4, 4) rigid transforms: [R^T, -R^T t]."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3:4]
+    Rt = np.swapaxes(R, -1, -2)
+    out = np.tile(np.eye(4, dtype=T.dtype), T.shape[:-2] + (1, 1))
+    out[..., :3, :3] = Rt
+    out[..., :3, 3:4] = -Rt @ t
+    return out
+
+
 def to_homogeneous(c2w: np.ndarray) -> np.ndarray:
     """(..., 3, 4) -> (..., 4, 4) with a [0, 0, 0, 1] bottom row."""
     if c2w.shape[-2] == 4:

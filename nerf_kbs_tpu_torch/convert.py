@@ -7,7 +7,10 @@ the port's, whichever encoding and heads they hold: the encoding is
 "fourier_B" (3, H), "hash_table" (the flat feature-major 1-D table) or
 "cp_tables" (a list of (3, res + 1, F) tables); the heads are
 "appearance_emb", "semantic_mlp", "transient_emb", "transient_mlp", the
-three transient heads and "pred_normal_mlp". The port keeps every weight as
+three transient heads and "pred_normal_mlp". Vanilla NeRF's tree
+(``{"fields": {"coarse", "fine": {"base", "density_head", "rgb_head"}},
+"temporal_distortion"}``) maps the same way; a skip layer's weight is
+(width + in_dim, out) in both packages. The port keeps every weight as
 (in, out), the layout the kernels read, so no leaf is reshaped or transposed.
 """
 

@@ -4,9 +4,9 @@ host memory up front, and uniform random pixel batches from them (NumPy).
 A train batch is a dict of NumPy arrays: 'ray_indices' int32 (B, 3) (camera,
 row, col), 'image' f32 (B, 3) and, where the split has them, 'depth_image'
 (B, 1), 'mask' (B, 1) and 'semantics_label' int32 (B,). Rays are made from
-the indices on the device. Frames, masks and semantic maps are PNGs read with
-``utils.images``; depth is ``.npy`` in the dataset's units, scaled into the
-scene's.
+the indices on the device. Frames, masks and semantic maps are PNG or JPEG
+files, read by suffix with ``utils.images``; depth is ``.npy`` or a 16-bit
+PNG in the dataset's units, scaled into the scene's.
 """
 
 from __future__ import annotations
@@ -17,22 +17,30 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from nerf_kbs_tpu_torch.data.outputs import DataparserOutputs
-from nerf_kbs_tpu_torch.utils.images import read_png
+from nerf_kbs_tpu_torch.utils.images import decode_png, read_image
 
 
 def _load_image(path: str) -> np.ndarray:
-    return read_png(path, "RGB")
+    return read_image(path, "RGB")
 
 
 def _load_depth(path: str, scale: float) -> np.ndarray:
-    if not path.endswith(".npy"):
-        raise NotImplementedError(
-            f"depth file {path}: 16-bit PNG depth is not read, only .npy depth")
-    return np.load(path).astype(np.float32) * scale
+    """A depth map from .npy or from a one-channel (16-bit) PNG, times
+    ``scale``."""
+    if path.endswith(".npy"):
+        d = np.load(path)
+    elif path.lower().endswith(".png"):
+        with open(path, "rb") as f:
+            d = decode_png(f.read())
+        if d.ndim != 2:
+            raise ValueError(f"depth file {path}: a depth PNG has one channel, not {d.shape[2]}")
+    else:
+        raise ValueError(f"depth file {path}: depth is read from .npy and .png files")
+    return d.astype(np.float32) * scale
 
 
 def _load_mask(path: str) -> np.ndarray:
-    return (read_png(path, "L") > 0).astype(np.uint8)
+    return (read_image(path, "L") > 0).astype(np.uint8)
 
 
 @dataclasses.dataclass

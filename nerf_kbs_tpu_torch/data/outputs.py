@@ -1,6 +1,6 @@
 """DataparserOutputs: what a dataparser hands a datamanager. Host-side NumPy
-camera arrays, the scene box, per-frame asset paths and the semantic class
-table; the cameras are turned into torch Cameras on a device once."""
+camera arrays, the scene box, per-frame asset paths and times, and the
+semantic class table; the cameras are turned into torch Cameras on a device once."""
 
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ class DataparserOutputs:
     depth_filenames: Optional[list] = None
     depth_unit_scale_factor: float = 1.0
     semantics: Optional[Semantics] = None
+    times: Optional[np.ndarray] = None  # (N,) normalised capture times
     # the world transform and scale the parser applied to the poses
     dataparser_transform: np.ndarray = dataclasses.field(
         default_factory=lambda: np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)
@@ -57,4 +58,5 @@ class DataparserOutputs:
             c2w=f32(c["c2w"]),
             width=i32(c["width"]), height=i32(c["height"]),
             distortion=f32(c["distortion"]) if "distortion" in c else None,
+            times=None if self.times is None else f32(self.times),
         )

@@ -1,5 +1,6 @@
-"""A KITTI-layout dynamic street scene, ray traced in NumPy and written to
-disk (the JAX package's ``write_dynamic_dataset`` and what it calls).
+"""A street scene, ray traced in NumPy and written to disk in the KITTI and
+the Virtual KITTI 2 layouts (the JAX package's ``write_dynamic_dataset`` and
+``write_vkitti_dataset`` and what they call).
 
 The scene is a textured road with building facades, parked cars, sky and two
 moving cars. ``write_dynamic_dataset`` writes the layout the KITTI
@@ -13,8 +14,14 @@ dataparser reads:
     out_dir/mask/000000.png         static-pixel masks (255 static, 0 moving)
     out_dir/semantics_list.txt      Category,R,G,B
 
-PNGs are written with ``utils.images``. The forward-flow files of the JAX
-writer (flow_fwd/) are not written: the port has no flow loss to read them.
+``write_vkitti_dataset`` writes the static scene in the layout the vKITTI
+dataparser reads: intrinsic.txt and extrinsic.txt, frames/rgb/Camera_0/
+rgb_00000.jpg (quality 97) and frames/depth/Camera_0/depth_00000.png (16-bit
+centimetres).
+
+PNGs and JPEGs are written with ``utils.images`` and ``utils.jpeg``. The
+forward-flow files of the JAX writer (flow_fwd/) are not written: the port
+has no flow loss to read them.
 
 Geometry is axis-aligned in the KITTI cam0 convention: x right, y down, z
 forward; the ground is the plane y = CAM_HEIGHT.
@@ -27,7 +34,8 @@ from pathlib import Path
 
 import numpy as np
 
-from nerf_kbs_tpu_torch.utils.images import encode_png_u8
+from nerf_kbs_tpu_torch.utils.images import encode_png_u8, encode_png_u16
+from nerf_kbs_tpu_torch.utils.jpeg import encode_jpeg
 
 CAM_HEIGHT = 1.65  # metres above the ground
 
@@ -197,6 +205,19 @@ def _pixel_rays(pose: np.ndarray, h: int, w: int, fx: float, fy: float, cx: floa
     return o, d_world / norm, norm, xs.reshape(-1), ys.reshape(-1)
 
 
+def render_frame(pose: np.ndarray, boxes: list[Box], h: int, w: int, fx: float = FX,
+                 fy: float = FY, cx: float | None = None, cy: float | None = None):
+    """One frame of the static scene from a (3, 4) cam0 -> world pose: (rgb
+    (H, W, 3), z-depth (H, W) f32, semantic ids (H, W) int32)."""
+    cx = CX * w / 1242.0 if cx is None else cx
+    cy = CY * h / 375.0 if cy is None else cy
+    o, dirs, norm, _, _ = _pixel_rays(pose, h, w, fx, fy, cx, cy)
+    rgb, t_ray, sem = trace(o, dirs, boxes)
+    # the camera-space direction has z = 1: z-depth = ray distance / |d_cam|
+    return (rgb.reshape(h, w, 3), (t_ray / norm[:, 0]).reshape(h, w).astype(np.float32),
+            sem.reshape(h, w).astype(np.int32))
+
+
 @dataclasses.dataclass(frozen=True)
 class Mover:
     """A box moving at a constant velocity (metres a frame)."""
@@ -273,4 +294,35 @@ def write_dynamic_dataset(out_dir: str | Path, n_frames: int = 24, h: int = 188,
     rows = ["Category,R,G,B"] + [f"{c},{r},{g},{b}"
                                  for c, (r, g, b) in zip(SEMANTIC_CLASSES, SEMANTIC_COLORS)]
     (out / "semantics_list.txt").write_text("\n".join(rows) + "\n")
+    return out
+
+
+def write_vkitti_dataset(out_dir: str | Path, n_frames: int = 20, h: int = 188, w: int = 621,
+                         seed: int = 0, step: float = 0.8) -> Path:
+    """Write the static scene in the Virtual KITTI 2 layout (module
+    docstring). Returns out_dir."""
+    out = Path(out_dir)
+    rgb_dir = out / "frames" / "rgb" / "Camera_0"
+    depth_dir = out / "frames" / "depth" / "Camera_0"
+    rgb_dir.mkdir(parents=True, exist_ok=True)
+    depth_dir.mkdir(parents=True, exist_ok=True)
+
+    sx, sy = w / 1242.0, h / 375.0
+    fx, fy, cx, cy = FX * sx, FY * sy, CX * sx, CY * sy
+    boxes = make_scene(seed=seed, length=n_frames * step + 90.0)
+    intr_rows = ["frame cameraID K[0,0] K[1,1] K[0,2] K[1,2]"]
+    extr_rows = ["frame cameraID r1,1 r1,2 r1,3 t1 r2,1 r2,2 r2,3 t2 "
+                 "r3,1 r3,2 r3,3 t3 0 0 0 1"]
+    for i, pose in enumerate(make_poses(n_frames, step=step)):
+        rgb, depth, _ = render_frame(pose, boxes, h, w, fx, fy, cx, cy)
+        (rgb_dir / f"rgb_{i:05d}.jpg").write_bytes(
+            encode_jpeg((rgb * 255).astype(np.uint8), quality=97))
+        cm16 = np.clip(depth * 100.0, 0, 65535).astype(np.uint16)
+        (depth_dir / f"depth_{i:05d}.png").write_bytes(encode_png_u16(cm16))
+        intr_rows.append(f"{i} 0 {fx:.6f} {fy:.6f} {cx:.6f} {cy:.6f}")
+        P4 = np.eye(4)
+        P4[:3] = pose
+        extr_rows.append(f"{i} 0 " + " ".join(f"{v:.9e}" for v in np.linalg.inv(P4).reshape(-1)))
+    (out / "intrinsic.txt").write_text("\n".join(intr_rows) + "\n")
+    (out / "extrinsic.txt").write_text("\n".join(extr_rows) + "\n")
     return out

@@ -58,11 +58,10 @@ class MethodSpec:
 
 
 def _model_module(name: str):
-    from nerf_kbs_tpu_torch.models import nerfacto, semantic_nerfw
+    from nerf_kbs_tpu_torch.models import nerfacto, semantic_nerfw, vanilla_nerf
 
-    if name == "vanilla_nerf":
-        raise NotImplementedError("model 'vanilla_nerf' (the vanilla-nerf method) is not ported")
-    return {"nerfacto": nerfacto, "semantic_nerfw": semantic_nerfw}[name]
+    return {"nerfacto": nerfacto, "semantic_nerfw": semantic_nerfw,
+            "vanilla_nerf": vanilla_nerf}[name]
 
 
 method_registry: dict[str, Callable[[], MethodSpec]] = {}
@@ -173,9 +172,10 @@ def apply_overrides(spec: MethodSpec, overrides: dict[str, str]) -> MethodSpec:
 def build_trainer(spec: MethodSpec, device=None) -> Trainer:
     """The spec's model module and config, checked before any data is read;
     the datamanager (the dataparser's train and 'val' splits, or the sphere
-    scene without a dataparser); ``num_images`` and ``num_semantic_classes``
-    from the data (the semantic head switched off, with a warning, when the
-    data has no labels); the compute dtype from ``spec.model_config``."""
+    scene without a dataparser); where the model has them, ``num_images`` and
+    ``num_semantic_classes`` from the data (the semantic head switched off,
+    with a warning, when the data has no labels); the compute dtype from
+    ``spec.model_config``."""
     dev = resolve_device(device)
     module = _model_module(spec.model_name)
     module.check_supported(spec.model)
@@ -187,9 +187,11 @@ def build_trainer(spec: MethodSpec, device=None) -> Trainer:
     else:
         dm = InMemoryDataManager(spec.dataparser.parse("train"), spec.dataparser.parse("val"),
                                  spec.datamanager)
-    model_cfg = dataclasses.replace(spec.model_config(dev),
-                                    num_images=len(dm.train_outputs.cameras_np["fx"]))
-    if model_cfg.use_semantic:
+    model_cfg = spec.model_config(dev)
+    if hasattr(model_cfg, "num_images"):
+        model_cfg = dataclasses.replace(model_cfg,
+                                        num_images=len(dm.train_outputs.cameras_np["fx"]))
+    if getattr(model_cfg, "use_semantic", False):
         if getattr(dm, "semantics", None):
             model_cfg = dataclasses.replace(model_cfg,
                                             num_semantic_classes=len(dm.semantics.classes))

@@ -5,7 +5,10 @@ One optimizer and schedule per top-level parameter group ('fields',
 with:
 - the global-norm clip is per group and comes before the moments:
   g * max_norm / max(norm, max_norm);
-- Adam / RAdam add eps outside the root: m_hat / (sqrt(v_hat) + eps);
+- Adam / RAdam / AdamW add eps outside the root: m_hat / (sqrt(v_hat) +
+  eps); AdamW adds ``weight_decay`` times the parameter to that update
+  before the learning rate scales it (decoupled decay, also on a parameter
+  without a gradient); SGD steps by -lr * g, without momentum;
 - the learning rate is read at the 0-based count: exponential decay
   lr * (lr_final / lr) ** (count / max_steps) held at lr_final, after an
   optional linear warm-up;
@@ -33,9 +36,10 @@ _B1, _B2 = 0.9, 0.999
 class OptimizerConfig:
     """One group's optimizer and schedule."""
 
-    optimizer: str = "adam"  # adam | radam
+    optimizer: str = "adam"  # adam | radam | adamw | sgd
     lr: float = 1e-3
     eps: float = 1e-15
+    weight_decay: float = 0.0  # adamw only
     max_norm: float | None = None
     # exponential decay to lr_final over max_steps (None: constant)
     lr_final: float | None = None
@@ -104,9 +108,8 @@ class GroupOptimizer:
             raise ValueError(f"no optimizer configured for param groups {sorted(missing)}")
         self.configs = {g: group_configs[g] for g in params}
         for g, c in self.configs.items():
-            if c.optimizer not in ("adam", "radam"):
-                raise NotImplementedError(f"optimizer={c.optimizer!r} for group {g!r}: only "
-                                          "adam and radam are ported")
+            if c.optimizer not in ("adam", "radam", "adamw", "sgd"):
+                raise ValueError(f"unknown optimizer {c.optimizer!r} for group {g!r}")
         self.params = params
         self._schedules = {g: c.schedule() for g, c in self.configs.items()}
         self.state = {
@@ -128,6 +131,11 @@ class GroupOptimizer:
             st = self.state[g]
             leaves = tree_leaves(self.params[g])
             have = [i for i, p in enumerate(leaves) if p.grad is not None]
+            if cfg.optimizer == "adamw" and cfg.weight_decay:
+                # a zero gradient leaves the moments at zero; the decay still applies
+                lr = self._schedules[g](st["count"])
+                torch._foreach_mul_([p for p in leaves if p.grad is None],
+                                    1.0 - lr * cfg.weight_decay)
             if have:
                 ps = [leaves[i] for i in have]
                 grads = [leaves[i].grad for i in have]
@@ -144,6 +152,9 @@ class GroupOptimizer:
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             scale = cfg.max_norm / torch.clamp_min(norm, cfg.max_norm)
             grads = [g * scale for g in grads]
+        if cfg.optimizer == "sgd":
+            torch._foreach_add_(ps, grads, alpha=-lr)
+            return
         torch._foreach_mul_(mus, _B1)
         torch._foreach_add_(mus, grads, alpha=1.0 - _B1)
         torch._foreach_mul_(nus, _B2)
@@ -154,6 +165,13 @@ class GroupOptimizer:
         torch._foreach_add_(denom, cfg.eps)
         if cfg.optimizer == "adam":
             torch._foreach_addcdiv_(ps, mus, denom, value=-lr / c1)
+            return
+        if cfg.optimizer == "adamw":
+            upd = torch._foreach_div(mus, denom)
+            torch._foreach_mul_(upd, 1.0 / c1)
+            if cfg.weight_decay:
+                torch._foreach_add_(upd, ps, alpha=cfg.weight_decay)
+            torch._foreach_add_(ps, upd, alpha=-lr)
             return
         # RAdam: the adaptive step once the variance is tractable (rho >= 5),
         # the bias-corrected momentum before

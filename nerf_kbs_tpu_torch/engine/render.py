@@ -2,7 +2,7 @@
 
 ``Renderer.render_camera`` is the serving path: every pixel of one camera,
 in ``eval_num_rays_per_chunk`` chunks, through ray generation and the eval
-forward of nerfacto.
+forward of a model module (nerfacto unless given).
 """
 
 from __future__ import annotations
@@ -29,13 +29,15 @@ def _to_device(tree, dev):
 
 
 class Renderer:
-    """Holds a trained (or seeded) nerfacto: params, config, cameras, the
-    training ``step`` (the coarse-to-fine window renders as trained) and the
-    chunk size. Params and cameras are moved to ``device`` (CUDA unless
-    ``device="cpu"``)."""
+    """Holds a trained (or seeded) model: its module (``model``, nerfacto
+    unless given), params, config, cameras, the training ``step`` (the
+    coarse-to-fine window renders as trained) and the chunk size. Params and
+    cameras are moved to ``device`` (CUDA unless ``device="cpu"``)."""
 
     def __init__(self, params: dict, config: nerfacto.NerfactoConfig, cameras: Cameras,
-                 step: float = 0, eval_num_rays_per_chunk: int = 1 << 15, device=None):
+                 step: float = 0, eval_num_rays_per_chunk: int = 1 << 15, device=None,
+                 model=nerfacto):
+        self.model = model
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.config = config
@@ -46,8 +48,8 @@ class Renderer:
     @torch.no_grad()
     def render_camera(self, camera_idx: int, cameras: Cameras | None = None) -> dict:
         """Full image of one camera: {name: (H, W, C) float32 numpy} for rgb,
-        depth, expected_depth, accumulation, directions_norm and, with the
-        semantic head, semantics (logits). The last chunk is padded by
+        depth, accumulation and, where the model gives them, expected_depth,
+        directions_norm and semantics (logits). The last chunk is padded by
         repeating the last pixel index."""
         cameras = self.cameras if cameras is None else cameras.to(self.device)
         h = int(cameras.height[camera_idx])
@@ -65,7 +67,8 @@ class Renderer:
         outs: dict[str, list] = {}
         for i in range(0, idx.shape[0], chunk):
             rays = generate_rays(cameras, idx[i:i + chunk])
-            res = nerfacto.forward(self.params, self.config, rays, step=self.step, train=False)
+            res = self.model.forward(self.params, self.config, rays, step=self.step,
+                                     train=False)
             for k in _KEEP:
                 if k in res:
                     outs.setdefault(k, []).append(res[k])

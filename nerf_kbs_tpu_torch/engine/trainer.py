@@ -17,7 +17,11 @@ Checkpoints are ``torch.save`` files of parameters, optimizer state and step.
 ``eval_image`` scores one eval camera: PSNR, SSIM, the right half's PSNR,
 and where the ground truth has them the masked PSNR, the depth MSE after
 scale-and-shift alignment and the semantic accuracy. LPIPS is not computed:
-its VGG weights are not in the repository.
+its VGG weights are not in the repository. With
+``eval_fit_appearance_steps > 0`` and appearance embeddings in the model, it
+also runs the NeRF-W eval protocol (``fit_eval_appearance``): the image's
+embedding row is fitted on the image's left half, and the render with the
+fitted row scores 'fit_psnr' and, on the unseen right half, 'fit_psnr_right'.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ class TrainerConfig:
     log_every: int = 10
     load_dir: Optional[str] = None
     save_only_latest: bool = True
+    # the NeRF-W eval protocol: Adam steps (0: off) and their learning rate
+    # for the eval image's appearance row, fitted on the image's left half
+    eval_fit_appearance_steps: int = 0
+    eval_fit_appearance_lr: float = 1e-2
 
 
 def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
@@ -74,7 +82,8 @@ def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
 
 
 # eval_all_images averages these where an image has them
-_EVAL_KEYS = ("psnr", "ssim", "depth_mse", "semantic_accuracy", "masked_psnr", "psnr_right")
+_EVAL_KEYS = ("psnr", "ssim", "depth_mse", "semantic_accuracy", "masked_psnr", "psnr_right",
+              "fit_psnr", "fit_psnr_right")
 
 
 def mark_trainable(params, name: str = "") -> None:
@@ -179,11 +188,81 @@ class Trainer:
         return last_metrics
 
     # ----------------------------------------------------------------- eval
-    def _renderer(self) -> Renderer:
+    def _renderer(self, params: dict | None = None, model_config=None) -> Renderer:
         # shares the parameter tensors: it renders the current weights
-        return Renderer(self.params, self.model_config, self.eval_cameras, step=self.step,
+        return Renderer(self.params if params is None else params,
+                        self.model_config if model_config is None else model_config,
+                        self.eval_cameras, step=self.step,
                         eval_num_rays_per_chunk=self.config.eval_num_rays_per_chunk,
-                        device=self.device)
+                        device=self.device, model=self.model)
+
+    @staticmethod
+    def _appearance_paths(params) -> list[tuple]:
+        """Key paths of every per-image appearance table ('appearance_emb')
+        in the parameter tree."""
+        paths: list[tuple] = []
+
+        def walk(node, pre):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    if k == "appearance_emb":
+                        paths.append(pre + (k,))
+                    else:
+                        walk(v, pre + (k,))
+
+        walk(params, ())
+        return paths
+
+    def fit_eval_appearance(self, idx: int):
+        """The NeRF-W eval protocol for eval image ``idx``: starting from the
+        table's mean, Adam (``eval_fit_appearance_lr``) fits row ``idx`` of
+        every appearance table on the image's left half for
+        ``eval_fit_appearance_steps`` steps of 4,096 pixels drawn by
+        ``default_rng(step + idx)``, rendering with the per-camera row
+        (``use_average_appearance_embedding=False``); every other parameter is
+        a constant. Returns (params with the fitted tables, that model
+        config), or None when the protocol is off, the model has no tables,
+        or ``idx`` is past a table's rows."""
+        steps = self.config.eval_fit_appearance_steps
+        paths = self._appearance_paths(self.params) if steps > 0 else []
+        if not paths:
+            return None
+        params = tree_map(lambda t: t.detach(), self.params)
+        tables = []
+        for path in paths:
+            node = params
+            for k in path[:-1]:
+                node = node[k]
+            t = node[path[-1]]
+            if idx >= t.shape[0]:
+                return None  # no row of this image: the fit would change nothing
+            t = t.clone()
+            t[idx] = t.mean(dim=0)
+            node[path[-1]] = t.requires_grad_(True)
+            tables.append(t)
+        opt = build_optimizer(
+            {"appearance": OptimizerConfig(lr=self.config.eval_fit_appearance_lr, eps=1e-8)},
+            {"appearance": tables}, device=self.device)
+        mcfg = dataclasses.replace(self.model_config, use_average_appearance_embedding=False)
+
+        img = np.asarray(self.dm.eval_image(idx)["image"], np.float32)
+        h, w = img.shape[:2]
+        half = w // 2
+        yy, xx = np.mgrid[0:h, 0:half]
+        pix = np.stack([np.full(h * half, idx), yy.ravel(), xx.ravel()], -1).astype(np.int32)
+        tgt = img[:, :half].reshape(-1, 3)
+        rng = np.random.default_rng(self.step + idx)
+        with torch.enable_grad():
+            for _ in range(steps):
+                sel = rng.integers(0, pix.shape[0], 4096)
+                b = self._to_device({"ray_indices": pix[sel], "rgb": tgt[sel]})
+                rays = generate_rays(self.eval_cameras, b["ray_indices"])
+                out = self.model.forward(params, mcfg, rays, step=self.step, train=False)
+                loss = torch.mean((out["rgb"] - b["rgb"]) ** 2)
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+        return tree_map(lambda t: t.detach(), params), mcfg
 
     @torch.no_grad()
     def eval_batch(self, batch: dict) -> dict:
@@ -213,6 +292,11 @@ class Trainer:
             "psnr_right": float(M.psnr(pred[:, half:], gt_img[:, half:])),
             "image_idx": idx,
         }
+        fitted = self.fit_eval_appearance(idx)
+        if fitted is not None:
+            fit = torch.as_tensor(self._renderer(*fitted).render_camera(idx)["rgb"], device=dev)
+            metrics["fit_psnr"] = float(M.psnr(fit, gt_img))
+            metrics["fit_psnr_right"] = float(M.psnr(fit[:, half:], gt_img[:, half:]))
         if not self._lpips_warned:
             print("WARNING: LPIPS checkpoints not found (no VGG weights in the repository): "
                   "the 'lpips' eval metric will be omitted", flush=True)

@@ -1,54 +1,38 @@
 """Built-in methods: the JAX package's registry (``nerf_kbs_tpu/methods.py``)
-name for name, with its values.
-
-Six build and train: ``nerfacto-tpu`` and ``nerfacto-tpu-fast`` (the Fourier
-field on the fused kernels), and ``nerfacto``, ``nerfacto-big``,
-``synthetic-nerfacto`` and ``semantic-nerfw`` as registered (the hash field
-on the non-fused path; ``semantic-nerfw`` also with ``--model.field_type
-fourier``). The other two build their specs, and building their trainers
-raises NotImplementedError naming what is not ported: the ``vanilla-nerf``
-model, and the transforms.json dataparser of ``test-nerfacto``.
+name for name, with its values. All eight build and train:
+``nerfacto-tpu`` and ``nerfacto-tpu-fast`` (the Fourier field on the fused
+kernels); ``nerfacto``, ``nerfacto-big``, ``synthetic-nerfacto`` and
+``semantic-nerfw`` as registered (the hash field on the non-fused path;
+``semantic-nerfw`` also with ``--model.field_type fourier``, and with
+``--model.use_transient_embedding true`` the NeRF-W transient path);
+``test-nerfacto`` (the hash nerfacto over a transforms.json scene); and
+``vanilla-nerf`` (coarse and fine MLPs with the temporal distortion, over a
+Virtual KITTI 2 scene).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 from nerf_kbs_tpu_torch.data.datamanager import DataManagerConfig
 from nerf_kbs_tpu_torch.data.dataparsers.kitti import KittiDataParserConfig
+from nerf_kbs_tpu_torch.data.dataparsers.transforms_json import TransformsJsonConfig
+from nerf_kbs_tpu_torch.data.dataparsers.vkitti import VKittiDataParserConfig
 from nerf_kbs_tpu_torch.engine.cli import MethodSpec, register_method
 from nerf_kbs_tpu_torch.engine.optimizers import OptimizerConfig
 from nerf_kbs_tpu_torch.engine.trainer import TrainerConfig
 from nerf_kbs_tpu_torch.models.nerfacto import NerfactoConfig
 from nerf_kbs_tpu_torch.models.semantic_nerfw import SemanticNerfWConfig
-
-
-@dataclasses.dataclass
-class TransformsJsonConfig:
-    """The JAX package's transforms.json dataparser settings. The parser is
-    not ported: ``parse`` raises."""
-
-    data: str = "data/scene"
-    scale_factor: float = 1.0
-    downscale_factor: Optional[int] = None
-    max_dim: int = 1600
-    orientation_method: str = "up"
-    center_method: str = "poses"
-    auto_scale_poses: bool = True
-    train_split_fraction: float = 0.9
-    depth_unit_scale_factor: float = 1e-3
-
-    def parse(self, split: str = "train"):
-        raise NotImplementedError("the transforms.json dataparser (test-nerfacto) is not ported")
+from nerf_kbs_tpu_torch.models.vanilla_nerf import VanillaNerfConfig
 
 
 def vanilla_nerf_method() -> MethodSpec:
-    """The spec's trainer and optimizers; its model and vKITTI dataparser are
-    not ported (building its trainer raises)."""
+    """Vanilla NeRF with the temporal distortion over vKITTI 2: RAdam at 5e-4
+    (fields) and 1e-3 (temporal distortion), each group's gradient clipped
+    to a global norm of 1."""
     return MethodSpec(
         model_name="vanilla_nerf",
-        model=None,
+        model=VanillaNerfConfig(enable_temporal_distortion=True),
         trainer=TrainerConfig(method_name="vanilla-nerf", max_num_iterations=30000,
                               mixed_precision=False, eval_num_rays_per_chunk=1 << 14),
         optimizers={
@@ -56,8 +40,9 @@ def vanilla_nerf_method() -> MethodSpec:
             "temporal_distortion": OptimizerConfig(optimizer="radam", lr=1e-3, eps=1e-8,
                                                    max_norm=1.0),
         },
+        dataparser=VKittiDataParserConfig(),
         datamanager=DataManagerConfig(train_num_rays_per_batch=4096),
-        description="classic NeRF w/ temporal distortion over vKITTI (not ported)",
+        description="classic NeRF w/ temporal distortion over vKITTI",
     )
 
 
@@ -112,7 +97,7 @@ def test_nerfacto_method() -> MethodSpec:
                                        max_num_iterations=20000, steps_per_eval_image=5000,
                                        steps_per_eval_batch=5000, mixed_precision=True)
     spec.dataparser = TransformsJsonConfig(train_split_fraction=0.75)
-    spec.description = "nerfacto over transforms.json scenes (parser not ported)"
+    spec.description = "nerfacto over transforms.json scenes"
     return spec
 
 

@@ -236,6 +236,29 @@ def uses_fused_path(cfg: NerfactoConfig, compute_normals: bool | None = None) ->
             and not cfg.disable_scene_contraction)
 
 
+def windows(cfg: NerfactoConfig, step: float, device):
+    """The coarse-to-fine windows of the field and of each proposal field at
+    ``step`` (fully open when ``fourier_anneal_steps <= 0``); None for the
+    other encodings."""
+    if cfg.field_type != "fourier":
+        return None, [None] * cfg.num_proposal_iterations
+    if cfg.fourier_anneal_steps > 0:
+        progress = min(max(float(step) / cfg.fourier_anneal_steps, 0.0), 1.0)
+    else:
+        progress = 1.0
+    return (fourier_window(cfg.field.fourier, progress, device),
+            [fourier_window(cfg.proposal_field(i).fourier, progress, device)
+             for i in range(cfg.num_proposal_iterations)])
+
+
+def proposal_anneal(cfg: NerfactoConfig, step: float, train: bool) -> float:
+    """The proposal weights' exponent at ``step`` (1 at eval)."""
+    if cfg.use_proposal_weight_anneal and train:
+        return anneal_schedule(step, cfg.proposal_weights_anneal_max_num_iters,
+                               cfg.proposal_weights_anneal_slope)
+    return 1.0
+
+
 def forward(
     params: dict,
     cfg: NerfactoConfig,
@@ -262,22 +285,9 @@ def forward(
     compute_normals = cfg.predict_normals if compute_normals is None else compute_normals
     use_fused = uses_fused_path(cfg, compute_normals)
 
-    # the coarse-to-fine window from step (anneal_steps <= 0: fully open),
-    # for the Fourier field only
-    if cfg.fourier_anneal_steps > 0:
-        progress = min(max(float(step) / cfg.fourier_anneal_steps, 0.0), 1.0)
-    else:
-        progress = 1.0
-    fourier = cfg.field_type == "fourier"
-    field_window = fourier_window(cfg.field.fourier, progress, dev) if fourier else None
+    field_window, prop_windows = windows(cfg, step, dev)
     prop_cfgs = [cfg.proposal_field(i) for i in range(cfg.num_proposal_iterations)]
-    prop_windows = [fourier_window(c.fourier, progress, dev) if fourier else None
-                    for c in prop_cfgs]
-    if cfg.use_proposal_weight_anneal and train:
-        anneal = anneal_schedule(step, cfg.proposal_weights_anneal_max_num_iters,
-                                 cfg.proposal_weights_anneal_slope)
-    else:
-        anneal = 1.0
+    anneal = proposal_anneal(cfg, step, train)
     props = params["proposal_networks"]
     if use_fused:
         # positions are constants when sampling is detached (there is no

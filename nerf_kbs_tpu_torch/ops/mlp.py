@@ -4,9 +4,9 @@ Parameters are plain dicts ``{"w": [W_0, ...], "b": [b_0, ...]}`` with
 ``W_i`` of shape (in, out), the JAX package's layout, which is also the
 layout the fused kernels read.
 
-``mlp_apply_t`` and ``mlp_apply`` are the heads that run outside the fused
-kernels (the rgb and semantic heads of the split field), with the JAX
-package's rounding points: the input and every hidden activation are cast to
+``mlp_apply_t`` and ``mlp_apply`` are the MLPs that run outside the fused
+kernels (the split field's heads, the non-fused fields, vanilla NeRF), with
+the JAX package's rounding points: the input and every hidden activation are cast to
 the compute dtype, the weights too, products accumulate in f32 and the bias
 is added in f32. A product of two bf16 values is exact in f32, so an f32
 matrix product of rounded operands is that computation.
@@ -27,6 +27,8 @@ class MLPConfig:
     out_dim: int
     compute_dtype: str = "float32"
     out_activation: str | None = None  # None or 'sigmoid'
+    # layers whose input is [h, x]: the MLP's input concatenated again
+    skip_connections: tuple = ()
 
     @property
     def dims(self) -> tuple:
@@ -38,13 +40,15 @@ class MLPConfig:
 
 
 def mlp_init(config: MLPConfig, generator: torch.Generator, device) -> dict:
-    """He-uniform weights, zero biases; layer ``i`` maps dims[i] -> dims[i+1].
-    Drawn on the CPU from ``generator`` and moved to ``device``."""
+    """He-uniform weights, zero biases; layer ``i`` maps dims[i] -> dims[i+1],
+    a skip layer dims[i] + in_dim -> dims[i+1]. Drawn on the CPU from
+    ``generator`` and moved to ``device``."""
     dims = config.dims
     params = {"w": [], "b": []}
     for i in range(len(dims) - 1):
-        bound = (6.0 / dims[i]) ** 0.5
-        w = torch.empty(dims[i], dims[i + 1]).uniform_(-bound, bound, generator=generator)
+        fan_in = dims[i] + (config.in_dim if i in config.skip_connections else 0)
+        bound = (6.0 / fan_in) ** 0.5
+        w = torch.empty(fan_in, dims[i + 1]).uniform_(-bound, bound, generator=generator)
         params["w"].append(w.to(device))
         params["b"].append(torch.zeros(dims[i + 1], device=device))
     return params
@@ -65,9 +69,12 @@ def _out_act(h: torch.Tensor, config: MLPConfig) -> torch.Tensor:
 
 def mlp_apply_t(params: dict, x_t: torch.Tensor, config: MLPConfig) -> torch.Tensor:
     """Feature-major relu MLP: x_t (in_dim, N) -> (out_dim, N) f32."""
-    h = _cast(x_t, config.compute_dtype)
+    x_t = _cast(x_t, config.compute_dtype)
+    h = x_t
     n = len(params["w"])
     for i in range(n):
+        if i in config.skip_connections:
+            h = torch.cat([h, x_t], dim=0)
         h = _cast(params["w"][i], config.compute_dtype).T @ h + params["b"][i][:, None]
         if i < n - 1:
             h = _cast(torch.relu(h), config.compute_dtype)
@@ -76,9 +83,12 @@ def mlp_apply_t(params: dict, x_t: torch.Tensor, config: MLPConfig) -> torch.Ten
 
 def mlp_apply(params: dict, x: torch.Tensor, config: MLPConfig) -> torch.Tensor:
     """Point-major relu MLP: x (..., in_dim) -> (..., out_dim) f32."""
-    h = _cast(x, config.compute_dtype)
+    x = _cast(x, config.compute_dtype)
+    h = x
     n = len(params["w"])
     for i in range(n):
+        if i in config.skip_connections:
+            h = torch.cat([h, x], dim=-1)
         h = h @ _cast(params["w"][i], config.compute_dtype) + params["b"][i]
         if i < n - 1:
             h = _cast(torch.relu(h), config.compute_dtype)

@@ -1,6 +1,7 @@
 """Volume rendering: compositing weights, the renderer heads (rgb with its
 background models, accumulation, depths, semantics, normals, uncertainty) and
-the near/far collider. Sample tensors are (R, S), per-sample values (R, S, C)."""
+the colliders (near/far planes, the ray-box intersection). Sample tensors are
+(R, S), per-sample values (R, S, C)."""
 
 from __future__ import annotations
 
@@ -92,4 +93,24 @@ def near_far_collider(rays, near: float, far: float):
         rays,
         nears=torch.full(shape, near, dtype=torch.float32, device=dev),
         fars=torch.full(shape, far, dtype=torch.float32, device=dev),
+    )
+
+
+def aabb_box_collider(rays, aabb: torch.Tensor, near_plane: float = 0.0):
+    """Near and far from each ray's intersection with the box ``aabb`` (2, 3):
+    a direction component under 1e-10 in magnitude counts as +1e-10, the
+    near side is at least ``near_plane``, and a ray that misses gets near =
+    ``near_plane`` and far = ``near_plane + 1e-4``."""
+    d = rays.directions
+    inv_d = 1.0 / torch.where(d.abs() < 1e-10, torch.full_like(d, 1e-10), d)
+    t0 = (aabb[0] - rays.origins) * inv_d
+    t1 = (aabb[1] - rays.origins) * inv_d
+    tmin = torch.amax(torch.minimum(t0, t1), dim=-1, keepdim=True)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=-1, keepdim=True)
+    tmin = torch.clamp_min(tmin, near_plane)
+    hit = tmax > tmin
+    return dataclasses.replace(
+        rays,
+        nears=torch.where(hit, tmin, torch.full_like(tmin, near_plane)),
+        fars=torch.where(hit, tmax, torch.full_like(tmax, near_plane + 1e-4)),
     )

@@ -127,6 +127,7 @@ def pdf_sampler(
     single_jitter: bool = True,
     rand=None,
     stop_grad: bool = False,
+    include_original: bool = False,
 ) -> RaySamples:
     """Inverse-CDF resampling of ``num_samples`` intervals from per-bin
     ``weights`` (R, S_old), in the spacing domain: at evenly spaced quantiles
@@ -134,7 +135,8 @@ def pdf_sampler(
     ((R, 1) under ``single_jitter``, else (R, num_samples + 1)), scaled to one
     bin. ``stop_grad`` detaches weights and samples first: the proposal nets
     then learn only through the interlevel loss and every later position is
-    a constant."""
+    a constant. ``include_original`` merges the old bin edges into the new
+    ones, sorted (vanilla NeRF's fine samples: coarse + importance)."""
     if stop_grad:
         weights = weights.detach()
         ray_samples = RaySamples(**{f.name: getattr(ray_samples, f.name).detach()
@@ -165,6 +167,8 @@ def pdf_sampler(
     new_edges = edge_lo + frac * (edge_hi - edge_lo)
     # monotone up to float rounding; the running max removes the wiggle
     new_edges = torch.cummax(new_edges, dim=1).values
+    if include_original:
+        new_edges = torch.sort(torch.cat([edges, new_edges], dim=-1), dim=-1).values
     return _samples(rays, new_edges, spacing)
 
 

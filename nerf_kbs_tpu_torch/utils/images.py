@@ -1,12 +1,15 @@
-"""Image helpers: 8-bit conversion, the turbo depth colormap, and a PNG
-encoder and decoder built on ``zlib`` and NumPy (no imaging package is
-needed).
+"""Image helpers: 8-bit conversion, the turbo depth colormap, a PNG encoder
+and decoder built on ``zlib`` and NumPy, and the readers a dataset needs
+(``read_image`` by suffix, ``image_size`` from the header); JPEG is
+``utils.jpeg``. No imaging package is needed.
 
-The decoder reads the 8-bit PNGs a dataset holds: grey, grey + alpha, RGB,
-RGBA and palette images, non-interlaced, with any of the five row filters.
-``convert`` gives the 'RGB' and 'L' views a loader asks for, with PIL's
-integer luma for 'L', so ``convert(decode_png(b), "L") > 0`` is what
-``np.asarray(Image.open(f).convert("L")) > 0`` gives."""
+The PNG decoder reads what a dataset holds: grey, grey + alpha, RGB, RGBA
+and palette images, non-interlaced, with any of the five row filters, at 8
+bits a sample (1, 2 and 4 for grey and palette) and at 16 (uint16, as depth
+maps in centimetres are stored). ``convert`` gives the 'RGB' and 'L' views a
+loader asks for, with PIL's integer luma for 'L', so
+``convert(decode_png(b), "L") > 0`` is what ``np.asarray(Image.open(f)
+.convert("L")) > 0`` gives."""
 
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from nerf_kbs_tpu_torch.utils import jpeg
 
 # polynomial approximation of the turbo colormap (Google AI blog, 2019)
 _TURBO_R = np.array([0.13572138, 4.61539260, -42.66032258, 132.13108234,
@@ -59,23 +64,36 @@ _COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4, 3: 1}
 
 
-def encode_png_u8(pixels: np.ndarray, level: int = 6) -> bytes:
-    """(H, W) or (H, W, C) uint8, C in 1..4 -> PNG bytes. Every row uses the
-    Sub filter (the byte minus the byte one pixel to its left), which
-    compresses photographs and flat label maps well and decodes with one
-    cumulative sum."""
-    px = np.ascontiguousarray(pixels, dtype=np.uint8)
-    if px.ndim == 2:
-        px = px[:, :, None]
+def _encode(px: np.ndarray, depth: int, level: int) -> bytes:
+    """(H, W, C) samples as big-endian bytes (H, W, C * depth / 8) -> PNG.
+    Every row uses the Sub filter (each byte minus the same byte of the pixel
+    to its left), which compresses photographs, depth maps and flat label
+    maps well and decodes with one cumulative sum."""
     h, w, c = px.shape
     if c not in _COLOR_TYPE:
         raise ValueError(f"{c} channels: a PNG holds 1 to 4")
-    sub = px.copy()
-    sub[:, 1:] -= px[:, :-1]  # uint8 arithmetic wraps, as the filter does
-    raw = np.concatenate([np.ones((h, 1), np.uint8), sub.reshape(h, w * c)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
+    b = px.astype(">u2").view(np.uint8).reshape(h, w, 2 * c) if depth == 16 else px
+    sub = b.copy()
+    sub[:, 1:] -= b[:, :-1]  # uint8 arithmetic wraps, as the filter does
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub.reshape(h, -1)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPE[c], 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + _chunk(b"IEND", b""))
+
+
+def encode_png_u8(pixels: np.ndarray, level: int = 6) -> bytes:
+    """(H, W) or (H, W, C) uint8, C in 1..4 -> 8-bit PNG bytes."""
+    px = np.ascontiguousarray(pixels, dtype=np.uint8)
+    return _encode(px[:, :, None] if px.ndim == 2 else px, 8, level)
+
+
+def encode_png_u16(pixels: np.ndarray, level: int = 6) -> bytes:
+    """(H, W) or (H, W, C) uint16, C in 1..4 -> 16-bit PNG bytes (a depth map
+    in centimetres: one channel)."""
+    px = np.asarray(pixels)
+    if px.dtype != np.uint16:
+        raise ValueError(f"a 16-bit PNG takes uint16 samples, not {px.dtype}")
+    return _encode(px[:, :, None] if px.ndim == 2 else px, 16, level)
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -99,11 +117,18 @@ def _unfilter_loop(kind: int, line: bytearray, prior: bytes, bpp: int) -> None:
             line[i] = (line[i] + pred) & 0xFF
 
 
+def png_size(data: bytes) -> tuple[int, int]:
+    """(width, height) from the IHDR chunk."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise ValueError("not a PNG file")
+    return struct.unpack(">II", data[16:24])
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 pixels: (H, W) grey, (H, W, 2) grey + alpha, (H, W,
-    3) RGB or (H, W, 4) RGBA; a palette image comes back as (H, W, 3) RGB
-    from its palette. Raises ValueError on interlaced and 16-bit files and on
-    a bad chunk CRC."""
+    """PNG bytes -> pixels: (H, W) grey, (H, W, 2) grey + alpha, (H, W, 3)
+    RGB or (H, W, 4) RGBA, uint8, or uint16 for a 16-bit file; a palette
+    image comes back as (H, W, 3) RGB from its palette. Raises ValueError on
+    interlaced files and on a bad chunk CRC."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError("not a PNG file")
     pos, idat, palette, ihdr = 8, [], None, None
@@ -130,12 +155,14 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("interlaced PNG: not read")
     if color not in _CHANNELS:
         raise ValueError(f"PNG colour type {color}")
-    # 1, 2 and 4 bits a sample only for grey and palette images, as the
-    # format allows; 16-bit files are not read
-    if depth != 8 and not (depth in (1, 2, 4) and color in (0, 3)):
-        raise ValueError(f"PNG bit depth {depth} (colour type {color}): not read")
-    bpp = _CHANNELS[color]
-    stride = w * bpp if depth == 8 else (w * depth + 7) // 8
+    # 1, 2 and 4 bits a sample only for grey and palette images, 16 for all
+    # but palette, as the format allows
+    if not (depth == 8 or (depth in (1, 2, 4) and color in (0, 3))
+            or (depth == 16 and color != 3)):
+        raise ValueError(f"PNG bit depth {depth} (colour type {color}): not a valid PNG")
+    channels = _CHANNELS[color]
+    bpp = channels * 2 if depth == 16 else channels  # bytes a pixel for the filters
+    stride = w * bpp if depth >= 8 else (w * depth + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError(f"PNG data of {raw.size} bytes for {h} rows of {stride + 1}")
@@ -157,6 +184,9 @@ def decode_png(data: bytes) -> np.ndarray:
         else:
             raise ValueError(f"PNG row filter {kind}")
         prior = out[r]
+    if depth == 16:
+        out = out.view(">u2").astype(np.uint16)
+        return out.reshape(h, w) if channels == 1 else out.reshape(h, w, channels)
     if depth < 8:
         # samples packed from the high bits down; grey scales to 0..255
         bits = np.unpackbits(out, axis=1).reshape(h, -1, depth)
@@ -174,6 +204,8 @@ def convert(pixels: np.ndarray, mode: str) -> np.ndarray:
     """PIL's ``convert`` of decoded 8-bit pixels: 'RGB' (H, W, 3), grey
     repeated and alpha dropped; 'L' (H, W), the grey channel or the integer
     luma (19595 R + 38470 G + 7471 B + 0x8000) >> 16."""
+    if pixels.dtype != np.uint8:
+        raise ValueError(f"{pixels.dtype} pixels: 'RGB' and 'L' views are of 8-bit images")
     px = pixels[:, :, None] if pixels.ndim == 2 else pixels
     c = px.shape[2]
     if mode == "RGB":
@@ -187,7 +219,24 @@ def convert(pixels: np.ndarray, mode: str) -> np.ndarray:
     raise ValueError(f"unknown mode {mode!r}: 'RGB' or 'L'")
 
 
-def read_png(path, mode: str) -> np.ndarray:
-    """``convert(decode_png(file bytes), mode)``."""
+def _suffix(path) -> str:
+    suffix = str(path).rsplit(".", 1)[-1].lower() if "." in str(path) else ""
+    if suffix not in ("png", "jpg", "jpeg"):
+        raise ValueError(f"{path}: images are read from .png, .jpg and .jpeg files")
+    return suffix
+
+
+def read_image(path, mode: str) -> np.ndarray:
+    """The 'RGB' or 'L' view of a PNG or JPEG file (by suffix), as PIL's
+    ``Image.open(path).convert(mode)`` gives it."""
     with open(path, "rb") as f:
-        return convert(decode_png(f.read()), mode)
+        data = f.read()
+    pixels = decode_png(data) if _suffix(path) == "png" else jpeg.decode_jpeg(data)
+    return convert(pixels, mode)
+
+
+def image_size(path) -> tuple[int, int]:
+    """(width, height) of a PNG or JPEG file, from its header."""
+    with open(path, "rb") as f:
+        data = f.read() if _suffix(path) != "png" else f.read(24)
+    return png_size(data) if _suffix(path) == "png" else jpeg.image_size(data)

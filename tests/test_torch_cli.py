@@ -1,8 +1,9 @@
 """Port vs JAX package, the method registry and the CLI on the CPU: the specs
-and their override paths, trainers built from a KITTI-layout scene on disk
-(three steps of each package's trainer on the same batches and jitter), and
-the run modes of ``nerf_kbs_tpu_torch.engine.cli.main``. JAX runs its fused
-Pallas path in interpret mode (NKT_FUSED=1)."""
+and their override paths, trainers built from scenes on disk in the KITTI,
+Virtual KITTI 2 and transforms.json layouts (three steps of each package's
+trainer on the same batches and jitter), and the run modes of
+``nerf_kbs_tpu_torch.engine.cli.main``. JAX runs its fused Pallas path in
+interpret mode (NKT_FUSED=1)."""
 
 import dataclasses
 import json
@@ -24,6 +25,7 @@ from nerf_kbs_tpu.native import lib as jnative
 from nerf_kbs_tpu.parallel.mesh import make_mesh, shard_batch
 from nerf_kbs_tpu_torch import methods as tmethods
 from nerf_kbs_tpu_torch.convert import params_from_jax
+from nerf_kbs_tpu_torch.data import synthetic_kitti as tsk
 from nerf_kbs_tpu_torch.engine import cli as tcli
 from nerf_kbs_tpu_torch.engine.optimizers import tree_copy_
 from nerf_kbs_tpu_torch.models import nerfacto as tnerf
@@ -50,10 +52,43 @@ TINY = ["--model.hidden_dim", "16", "--model.fourier_num_levels", "2",
         "--trainer.log_every", "1"]
 
 
+# tiny vanilla-nerf widths for the CPU, on the vKITTI-layout scene (6 train
+# frames, 2 eval)
+TINY_VANILLA = ["--model.mlp_layer_width", "32", "--model.mlp_num_layers", "4",
+                "--model.skip_connections", "2", "--model.num_coarse_samples", "8",
+                "--model.num_importance_samples", "8", "--model.temporal_distortion_width", "16",
+                "--model.pos_frequencies", "4", "--model.dir_frequencies", "2",
+                "--datamanager.train_num_rays_per_batch", "64", "--datamanager.num_workers", "2",
+                "--trainer.eval_num_rays_per_chunk", "4096", "--trainer.log_every", "1",
+                "--dataparser.train_split_fraction", "0.75"]
+
+
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
-    return jsk.write_dynamic_dataset(tmp_path_factory.mktemp("cli") / "scene", n_frames=8, h=H,
+    """The dynamic street scene in the KITTI layout, and beside it a
+    transforms.json of the same frames (OpenGL camera-to-world, the scene's
+    intrinsics, depth .npy)."""
+    root = jsk.write_dynamic_dataset(tmp_path_factory.mktemp("cli") / "scene", n_frames=8, h=H,
                                      w=W)
+    p2 = [ln for ln in (root / "calib.txt").read_text().splitlines() if ln.startswith("P2:")]
+    P = np.array(p2[0].split()[1:], np.float64).reshape(3, 4)
+    frames = []
+    for i, row in enumerate(np.loadtxt(root / "00.txt").reshape(-1, 3, 4)):
+        c2w = np.eye(4)
+        c2w[:3] = row
+        c2w[:3, 1:3] *= -1.0  # OpenCV camera axes -> OpenGL
+        frames.append({"file_path": f"00/{i:06}.png", "transform_matrix": c2w.tolist(),
+                       "depth_file_path": f"depth/{i:06}.npy"})
+    (root / "transforms.json").write_text(json.dumps(
+        {"fl_x": P[0, 0], "fl_y": P[1, 1], "cx": P[0, 2], "cy": P[1, 2], "w": W, "h": H,
+         "frames": frames}))
+    return root
+
+
+@pytest.fixture(scope="module")
+def vkitti_scene(tmp_path_factory):
+    return tsk.write_vkitti_dataset(tmp_path_factory.mktemp("cli") / "vkitti", n_frames=8, h=H,
+                                    w=W)
 
 
 def _window(scene, out):
@@ -84,18 +119,15 @@ def test_registry_matches_jax():
 @pytest.mark.parametrize("name", sorted(jcli.method_registry))
 def test_method_specs_match_jax(name):
     """Every leaf of the port's spec has the JAX spec's path and value (the
-    description says what is ported); the model and dataparser leaves are
-    the same sets (the vanilla-nerf model and its vKITTI parser are not
-    ported)."""
+    description aside); the model and dataparser leaves are the same sets."""
     jl = _leaves(jcli.method_registry[name](), jcli)
     tl = _leaves(tcli.method_registry[name](), tcli)
     for path, v in tl.items():
-        if path == "description" or (name == "vanilla-nerf" and path in ("model", "dataparser")):
+        if path == "description":
             continue
         assert path in jl and jl[path] == v, (path, v, jl.get(path))
-    if name != "vanilla-nerf":
-        for head in ("model.", "dataparser."):
-            assert {p for p in jl if p.startswith(head)} == {p for p in tl if p.startswith(head)}
+    for head in ("model.", "dataparser."):
+        assert {p for p in jl if p.startswith(head)} == {p for p in tl if p.startswith(head)}
 
 
 @pytest.mark.parametrize("method,argv", [
@@ -124,26 +156,38 @@ def test_apply_overrides_match_jax(method, argv):
     ("vanilla-nerf", [], "vanilla_nerf"),
     ("test-nerfacto", ["--model.field_type", "fourier"], "transforms.json"),
 ])
-def test_unported_methods_raise_by_name(scene, tmp_path, method, argv, name):
-    """The hash-field methods (the cases named 'field_type') build as
-    registered, at tiny widths, and take a finite step on the CPU; the other
-    two still raise by name."""
+def test_unported_methods_raise_by_name(scene, vkitti_scene, tmp_path, method, argv, name):
+    """Every method that once raised builds as registered, at tiny widths, and
+    takes a finite step on the CPU: the hash-field methods (the cases named
+    'field_type'), vanilla-nerf on a vKITTI-layout scene (JPEG frames, the
+    temporal distortion reading the frames' times), and test-nerfacto on a
+    transforms.json scene (here with the Fourier field, the fused path)."""
     if name == "field_type":
         extra = TINY + TINY_HASH + ["--trainer.output_dir", str(tmp_path)]
         if method != "synthetic-nerfacto":
             extra += _window(scene, tmp_path)
         if method == "semantic-nerfw":
             extra += _supervision(scene)
-        spec = tcli.apply_overrides(tcli.method_registry[method](), _overrides(extra))
-        trainer = tcli.build_trainer(spec, device="cpu")
+    elif name == "vanilla_nerf":
+        extra = TINY_VANILLA + ["--dataparser.data_dir", str(vkitti_scene),
+                                "--trainer.output_dir", str(tmp_path)]
+    else:
+        extra = argv + TINY + ["--dataparser.data", str(scene), "--dataparser.train_split_fraction",
+                               "0.75", "--trainer.output_dir", str(tmp_path)]
+    spec = tcli.apply_overrides(tcli.method_registry[method](), _overrides(extra))
+    trainer = tcli.build_trainer(spec, device="cpu")
+    m = trainer.train_step(trainer._to_device(trainer.dm.next_train(0)))
+    assert np.isfinite(float(m["total_loss"]))
+    if name == "field_type":
         assert trainer.model_config.field_type == "hash"
         assert trainer.params["fields"]["hash_table"].shape == (2 * 4 * 1024,)
-        m = trainer.train_step(trainer._to_device(trainer.dm.next_train(0)))
-        assert np.isfinite(float(m["total_loss"]))
-        return
-    spec = tcli.apply_overrides(tcli.method_registry[method](), _overrides(argv))
-    with pytest.raises(NotImplementedError, match=name):
-        tcli.build_trainer(spec, device="cpu")
+    elif name == "vanilla_nerf":
+        assert trainer.model_config.enable_temporal_distortion
+        assert trainer.train_cameras.times is not None
+        assert float(trainer.params["temporal_distortion"]["w"][-1].detach().abs().max()) > 0
+    else:
+        assert trainer.model_config.field_type == "fourier"
+        assert trainer.dm.train_outputs.image_filenames[0].endswith("00/000000.png")
 
 
 def _jitters(key, rounds, n_rays):
@@ -171,7 +215,8 @@ def _steps_track_jax(method, argv, monkeypatch, prepare=None, both=False):
         prepare(start)
         jt.params = jax.device_put(start, jax.tree.map(lambda a: a.sharding, jt.params))
     tree_copy_(tt.params, start)
-    rounds = jt.model_config.num_proposal_iterations
+    # nerfacto's proposal rounds + 1 draws; vanilla NeRF's coarse and fine draws
+    rounds = getattr(jt.model_config, "num_proposal_iterations", 1)
     n_rays = int(ov["datamanager.train_num_rays_per_batch"])
     for step in range(3):
         jb, tb = jt.dm.next_train(step), tt.dm.next_train(step)
@@ -228,6 +273,28 @@ def test_build_trainer_non_fused_steps_track_jax(scene, tmp_path, monkeypatch, m
         assert cfg.predict_normals and "pred_normal_mlp" in tt.params["fields"]
     else:
         assert cfg.field_type == "hash" and "hash_table" in tt.params["fields"]
+
+
+@pytest.mark.parametrize("method", ["vanilla-nerf", "test-nerfacto"])
+def test_build_trainer_new_methods_track_jax(scene, vkitti_scene, tmp_path, monkeypatch, method):
+    """Three steps against JAX of the last two registry names as registered:
+    vanilla-nerf (temporal distortion, aabb collider, RAdam with the clip)
+    on a vKITTI-layout scene, whose JPEG frames both datamanagers decode to
+    the same batches; and test-nerfacto (hash nerfacto) on a transforms.json
+    scene."""
+    if method == "vanilla-nerf":
+        argv = TINY_VANILLA + ["--dataparser.data_dir", str(vkitti_scene),
+                               "--trainer.output_dir", str(tmp_path)]
+    else:
+        argv = TINY + TINY_HASH + ["--dataparser.data", str(scene),
+                                   "--dataparser.train_split_fraction", "0.75",
+                                   "--trainer.output_dir", str(tmp_path)]
+    tt = _steps_track_jax(method, argv, monkeypatch)
+    if method == "vanilla-nerf":
+        assert set(tt.params) == {"fields", "temporal_distortion"}
+        assert tt.model_config.skip_connections == (2,)
+    else:
+        assert tt.model_config.num_images == 6 and "hash_table" in tt.params["fields"]
 
 
 def test_eval_matches_jax_after_three_steps(scene, tmp_path, monkeypatch):

@@ -114,9 +114,19 @@ def test_encoder_round_trips_through_pil():
 
 
 def test_decode_png_refuses_16_bit_and_interlaced():
-    sixteen = _pil_png(np.arange(20, dtype=np.uint16).reshape(4, 5) * 3000)
+    """A 16-bit grey PNG is read (as uint16, what PIL gives), a 16-bit
+    palette header is refused as invalid; interlaced files and damaged chunks
+    raise."""
+    d16 = np.arange(20, dtype=np.uint16).reshape(4, 5) * 3000
+    sixteen = _pil_png(d16)
+    np.testing.assert_array_equal(images.decode_png(sixteen), d16)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(sixteen))).astype(np.uint16),
+                                  d16)
+    bad = bytearray(images.encode_png_u8(np.zeros((3, 4), np.uint8)))
+    bad[24], bad[25] = 16, 3  # bit depth 16, colour type palette
+    bad[29:33] = struct.pack(">I", zlib.crc32(bytes(bad[12:29])))
     with pytest.raises(ValueError, match="bit depth 16"):
-        images.decode_png(sixteen)
+        images.decode_png(bytes(bad))
     data = bytearray(images.encode_png_u8(np.zeros((3, 4), np.uint8)))
     data[28] = 1  # IHDR's interlace byte, then its CRC anew
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
@@ -141,7 +151,7 @@ def test_scene_writer_matches_jax(scenes):
     for name in ("calib.txt", "00.txt", "semantics_list.txt"):
         assert (tdir / name).read_text() == (jdir / name).read_text()
     assert not (tdir / "flow_fwd").exists()
-    mask = images.read_png(tdir / "mask" / "000003.png", "L")
+    mask = images.read_image(tdir / "mask" / "000003.png", "L")
     assert (mask == 0).any() and (mask == 255).any()  # the moving cars are masked
 
 
@@ -245,10 +255,19 @@ def test_datamanager_batches_match_jax(scenes, monkeypatch, supervised):
 
 
 def test_datamanager_refuses_png_depth_and_empty_split(scenes, tmp_path):
+    """16-bit PNG depth is read now (as the JAX loader reads it with
+    OpenCV); depth in another format, and an empty split, raise by name."""
     root = scenes[1]
     out = tkitti.KittiDataParserConfig(**_parser_kw(root, use_depth=True)).parse("train")
+    cm = (np.load(root / "depth" / "000000.npy") * 100).clip(0, 65535).astype(np.uint16)
+    (tmp_path / "000000.png").write_bytes(images.encode_png_u16(cm))
     out.depth_filenames = [str(tmp_path / "000000.png")] * len(out.image_filenames)
-    with pytest.raises(NotImplementedError, match="16-bit PNG depth"):
+    out.depth_unit_scale_factor = 0.01
+    got = tdm.InMemoryDataManager(out, out).train_assets["depths"]
+    want = jdm._load_depth(str(tmp_path / "000000.png"), 0.01 * out.dataparser_scale)
+    np.testing.assert_array_equal(got[0], want)
+    out.depth_filenames = [str(tmp_path / "000000.exr")] * len(out.image_filenames)
+    with pytest.raises(ValueError, match=r"\.npy and \.png"):
         tdm.InMemoryDataManager(out, out)
     empty = tkitti.KittiDataParserConfig(**{**_parser_kw(root), "train_split_fraction": 1.0})
     with pytest.raises(ValueError, match="empty split"):

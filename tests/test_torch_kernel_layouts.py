@@ -25,7 +25,12 @@ def _mlp(rng, dims):
                                                     (9, (24, 16, 8), (16, 16))])
 def test_shifted_rgb_rows_give_the_same_field(basis, F, base_dims, rgb_hidden):
     """The rgb chain fed [sigma_raw; geo; feats] through a first matrix with
-    a zero row in front gives the unshifted result bit for bit in f32."""
+    a zero row in front gives the unshifted result in f32, to a few ulps: the
+    zero row is exact in the algebra, but a CPU sgemm picks its blocking (and
+    so its summation order) from the product's shape and the host's vector
+    width, and the two chains' products differ in K and N (one row, one
+    column). With MKL on its AVX2 path they differ by up to 1.2e-7 absolute
+    and 5.5e-7 relative."""
     rng = np.random.default_rng(0)
     n, H, G = 301, base_dims[0] // 2, base_dims[-1] - 1
     rgb_dims = (G + F, *rgb_hidden, 3)
@@ -42,7 +47,8 @@ def test_shifted_rgb_rows_give_the_same_field(basis, F, base_dims, rgb_hidden):
     rws2 = [ff._shift_rgb_rows(rws[0])] + rws[1:]
     assert rws2[0].shape == (1 + G + F, rgb_dims[1]) and not rws2[0][0].any()
     got = ff.fourier_field_reference(x, feats, B, bws2, bbs2, rws2, rbs, basis, False)
-    assert torch.equal(got, want)
+    eps = torch.finfo(torch.float32).eps
+    torch.testing.assert_close(got, want, rtol=8 * eps, atol=2 * eps)
 
 
 @pytest.mark.parametrize("base_dims,rgb_dims", [

@@ -206,20 +206,27 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def _png_depth_datamanager(tmp_path):
-    """A datamanager given a PNG depth file (16-bit PNG depth is read by no
-    loader of the port)."""
+    """A datamanager given a 16-bit PNG depth file, and the JAX loader's
+    reading of the same file (OpenCV): the depths must be equal."""
+    from nerf_kbs_tpu.data.datamanager import _load_depth as j_load_depth
     from nerf_kbs_tpu_torch.data.datamanager import InMemoryDataManager
-    from nerf_kbs_tpu_torch.utils.images import encode_png_u8
+    from nerf_kbs_tpu_torch.utils.images import encode_png_u8, encode_png_u16
 
     (tmp_path / "f.png").write_bytes(encode_png_u8(np.zeros((2, 2, 3), np.uint8)))
+    depth = np.array([[0, 1], [1234, 65535]], np.uint16)
+    (tmp_path / "000000.png").write_bytes(encode_png_u16(depth))
     out = TOutputs([str(tmp_path / "f.png")], orbit_cameras(1, h=2, w=2), np.zeros((2, 3)),
-                   depth_filenames=[str(tmp_path / "000000.png")])
-    InMemoryDataManager(out, out)
+                   depth_filenames=[str(tmp_path / "000000.png")], depth_unit_scale_factor=0.01)
+    got = InMemoryDataManager(out, out).train_assets["depths"][0]
+    np.testing.assert_array_equal(got, j_load_depth(str(tmp_path / "000000.png"), 0.01))
 
 
 # settings ported since the cases were written: each case now runs the eval
-# forward on the non-fused path and matches JAX
-PORTED = ("field_type", "predict_normals", "disable_scene_contraction")
+# forward on the non-fused path and matches JAX (or, for the last two, the
+# transient training forward and the PNG depth loader, their JAX
+# counterparts)
+PORTED = ("field_type", "predict_normals", "disable_scene_contraction",
+          "use_transient_embedding", "16-bit PNG depth")
 TINY_GRIDS = dict(num_levels=4, log2_hashmap_size=10, proposal_num_levels=2,
                   proposal_log2_hashmap_size=8)
 
@@ -241,8 +248,28 @@ def test_unported_configs_raise(change, name, tmp_path):
     """What is not ported raises by name; the settings of PORTED (hash and
     cp fields, normals, disabled contraction) run the eval forward instead,
     on the non-fused path, and match the JAX package's."""
+    from nerf_kbs_tpu.models import semantic_nerfw as jsem
     from nerf_kbs_tpu_torch.models import semantic_nerfw
 
+    if change == "png_depth":
+        _png_depth_datamanager(tmp_path)
+        return
+    if change == "transient":
+        kw = dict(**SMALL, use_transient_embedding=True, num_semantic_classes=2,
+                  appearance_embedding_dim=4)
+        jcfg, tcfg = jsem.SemanticNerfWConfig(**kw), semantic_nerfw.SemanticNerfWConfig(**kw)
+        jp = jsem.init(jax.random.PRNGKey(0), jcfg)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+        jr, tr = _rays(16, seed=2)
+        key = jax.random.PRNGKey(1)
+        jout = jax.jit(lambda p: jsem.forward(p, jcfg, jr, key=key, step=900, train=True))(jp)
+        with torch.no_grad():
+            tout = semantic_nerfw.forward(tp, tcfg, tr, step=900, train=True, jitters=[
+                torch.tensor(np.array(jax.random.uniform(k, (16, 1))))
+                for k in jax.random.split(key, 3)])
+        _compare(tout, jout, ("rgb", "accumulation", "depth", "uncertainty",
+                              "density_transient", "prop_depth_0", "prop_depth_1"))
+        return
     if name in PORTED:
         jcfg, tcfg = _pair(**{**SMALL, **change})
         assert not tnerf.uses_fused_path(tcfg)
@@ -256,13 +283,7 @@ def test_unported_configs_raise(change, name, tmp_path):
         _compare(tout, jout, keys)
         return
     with pytest.raises(NotImplementedError, match=name):
-        if change == "transient":
-            semantic_nerfw.init(semantic_nerfw.SemanticNerfWConfig(
-                **SMALL, use_transient_embedding=True, num_semantic_classes=2), device="cpu")
-        elif change == "png_depth":
-            _png_depth_datamanager(tmp_path)
-        else:
-            tnerf.init(dataclasses.replace(tnerf.NerfactoConfig(**SMALL), **change), device="cpu")
+        tnerf.init(dataclasses.replace(tnerf.NerfactoConfig(**SMALL), **change), device="cpu")
 
 
 def test_train_forward_and_bad_background_raise():

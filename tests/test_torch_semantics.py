@@ -379,9 +379,16 @@ def test_eval_loss_and_masked_psnr(fused):
 
 
 def test_transient_embedding_raises():
+    """The transient path is ported (held against JAX in
+    tests/test_torch_transient.py): init makes the transient heads, the
+    training forward gives the uncertainty and the eval forward is
+    nerfacto's; what still raises is what nerfacto lacks (flow)."""
     cfg = tsem.SemanticNerfWConfig(**SMALL, use_transient_embedding=True)
-    with pytest.raises(NotImplementedError, match="use_transient_embedding"):
-        tsem.init(cfg, device="cpu")
+    params = tsem.init(cfg, device="cpu")
+    assert {"transient_emb", "transient_mlp", "uncertainty_head"} <= set(params["fields"])
     _, tr = _rays(4)
-    with pytest.raises(NotImplementedError, match="use_transient_embedding"):
-        tsem.forward({}, cfg, tr, train=True)
+    out = tsem.forward(params, cfg, tr, train=True, generator=torch.Generator().manual_seed(0))
+    assert out["uncertainty"].shape == (4, 1)
+    assert "uncertainty" not in tsem.forward(params, cfg, tr, train=False)
+    with pytest.raises(NotImplementedError, match="flow_loss_mult"):
+        tsem.forward(params, dataclasses.replace(cfg, flow_loss_mult=0.1), tr, train=True)

@@ -464,9 +464,14 @@ def test_optimizer_config_schedule_matches_optax():
 
 
 def test_build_optimizer_rejects_unported_and_wrong_device(monkeypatch):
+    """Every optimizer a JAX config can name builds (sgd and adamw too, held
+    against optax in tests/test_torch_vanilla_nerf.py); an unknown name, a
+    group without a config and a parameter off the device raise."""
     p = {"fields": {"w": torch.zeros(2, requires_grad=True)}}
-    with pytest.raises(NotImplementedError, match="sgd"):
-        topt.build_optimizer({"fields": topt.OptimizerConfig(optimizer="sgd")}, p, device="cpu")
+    for name in ("adam", "radam", "adamw", "sgd"):
+        topt.build_optimizer({"fields": topt.OptimizerConfig(optimizer=name)}, p, device="cpu")
+    with pytest.raises(ValueError, match="lamb"):
+        topt.build_optimizer({"fields": topt.OptimizerConfig(optimizer="lamb")}, p, device="cpu")
     with pytest.raises(ValueError, match="no optimizer configured"):
         topt.build_optimizer({}, p, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

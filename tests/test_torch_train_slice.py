@@ -144,8 +144,7 @@ def test_trainer_steps_track_jax(fused, tmp_path):
     jdm, tdm = JDataManager(**dm_kw), TDataManager(**dm_kw)
     spec = t_method()
     assert {g: dataclasses.asdict(c) for g, c in spec.optimizers.items()} == {
-        g: {k: v for k, v in dataclasses.asdict(c).items() if k != "weight_decay"}
-        for g, c in j_method().optimizers.items()}
+        g: dataclasses.asdict(c) for g, c in j_method().optimizers.items()}
     assert spec.datamanager.train_num_rays_per_batch == 4096
 
     trainer = Trainer(TrainerConfig(output_dir=str(tmp_path), seed=0, log_every=1,
