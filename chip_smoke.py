@@ -17,8 +17,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the launch must give the same bits; times of each kernel and its plain
    version at the main paths' operating point (tri basis, bf16, no position
    gradient), the wgmma body and the WMMA body in turns, and the backwards'
-   passes apart. A kernel's time (ms) is the CUDA-event time of back-to-back
-   calls of its wrapper; the device time of every kernel the wrapper launches
+   passes apart; the two backwards also with dx at the same shapes (the
+   ``*_dx`` records, which the camera optimizer's steps launch). A kernel's
+   time (ms) is the CUDA-event time of back-to-back calls of its wrapper;
+   the device time of every kernel the wrapper launches
    (device_ms, torch.profiler) stands beside it and is smaller where the host
    cannot enqueue the wrapper's launches as fast as they run;
 3. the serving slice: nerfacto-tpu at full width in bf16 with seeded weights renders
@@ -48,7 +50,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    against their plain versions in both bases and dtypes (C with and without
    dx) at run 2's train-step shape and a ragged N, and timed (part of phase 2);
 6. the street scene: the port's writer makes an 8-frame 376x1241
-   KITTI-layout scene (frames, depth, semantics, masks), timed;
+   KITTI-layout scene (frames, depth, semantics, masks, forward flow),
+   timed;
 7. the two CLI runs, through nerf_kbs_tpu_torch.engine.cli.main in-process:
    nerfacto-tpu (kernels A, B, C, D on their wgmma bodies) and semantic-nerfw
    with nerfacto-tpu's model fields, depth, semantics and masks (the
@@ -97,8 +100,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the eval time of the split, the peak memory of a step and of an eval
    chunk, a profile of one step, and 3 f32 steps at a reduced width on the
    card against the CPU plain path;
-13. a {"kernels": [...]} line, each record's "launches" counted per
-   "launches_per" (a frame, a bench step or a run-2 step), then the last line
+13. run 7, nerfacto-tpu with --model.camera_optimizer SO3xR3 through
+   cli.main on the street scene (30 steps of 4,096 rays, bf16, eval of the
+   split): launch counts A 2 / B 1 / C 2 / D 1 a step with every C and D
+   launch on dx, the regularizer in every step, the tangents moved after 30
+   steps, the step-0 gradient of the tangents finite and non-zero, a
+   profile of one step, and 3 f32 steps at a reduced width card against
+   CPU with the tangents compared; run 7b, semantic-nerfw as registered
+   (hash field) with the camera optimizer, 3 f32 steps card against CPU;
+14. run 8, the SUDS stream: sky masks from the scene's semantic colours and
+   a metadata.json over its frames (2 held out), SudsMetadataConfig ->
+   ChunkedStreamDataManager (random-subset chunks of 65,536 rows, flow and
+   sky rows) -> Trainer with nerfacto-tpu at full width in bf16,
+   flow_loss_mult 1e-3 and sky_loss_mult 0.1, 30 steps of 4,096 rays: the
+   launch counts, the finite flow and sky terms, the chunk loads and each
+   chunk build's host time against the steps it overlapped, the eval of the
+   held-out frames, a profile of one step, and 3 f32 steps card against CPU
+   on the same stream batches;
+15. a {"kernels": [...]} line, each record's "launches" counted per
+   "launches_per" (a frame, a bench step, a run-2 or a run-7 step), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or run from a directory without the port, it exits non-zero
@@ -189,7 +209,8 @@ def bound(n_bytes: float, flops: float, alu_ops: float, bf16: bool) -> dict:
             "bound_ms_alu": t["alu"] * 1e3}
 
 
-def alu_ops_per_point(kernel: str, h_freqs: int, hidden_cols: int, out_dim: int = 1) -> float:
+def alu_ops_per_point(kernel: str, h_freqs: int, hidden_cols: int, out_dim: int = 1,
+                      need_dx: bool = False) -> float:
     """Scalar f32 instructions a point that the function itself defines, in
     the tri basis: its arithmetic outside the matrix products and the
     roundings at its cast points, one instruction per lane and clock (a
@@ -216,8 +237,13 @@ def alu_ops_per_point(kernel: str, h_freqs: int, hidden_cols: int, out_dim: int 
       rounding (1.5), the 16 feats' rounding (0.5), ~10 for each of 3
       sigmoids; backward g rgb (1 - rgb) (3 each), the rounding and the
       bias-gradient add of the 3 rgb gradients and of the 16 base-output
-      gradients (1.5 each)."""
+      gradients (1.5 each).
+    - A backward with dx (``need_dx``), per frequency: the slopes of tri_s
+      and tri_c (a compare and a select each: 4), dproj = ds s' + dc c' (a
+      mul and an fma: 2) and its 3 fma into dx = B dproj: 9."""
     enc = 13.0 * h_freqs
+    if need_dx:
+        enc += 9.0 * h_freqs
     if kernel == "fourier_mlp_fwd":
         if out_dim > 1:
             return enc + hidden_cols * 2.5 + out_dim * 1.0
@@ -658,6 +684,55 @@ def phase_kernels():
                "wmma_body_ms": (ev[0] + ev[3]) / 2, "wmma_body_max_rel_err": err_old,
                "turns_ms": ev, "device_ms": (dv[1] + dv[2]) / 2,
                "wmma_body_device_ms": (dv[0] + dv[3]) / 2, "device_turns_ms": dv, **extra}
+        emit({"phase": "timing", **rec})
+        records.append(rec)
+        del x, g
+        torch.cuda.empty_cache()
+
+    # the same two backward kernels with dx (need_dx), which the camera
+    # optimizer turns on in every backward launch of a step (run 7): the same
+    # shapes as the no-dx records, the wgmma bodies, so that the two compare
+    # directly. The extra work the function defines: the ds / dc products
+    # against W0 (2H x hidden_1 MACs a point), the (3 x H) product with B^T,
+    # the dx write (12 bytes a point) and the slopes of the encoding
+    for name, n, per_point_bytes, w_floats, mac, alu, src, line in (
+        ("fourier_mlp_bwd", n_c0, 12 + 4 + 12, 2 * a_w, c_mac + pm[0] + 3 * pB.shape[1],
+         alu_ops_per_point("fourier_mlp_bwd", pB.shape[1], a_hidden, need_dx=True),
+         "fourier_mlp_bwd.cu", 381),
+        ("fourier_field_bwd", n_d, 12 + 64 + 16 + 64 + 12, 2 * b_w,
+         d_mac + bm[0] + 3 * fB.shape[1],
+         alu_ops_per_point("fourier_field_bwd", fB.shape[1], b_hidden, need_dx=True),
+         "fourier_field_bwd.cu", 707),
+    ):
+        x = positions(n)
+        is_c = name == "fourier_mlp_bwd"
+        g = torch.randn(1 if is_c else 4, n, generator=gen).to(dev)
+        kern, plain = (c_call("tri", True, True, x, g) if is_c
+                       else d_call("tri", True, True, x, feats(n), g))
+        got, want = kern(), plain()
+        err = max(rel_err(a, b) for a, b in zip(got, want) if a.shape[-1] != n)
+        out = max(outliers(a, b, BWD_TOLERANCE[("tri", True)])
+                  for a, b in zip(got, want) if a.shape[-1] == n)
+        check(err <= SUM_TOLERANCE and out <= PER_POINT_OUTLIERS,
+              f"{name} with dx: rel err {err}, outliers {out}")
+        del got, want
+        turns = [both_ms(kern, 10), both_ms(kern, 10)]
+        plain_ms = time_ms(plain, 2)
+        nodx = next(r for r in records if r["name"] == name)
+        rec = {"name": f"{name}_dx", "route": "cuda",
+               "source": f"nerf_kbs_tpu_torch/csrc/{src}",
+               "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
+               "max_abs_err": err,
+               "err_is": "weight and bias gradients, relative to each one's largest magnitude",
+               "per_point_outlier_share": out, "ms": (turns[0][0] + turns[1][0]) / 2,
+               "plain_ms": plain_ms,
+               **bound(n * per_point_bytes + 4 * w_floats, 2.0 * n * mac, n * alu, bf16=True),
+               "library_ms": None, "n_points": n, "basis": "tri", "dtype": "bf16",
+               "need_dx": True, "alu_instructions_per_point": alu, "body": "wgmma",
+               "turns_ms": [t[0] for t in turns],
+               "device_ms": (turns[0][1] + turns[1][1]) / 2,
+               "device_turns_ms": [t[1] for t in turns],
+               "no_dx_device_ms": nodx["device_ms"], "no_dx_bound_ms": nodx["bound_ms"]}
         emit({"phase": "timing", **rec})
         records.append(rec)
         del x, g
@@ -1141,7 +1216,8 @@ SCENE_HW = (376, 1241)
 def phase_scene(out_dir: str) -> str:
     """The port's KITTI-layout dynamic street scene at SCENE_HW, 8 frames,
     written by nerf_kbs_tpu_torch.data.synthetic_kitti (NumPy ray tracing, the
-    port's PNG encoder)."""
+    port's PNG encoder), with the forward flow of the first 7 frames (from
+    each frame's one trace)."""
     from nerf_kbs_tpu_torch.data.synthetic_kitti import write_dynamic_dataset
 
     import numpy as np
@@ -1151,7 +1227,12 @@ def phase_scene(out_dir: str) -> str:
     scene = write_dynamic_dataset(Path(out_dir) / "scene", n_frames=8, h=h, w=w)
     seconds = time.perf_counter() - t0
     depths = [np.load(f) for f in sorted((scene / "depth").glob("*.npy"))]
+    flows = [np.load(f) for f in sorted((scene / "flow_fwd").glob("*.npy"))]
+    check(len(flows) == 7 and all(f.shape == (h, w, 3) and np.isfinite(f).all() for f in flows),
+          f"{len(flows)} flow files")
     emit({"phase": "scene", "frames": 8, "image": [h, w], "seconds": seconds,
+          "flow_files": len(flows), "flow_valid_share": [float(f[..., 2].mean()) for f in flows],
+          "flow_max_px": [float(np.abs(f[..., :2]).max()) for f in flows],
           "bytes": sum(f.stat().st_size for f in scene.rglob("*") if f.is_file()),
           "depth_max_m": [float(d.max()) for d in depths],
           "pixels_over_1000_m": [int((d > 1000.0).sum()) for d in depths],
@@ -1396,28 +1477,63 @@ REDUCED_HASH = REDUCED + ["--model.num_levels", "8", "--model.log2_hashmap_size"
                           "--model.max_res", "256"]
 
 
-def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 3) -> None:
+# the camera optimizer, card against CPU: the tangents' gradient of the
+# first step, where both sides start from the same parameters, is held to
+# 2e-3 of its largest magnitude (as the losses). The last step's gradient
+# and the tangents after 3 steps are recorded: on semantic-nerfw's hash path
+# the samples follow the proposal densities through the sampler's bins and
+# the hash cells, whose position derivatives jump at every edge, so the
+# rounding-level parameter differences of two updates (the card's table
+# gradient sums with atomics) move the third step's tangent gradient by
+# 0.7% on an H100; and Adam (eps 1e-8) turns a gradient component
+# near eps into an update of lr g / (|g| + eps), so a tangent moves by a
+# visible share of lr where its gradient does
+TANGENT_GRAD_TOL = 2e-3
+
+
+def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 3,
+                 tangents: bool = False) -> None:
     """3 f32 steps of ``method`` on the card against the same 3 steps on the
     CPU plain path: same seeds, batches and jitter (drawn on the CPU in
     both); the losses of the first ``checked_steps`` must agree to 2e-3 (the
-    others are recorded)."""
+    others are recorded); with ``tangents`` the camera optimizer's
+    tangents are compared too (see TANGENT_GRAD_TOL)."""
     import dataclasses
 
     spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
-    runs = {}
+    runs, tang = {}, {}
     for where in ("cuda", "cpu"):
         t = cli.build_trainer(dataclasses.replace(
             spec, trainer=dataclasses.replace(spec.trainer, experiment_name=f"f32_{where}")),
             device=where)
         check(t.model_config.compute_dtype == "float32", "f32 steps")
-        runs[where] = [float(t.train_step(t._to_device(t.dm.next_train(s)))["total_loss"])
-                       for s in range(3)]
+        runs[where] = []
+        for s in range(3):
+            runs[where].append(float(t.train_step(t._to_device(t.dm.next_train(s)))["total_loss"]))
+            if tangents and s == 0:
+                first = t.params["camera_opt"].grad.cpu()
+        if tangents:
+            tang[where] = (t.params["camera_opt"].detach().cpu(), first,
+                           t.params["camera_opt"].grad.cpu(),
+                           t.optimizer.learning_rate("camera_opt"))
     rels = [abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"])]
     rel = max(rels[:checked_steps])
-    emit({"phase": phase, "method": method, "rays": 256, "losses_card": runs["cuda"],
-          "losses_cpu": runs["cpu"], "rel_diff_per_step": rels, "checked_steps": checked_steps,
-          "max_rel_diff": rel, "tol": 2e-3})
+    rec = {"phase": phase, "method": method, "rays": 256, "losses_card": runs["cuda"],
+           "losses_cpu": runs["cpu"], "rel_diff_per_step": rels, "checked_steps": checked_steps,
+           "max_rel_diff": rel, "tol": 2e-3}
+    if tangents:
+        (t_gpu, g_gpu, last_gpu, lr), (t_cpu, g_cpu, last_cpu, _) = tang["cuda"], tang["cpu"]
+        scale = float(g_cpu.abs().max())
+        rec.update({"tangent_grad_max_abs": scale, "tangent_grad_tol": TANGENT_GRAD_TOL,
+                    "tangent_grad_rel_diff": float((g_gpu - g_cpu).abs().max()) / scale,
+                    "last_tangent_grad_rel_diff": float((last_gpu - last_cpu).abs().max())
+                    / float(last_cpu.abs().max()),
+                    "tangent_max_abs": float(t_cpu.abs().max()),
+                    "tangent_max_diff_in_lr": float((t_gpu - t_cpu).abs().max()) / lr})
+    emit(rec)
     check(rel <= 2e-3, f"{phase}: card vs CPU f32 steps: {runs}")
+    check(not tangents or (scale > 0 and rec["tangent_grad_rel_diff"] <= TANGENT_GRAD_TOL),
+          f"{phase}: card vs CPU tangent gradients: {rec}")
 
 
 def _peak_mib(work) -> float:
@@ -1696,6 +1812,325 @@ def phase_registry(scene: str, vkitti: str) -> None:
     check(not any(ff.LAUNCHES.values()), f"runs 4-6 f32 steps launched {ff.LAUNCHES}")
 
 
+def _dx_spy(ff):
+    """Counts the calls of the two backward wrappers by their spec's
+    need_dx: ({wrapper: [calls without dx, calls with dx]}, restore)."""
+    real = {"_mlp_backward": ff._mlp_backward, "_field_backward": ff._field_backward}
+    calls = {"fourier_mlp_bwd": [0, 0], "fourier_field_mlp_bwd": [0, 0]}
+
+    def spy(attr, key):
+        def call(spec, *args):
+            calls[key][int(spec.need_dx)] += 1
+            return real[attr](spec, *args)
+        return call
+
+    ff._mlp_backward = spy("_mlp_backward", "fourier_mlp_bwd")
+    ff._field_backward = spy("_field_backward", "fourier_field_mlp_bwd")
+    return calls, lambda: [setattr(ff, k, v) for k, v in real.items()]
+
+
+CAMERA_OPT = ["--model.camera_optimizer", "SO3xR3"]
+# per train step and per eval chunk of nerfacto-tpu: A 2, B 1, C 2, D 1
+FUSED_STEP = {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1, "fourier_mlp_bwd_wgmma": 2,
+              "fourier_field_mlp_bwd_wgmma": 1}
+FUSED_CHUNK = {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1}
+
+
+def phase_camera_opt(records, scene: str) -> None:
+    """Run 7: nerfacto-tpu with the camera optimizer through cli.main (every
+    backward launch with dx); run 7b: semantic-nerfw as registered with it,
+    3 f32 steps card against CPU. See the module docstring."""
+    import numpy as np
+    import torch
+
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.engine import cli
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    out = tempfile.mkdtemp(prefix="nkt_camopt_")
+    argv7 = _run_argv(scene, out) + CAMERA_OPT
+    calls, restore = _dx_spy(ff)
+    try:
+        r7 = _cli_run(cli, ff, "nerfacto-tpu", argv7, out, FUSED_STEP, FUSED_CHUNK,
+                      phase="cli_run7_camera_opt")
+    finally:
+        restore()
+    check(calls == {"fourier_mlp_bwd": [0, 60], "fourier_field_mlp_bwd": [0, 30]},
+          f"run 7 backward calls [no dx, dx]: {calls}")
+    lines = [json.loads(ln) for ln in
+             (Path(out) / "exp" / "nerfacto-tpu" / "metrics.jsonl").read_text().splitlines()]
+    reg = [ln["camera_opt_regularizer"] for ln in lines if "camera_opt_regularizer" in ln]
+    check(len(reg) == 30 and all(np.isfinite(reg)), f"run 7 regularizer {reg}")
+
+    # the tangents after 30 steps, from the checkpoint; the eval of the split
+    spec = cli.apply_overrides(cli.method_registry["nerfacto-tpu"](),
+                               {"trainer.load_dir": str(Path(out) / "exp" / "nerfacto-tpu"),
+                                **_pairs(argv7)})
+    trainer = cli.build_trainer(spec)
+    tangents = trainer.params["camera_opt"].detach()
+    check(trainer.step == 30 and bool(torch.isfinite(tangents).all())
+          and float(tangents[:, :3].abs().max()) > 0 and float(tangents[:, 3:].abs().max()) > 0,
+          f"run 7 tangents {tangents}")
+    trainer.eval_all_images()
+    t0 = time.perf_counter()
+    trainer.eval_all_images()
+    split_s = time.perf_counter() - t0
+    del trainer
+
+    # step 0 from tangent 0: the gradient reaches every camera's tangents
+    fresh = cli.build_trainer(cli.apply_overrides(cli.method_registry["nerfacto-tpu"](),
+                                                  _pairs(argv7)))
+    batch = fresh._to_device(fresh.dm.next_train(0))
+    ff.reset_launches()
+    calls, restore = _dx_spy(ff)
+    try:
+        fresh.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    one_step = {k: v for k, v in ff.LAUNCHES.items() if v}
+    check(one_step == FUSED_STEP and calls == {"fourier_mlp_bwd": [0, 2],
+                                               "fourier_field_mlp_bwd": [0, 1]},
+          f"one run-7 step launched {one_step}, backward calls {calls}")
+    # at step 0 the coarse-to-fine window is closed, so the field does not
+    # depend on position yet and the translations get no gradient; the
+    # rotations do, through the view directions' SH features. From step 1
+    # the first level opens a little and the translations get a small one
+    # (the 30-step run above checks that they moved)
+    grad = fresh.params["camera_opt"].grad.clone()
+    check(bool(torch.isfinite(grad).all()) and float(grad[:, 3:].abs().max()) > 0,
+          f"run 7 step-0 tangent gradient {grad}")
+    fresh.train_step(fresh._to_device(fresh.dm.next_train(1)))
+    grad1 = fresh.params["camera_opt"].grad
+    check(bool(torch.isfinite(grad1).all()), f"run 7 step-1 tangent gradient {grad1}")
+    for rec in records:
+        if rec["name"].endswith("_dx"):
+            wrapper = WRAPPER[rec["name"][:-len("_dx")]]
+            rec["launches"] = one_step[f"{wrapper}_wgmma"]
+            rec["launches_per"] = "4,096-ray run-7 train step"
+            rec["run7_launches"] = r7["launches"][f"{wrapper}_wgmma"]
+    emit({"phase": "cli_run7_tangents", "steps": 30, "cameras": int(tangents.shape[0]),
+          "translation_max_abs": float(tangents[:, :3].abs().max()),
+          "rotation_max_abs_rad": float(tangents[:, 3:].abs().max()),
+          "regularizer_first": reg[0], "regularizer_last": reg[-1],
+          "step0_grad_translation_max_abs": float(grad[:, :3].abs().max()),
+          "step0_grad_rotation_max_abs": float(grad[:, 3:].abs().max()),
+          "step1_grad_translation_max_abs": float(grad1[:, :3].abs().max()),
+          "step1_grad_rotation_max_abs": float(grad1[:, 3:].abs().max()),
+          "eval_all_images_s": split_s, "eval_images": 2, "ms_per_image": split_s * 1e3 / 2,
+          "launches_per_step": one_step, "backward_calls_per_step_no_dx_dx": calls})
+    phase_profile(lambda: fresh.train_step(batch), 4096,
+                  what="run 7 train step (camera optimizer, C and D with dx)", top=16)
+    del fresh
+    # the same step of run 1 (no camera optimizer, no dx), for the difference
+    base = cli.build_trainer(cli.apply_overrides(cli.method_registry["nerfacto-tpu"](),
+                                                 _pairs(_run_argv(scene, out))))
+    batch = base._to_device(base.dm.next_train(0))
+    base.train_step(batch)
+    phase_profile(lambda: base.train_step(batch), 4096,
+                  what="run 1 train step (beside run 7's)", top=16)
+    del base
+    torch.cuda.empty_cache()
+
+    # f32 at a reduced width, card against CPU, the tangents compared too;
+    # run 7b: semantic-nerfw as registered (the hash field) with it
+    ff.reset_launches()
+    _card_vs_cpu(cli, "nerfacto-tpu", _run_argv(scene, out) + CAMERA_OPT + REDUCED_FOURIER,
+                 "cli_run7_vs_cpu", tangents=True)
+    check(ff.LAUNCHES["fourier_field_mlp_bwd"] == 3, f"run 7 f32 launches {ff.LAUNCHES}")
+    ff.reset_launches()
+    _card_vs_cpu(cli, "semantic-nerfw",
+                 _run_argv(scene, out) + _run2_data(scene) + CAMERA_OPT + REDUCED_HASH,
+                 "cli_run7b_vs_cpu", tangents=True)
+    check(not any(ff.LAUNCHES.values()), f"run 7b launched {ff.LAUNCHES}")
+
+
+# run 8's stream: the train frames of the scene but frames 3 and 7 (held
+# out), their poses about their mean and in units of SUDS_SCALE metres
+SUDS_VAL = (3, 7)
+SUDS_SCALE = 20.0
+
+
+def _write_suds_metadata(scene: str) -> str:
+    """Sky masks from the scene's semantic colours (sky/000000.png) and a
+    metadata.json over its 8 frames in the format SudsMetadataConfig reads:
+    OpenGL camera-to-world about the cameras' mean in SUDS_SCALE-metre
+    units, P2's intrinsics, times, depth, static masks, sky masks and the
+    forward flow with its neighbour. Returns its path."""
+    import numpy as np
+
+    from nerf_kbs_tpu_torch.data.synthetic_kitti import SEMANTIC_CLASSES, SEMANTIC_COLORS
+    from nerf_kbs_tpu_torch.utils.images import decode_png, encode_png_u8
+
+    root = Path(scene)
+    (root / "sky").mkdir(exist_ok=True)
+    sky = SEMANTIC_COLORS[SEMANTIC_CLASSES.index("sky")]
+    p2 = [ln for ln in (root / "calib.txt").read_text().splitlines() if ln.startswith("P2:")]
+    P = np.array(p2[0].split()[1:], np.float64).reshape(3, 4)
+    poses = np.loadtxt(root / "00.txt").reshape(-1, 3, 4)
+    origin = poses[:, :, 3].mean(0)
+    h, w = SCENE_HW
+    frames = []
+    for i, row in enumerate(poses):
+        sem = decode_png((root / "sem" / f"{i:06}.png").read_bytes())
+        (root / "sky" / f"{i:06}.png").write_bytes(
+            encode_png_u8((np.all(sem == sky, -1) * 255).astype(np.uint8)))
+        c2w = row.copy()
+        c2w[:, 1:3] *= -1.0  # OpenCV camera axes -> OpenGL
+        c2w[:, 3] = (c2w[:, 3] - origin) / SUDS_SCALE
+        fr = {"rgb_path": str(root / "00" / f"{i:06}.png"), "c2w": c2w.tolist(), "W": w, "H": h,
+              "intrinsics": [P[0, 0], P[1, 1], P[0, 2], P[1, 2]], "image_index": i,
+              "time": i / (len(poses) - 1), "video_id": 0,
+              "depth_path": str(root / "depth" / f"{i:06}.npy"),
+              "mask_path": str(root / "mask" / f"{i:06}.png"),
+              "sky_mask_path": str(root / "sky" / f"{i:06}.png"), "is_val": i in SUDS_VAL}
+        if i + 1 < len(poses):
+            fr["forward_flow_path"] = str(root / "flow_fwd" / f"{i:06}.npy")
+            fr["forward_neighbor_index"] = i + 1
+        frames.append(fr)
+    path = root / "metadata.json"
+    path.write_text(json.dumps({"origin": origin.tolist(), "pose_scale_factor": SUDS_SCALE,
+                                "scene_bounds": [[-1.0] * 3, [1.0] * 3], "frames": frames}))
+    return str(path)
+
+
+def phase_stream(scene: str) -> None:
+    """Run 8: the SUDS stream (metadata.json -> ChunkedStreamDataManager with
+    random-subset chunks of 65,536 rows, flow and sky rows) -> Trainer with
+    nerfacto-tpu at full width in bf16, flow_loss_mult 1e-3 and
+    sky_loss_mult 0.1, 30 steps of 4,096 rays; the chunk builds (host time,
+    on the stream's thread) against the steps they overlap; the eval of the
+    2 held-out frames; 3 f32 steps card against CPU on the same batches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.data.dataparsers.suds_metadata import SudsMetadataConfig
+    from nerf_kbs_tpu_torch.data.stream import ChunkedStreamDataManager, StreamConfig
+    from nerf_kbs_tpu_torch.engine.trainer import Trainer
+    from nerf_kbs_tpu_torch.methods import nerfacto_tpu_method
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    class TimedStream(ChunkedStreamDataManager):
+        """The stream with each chunk build's interval and each batch's
+        request time recorded (host clock)."""
+
+        def __init__(self, *args):
+            self.builds, self.requests, self.swaps = [], [], 0
+            super().__init__(*args)
+
+        def _build_chunk(self):
+            t0 = time.perf_counter()
+            chunk = super()._build_chunk()
+            self.builds.append((t0, time.perf_counter()))
+            return chunk
+
+        def next_train(self, step):
+            self.requests.append(time.perf_counter())
+            before = self._chunk
+            batch = super().next_train(step)
+            self.swaps += self._chunk is not before
+            return batch
+
+    t0 = time.perf_counter()
+    parser = SudsMetadataConfig(metadata_path=_write_suds_metadata(scene))
+    train, _ = parser.load_items("train")
+    val, _ = parser.load_items("val")
+    write_s = time.perf_counter() - t0
+    spec = nerfacto_tpu_method()
+    mcfg = dataclasses.replace(spec.model_config(), num_images=len(train), flow_loss_mult=1e-3,
+                               sky_loss_mult=0.1)
+    out = tempfile.mkdtemp(prefix="nkt_stream_")
+    tcfg = dataclasses.replace(spec.trainer, output_dir=out, method_name="nerfacto-tpu-stream",
+                               log_every=1, steps_per_save=10**9, steps_per_eval_image=10**9,
+                               steps_per_eval_batch=10**9, steps_per_eval_all_images=10**9)
+    scfg = StreamConfig(load_random_subset=True, items_per_chunk=65536, with_flow=True,
+                        with_sky=True, train_num_rays_per_batch=4096)
+    dm = TimedStream(train, val, scfg)
+    try:
+        trainer = Trainer(tcfg, mcfg, spec.optimizers, dm)
+        ff.reset_launches()
+        t_start = time.perf_counter()
+        trainer.train(30)
+        wall = time.perf_counter() - t_start
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        check(launches == {k: 30 * v for k, v in FUSED_STEP.items()},
+              f"run 8 launches {launches}")
+        lines = [json.loads(ln) for ln in (trainer.out_dir / "metrics.jsonl").read_text()
+                 .splitlines()]
+        steps = [ln for ln in lines if "total_loss" in ln]
+        check(len(steps) == 30, f"run 8: {len(steps)} logged steps")
+        terms = [k for k in steps[0] if k.endswith("_loss")]
+        check({"flow_loss", "sky_loss"} <= set(terms)
+              and all(np.isfinite(ln[k]) for ln in steps for k in terms),
+              f"run 8 loss terms {terms}")
+        check(dm.swaps >= 2 and len(dm.builds) >= 2, f"run 8: {dm.swaps} chunk loads")
+        step_ms = [4096 / ln["rays_per_sec"] * 1e3 for ln in steps]
+        med = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+        # a step overlaps a build when the build ran between its batch request
+        # and the next one
+        ends = dm.requests[1:30] + [t_start + wall]
+        overlap = [any(b0 < e and b1 > s0 for b0, b1 in dm.builds)
+                   for s0, e in zip(dm.requests[:30], ends)]
+        during = [t for t, o in zip(step_ms[2:], overlap[2:]) if o]
+        apart = [t for t, o in zip(step_ms[2:], overlap[2:]) if not o]
+        trainer.eval_all_images()
+        t0 = time.perf_counter()
+        final = trainer.eval_all_images()
+        split_s = time.perf_counter() - t0
+        check(final["num_images"] == 2 and all(np.isfinite(v) for v in final.values()),
+              f"run 8 eval {final}")
+        emit({"phase": "cli_run8_stream", "method": "nerfacto-tpu", "steps": 30,
+              "rays_per_batch": 4096, "train_frames": len(train), "eval_frames": len(val),
+              "items_per_chunk": scfg.items_per_chunk, "metadata_and_sky_s": write_s,
+              "wall_s": wall, "step_ms": step_ms, "median_step_ms": med,
+              "rays_per_s": 4096 / (med * 1e-3), "chunk_loads": dm.swaps,
+              "chunk_builds": len(dm.builds),
+              "chunk_build_s": [b1 - b0 for b0, b1 in dm.builds],
+              "steps_overlapping_a_build": sum(overlap),
+              "median_step_ms_during_build": sorted(during)[len(during) // 2] if during else None,
+              "median_step_ms_apart": sorted(apart)[len(apart) // 2] if apart else None,
+              "loss_terms": {k: [ln[k] for ln in steps] for k in terms},
+              "flow_loss_last": steps[-1]["flow_loss"], "sky_loss_last": steps[-1]["sky_loss"],
+              "eval_all": final, "eval_all_images_s": split_s, "launches": launches})
+        batch = trainer._to_device(dm.next_train(30))
+        phase_profile(lambda: trainer.train_step(batch), 4096, what="run 8 train step (stream)")
+        del trainer
+    finally:
+        dm.close()
+    torch.cuda.empty_cache()
+
+    # 3 f32 steps at a reduced width on the same stream batches, card
+    # against CPU
+    small = TimedStream(train, val, dataclasses.replace(scfg, train_num_rays_per_batch=256))
+    try:
+        batches = [small.next_train(s) for s in range(3)]
+        cfg32 = dataclasses.replace(mcfg, compute_dtype="float32", hidden_dim=32,
+                                    num_proposal_samples_per_ray=(32, 16),
+                                    num_nerf_samples_per_ray=16, fourier_num_levels=4,
+                                    fourier_features_per_level=16)
+        runs = {}
+        for where in ("cuda", "cpu"):
+            t = Trainer(dataclasses.replace(tcfg, experiment_name=f"f32_{where}"), cfg32,
+                        spec.optimizers, small, device=where)
+            runs[where] = [{k: float(v) for k, v in t.train_step(t._to_device(b)).items()}
+                           for b in batches]
+    finally:
+        small.close()
+    rels = [abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+            for a, b in zip(runs["cuda"], runs["cpu"])]
+    emit({"phase": "cli_run8_vs_cpu", "rays": 256,
+          "losses_card": [m["total_loss"] for m in runs["cuda"]],
+          "losses_cpu": [m["total_loss"] for m in runs["cpu"]],
+          "flow_loss_card": [m["flow_loss"] for m in runs["cuda"]],
+          "flow_loss_cpu": [m["flow_loss"] for m in runs["cpu"]],
+          "sky_loss_card": [m["sky_loss"] for m in runs["cuda"]],
+          "sky_loss_cpu": [m["sky_loss"] for m in runs["cpu"]],
+          "rel_diff_per_step": rels, "max_rel_diff": max(rels), "tol": 2e-3})
+    check(max(rels) <= 2e-3, f"run 8 card vs CPU f32 steps: {rels}")
+
+
 def _pairs(argv: list) -> dict:
     """--k v pairs of an argv list as override paths."""
     return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
@@ -1734,6 +2169,8 @@ def main() -> int:
         phase_cli(records, scene)
         phase_hash(scene)
         phase_registry(scene, phase_vkitti_scene(tmp))
+        phase_camera_opt(records, scene)
+        phase_stream(scene)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]
     check(not bad, f"imported {bad}")

@@ -82,12 +82,16 @@ def _undistort_iterative_rows(x, y, d_rows, iters: int = 3):
     return x, y
 
 
-def generate_rays(cameras: Cameras, ray_indices: torch.Tensor) -> RayBundle:
+def generate_rays(cameras: Cameras, ray_indices: torch.Tensor,
+                  c2w_delta: Optional[torch.Tensor] = None) -> RayBundle:
     """Pixel indices (..., 3) int (camera, row, col) -> RayBundle.
 
     Rays pass through pixel centres (+0.5); camera-space directions are
     [x, -y, -1] (OpenGL). The pixel area is the product of the distances
-    between the unit direction and those of the +x and +y neighbours."""
+    between the unit direction and those of the +x and +y neighbours.
+    ``c2w_delta`` (N, 3, 4), a per-camera pose adjustment (the camera
+    optimizer's), is composed as c2w' = delta . c2w: R' = Rd Rc,
+    t' = Rd tc + td; the rays' origins and directions carry its gradient."""
     batch_shape = ray_indices.shape[:-1]
     flat = ray_indices.reshape(-1, 3)
     idx = flat[:, 0].long()
@@ -97,6 +101,11 @@ def generate_rays(cameras: Cameras, ray_indices: torch.Tensor) -> RayBundle:
     cx, cy = cameras.cx[idx], cameras.cy[idx]
     c2w = cameras.c2w[idx]  # (B, 3, 4)
     M = [[c2w[:, i, j] for j in range(4)] for i in range(3)]
+    if c2w_delta is not None:
+        d = c2w_delta[idx]
+        D = [[d[:, i, j] for j in range(4)] for i in range(3)]
+        M = [[sum(D[i][k] * M[k][j] for k in range(3)) + (D[i][3] if j == 3 else 0.0)
+              for j in range(4)] for i in range(3)]
 
     # pixel centre, +x neighbour, +y neighbour as rows of (3, B)
     PX = torch.stack([px, px + 1.0, px])

@@ -10,7 +10,8 @@ the port's, whichever encoding and heads they hold: the encoding is
 three transient heads and "pred_normal_mlp". Vanilla NeRF's tree
 (``{"fields": {"coarse", "fine": {"base", "density_head", "rgb_head"}},
 "temporal_distortion"}``) maps the same way; a skip layer's weight is
-(width + in_dim, out) in both packages. The port keeps every weight as
+(width + in_dim, out) in both packages. The camera optimizer's tangents,
+"camera_opt" (num_images, 6), come across as they are. The port keeps every weight as
 (in, out), the layout the kernels read, so no leaf is reshaped or transposed.
 """
 

@@ -24,7 +24,7 @@ def _load_image(path: str) -> np.ndarray:
     return read_image(path, "RGB")
 
 
-def _load_depth(path: str, scale: float) -> np.ndarray:
+def load_depth(path: str, scale: float) -> np.ndarray:
     """A depth map from .npy or from a one-channel (16-bit) PNG, times
     ``scale``."""
     if path.endswith(".npy"):
@@ -77,7 +77,7 @@ class InMemoryDataManager:
         depth_scale = out.depth_unit_scale_factor * out.dataparser_scale
         with ThreadPoolExecutor(self.config.num_workers) as ex:
             images = list(ex.map(_load_image, out.image_filenames))
-            depths = (list(ex.map(lambda p: _load_depth(p, depth_scale), out.depth_filenames))
+            depths = (list(ex.map(lambda p: load_depth(p, depth_scale), out.depth_filenames))
                       if out.depth_filenames else None)
             masks = list(ex.map(_load_mask, out.mask_filenames)) if out.mask_filenames else None
             sem_imgs = (list(ex.map(_load_image, out.semantics.filenames))

@@ -36,6 +36,8 @@ class DataparserOutputs:
     depth_unit_scale_factor: float = 1.0
     semantics: Optional[Semantics] = None
     times: Optional[np.ndarray] = None  # (N,) normalised capture times
+    video_ids: Optional[np.ndarray] = None  # (N,) int, the sequence of each frame
+    metadata: dict = dataclasses.field(default_factory=dict)  # parser-specific extras
     # the world transform and scale the parser applied to the poses
     dataparser_transform: np.ndarray = dataclasses.field(
         default_factory=lambda: np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)

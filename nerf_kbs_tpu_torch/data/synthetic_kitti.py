@@ -1,10 +1,10 @@
 """A street scene, ray traced in NumPy and written to disk in the KITTI and
-the Virtual KITTI 2 layouts (the JAX package's ``write_dynamic_dataset`` and
-``write_vkitti_dataset`` and what they call).
+the Virtual KITTI 2 layouts (the JAX package's ``write_dataset``,
+``write_dynamic_dataset`` and ``write_vkitti_dataset`` and what they call).
 
-The scene is a textured road with building facades, parked cars, sky and two
-moving cars. ``write_dynamic_dataset`` writes the layout the KITTI
-dataparser reads:
+The scene is a textured road with building facades, parked cars and sky;
+the dynamic scene adds two moving cars. ``write_dataset`` (static) and
+``write_dynamic_dataset`` write the layout the KITTI dataparser reads:
 
     out_dir/calib.txt               P0..P3 projections (KITTI odometry calib)
     out_dir/00.txt                  cam0 poses, one 3x4 row a frame
@@ -12,6 +12,9 @@ dataparser reads:
     out_dir/depth/000000.npy        z-depth in metres (float32)
     out_dir/sem/000000.png          semantic colour maps
     out_dir/mask/000000.png         static-pixel masks (255 static, 0 moving)
+    out_dir/flow_fwd/000000.npy     exact forward flow to the next frame, (H,
+                                    W, 3): u, v, valid (the dynamic scene
+                                    always, the static one with write_flow)
     out_dir/semantics_list.txt      Category,R,G,B
 
 ``write_vkitti_dataset`` writes the static scene in the layout the vKITTI
@@ -19,9 +22,8 @@ dataparser reads: intrinsic.txt and extrinsic.txt, frames/rgb/Camera_0/
 rgb_00000.jpg (quality 97) and frames/depth/Camera_0/depth_00000.png (16-bit
 centimetres).
 
-PNGs and JPEGs are written with ``utils.images`` and ``utils.jpeg``. The
-forward-flow files of the JAX writer (flow_fwd/) are not written: the port
-has no flow loss to read them.
+PNGs and JPEGs are written with ``utils.images`` and ``utils.jpeg``; the
+flow files are what ``data.image_metadata.ImageMetadata`` reads.
 
 Geometry is axis-aligned in the KITTI cam0 convention: x right, y down, z
 forward; the ground is the plane y = CAM_HEIGHT.
@@ -218,6 +220,92 @@ def render_frame(pose: np.ndarray, boxes: list[Box], h: int, w: int, fx: float =
             sem.reshape(h, w).astype(np.int32))
 
 
+def _project_into(pose_b: np.ndarray, pts: np.ndarray, fx: float, fy: float, cx: float,
+                  cy: float):
+    """World points projected into a (3, 4) cam0 -> world frame b (x right, y
+    down, z forward): (u (N,), v (N,), z (N,))."""
+    cam_b = (pts - pose_b[:3, 3]) @ pose_b[:3, :3]  # R_b^T (p - t_b), row by row
+    z = cam_b[:, 2]
+    zs = np.where(np.abs(z) < 1e-6, 1e-6, z)
+    return fx * cam_b[:, 0] / zs + cx, fy * cam_b[:, 1] / zs + cy, z
+
+
+def _flow_of(pts, sem, xs_f, ys_f, pose_b, h, w, fx, fy, cx, cy):
+    """Flow of traced points into frame b: (flow (H, W, 2) f32, valid (H, W)
+    bool). Valid are hit pixels (not sky: their depth is undefined) that land
+    in front of camera b."""
+    u1, v1, z = _project_into(pose_b, pts, fx, fy, cx, cy)
+    valid = (sem != SEMANTIC_CLASSES.index("sky")) & (z > 0.1)
+    flow = np.where(valid[:, None], np.stack([u1 - xs_f, v1 - ys_f], -1), 0.0)
+    return flow.reshape(h, w, 2).astype(np.float32), valid.reshape(h, w)
+
+
+def render_flow(pose_a: np.ndarray, pose_b: np.ndarray, boxes: list[Box], h: int, w: int,
+                fx: float, fy: float, cx: float, cy: float):
+    """Exact forward optical flow from frame a to frame b of the static
+    scene (camera motion only): frame a traced, each hit point projected
+    into frame b. Returns (flow (H, W, 2) f32, valid (H, W) bool)."""
+    o, dirs, _, xs_f, ys_f = _pixel_rays(pose_a, h, w, fx, fy, cx, cy)
+    _, t_ray, sem = trace(o, dirs, boxes)
+    return _flow_of(o + dirs * t_ray[:, None], sem, xs_f, ys_f, pose_b, h, w, fx, fy, cx, cy)
+
+
+def _write_calib(out: Path, fx: float, fy: float, cx: float, cy: float) -> None:
+    p2 = np.zeros((3, 4))
+    p2[0, 0], p2[1, 1], p2[0, 2], p2[1, 2], p2[2, 2] = fx, fy, cx, cy, 1.0
+    lines = [name + ": " + " ".join(f"{v:.12e}" for v in p2.reshape(-1))
+             for name in ("P0", "P1", "P2", "P3")]
+    (out / "calib.txt").write_text("\n".join(lines) + "\n")
+
+
+def _write_poses(out: Path, seq: str, poses: np.ndarray) -> None:
+    with open(out / f"{seq}.txt", "w") as f:
+        for p in poses:
+            f.write(" ".join(f"{v:.12e}" for v in p.reshape(-1)) + "\n")
+
+
+def _write_semantics_list(out: Path) -> None:
+    rows = ["Category,R,G,B"] + [f"{c},{r},{g},{b}"
+                                 for c, (r, g, b) in zip(SEMANTIC_CLASSES, SEMANTIC_COLORS)]
+    (out / "semantics_list.txt").write_text("\n".join(rows) + "\n")
+
+
+def _save_flow(path: Path, flow: np.ndarray, valid: np.ndarray) -> None:
+    np.save(path, np.concatenate([flow, valid[..., None].astype(np.float32)], -1))
+
+
+def write_dataset(out_dir: str | Path, n_frames: int = 40, h: int = 375, w: int = 1242,
+                  seed: int = 0, fx: float | None = None, fy: float | None = None,
+                  step: float = 0.8, write_flow: bool = False) -> Path:
+    """Write the static scene in the KITTI layout (module docstring): frames,
+    z-depth, colour semantics and all-white masks, and with ``write_flow``
+    the forward flow t -> t + 1. Returns out_dir."""
+    out = Path(out_dir)
+    seq = "00"
+    for d in (seq, "depth", "sem", "mask"):
+        (out / d).mkdir(parents=True, exist_ok=True)
+    sx, sy = w / 1242.0, h / 375.0
+    fx = FX * sx if fx is None else fx
+    fy = FY * sy if fy is None else fy
+    cx, cy = CX * sx, CY * sy
+    _write_calib(out, fx, fy, cx, cy)
+    boxes = make_scene(seed=seed, length=n_frames * step + 90.0)
+    poses = make_poses(n_frames, step=step)
+    _write_poses(out, seq, poses)
+    for i, pose in enumerate(poses):
+        rgb, depth, sem = render_frame(pose, boxes, h, w, fx, fy, cx, cy)
+        (out / seq / f"{i:06}.png").write_bytes(encode_png_u8((rgb * 255).astype(np.uint8)))
+        np.save(out / "depth" / f"{i:06}.npy", depth)
+        (out / "sem" / f"{i:06}.png").write_bytes(encode_png_u8(SEMANTIC_COLORS[sem]))
+        (out / "mask" / f"{i:06}.png").write_bytes(encode_png_u8(np.full((h, w), 255, np.uint8)))
+        if write_flow and i + 1 < len(poses):
+            (out / "flow_fwd").mkdir(exist_ok=True)
+            _save_flow(out / "flow_fwd" / f"{i:06}.npy",
+                       *render_flow(pose, poses[i + 1], boxes, h, w, fx, fy, cx, cy))
+    _write_semantics_list(out)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Mover:
     """A box moving at a constant velocity (metres a frame)."""
@@ -246,54 +334,86 @@ def boxes_at(static: list[Box], movers: list[Mover], frame: float) -> list[Box]:
     return moved + list(static)
 
 
+def _dynamic_trace(pose, static, movers, frame, h, w, fx, fy, cx, cy):
+    """The trace of one frame with the movers at their positions of
+    ``frame``: (origins, unit directions, |d_cam| norms, pixel xs, ys, rgb,
+    ray distances, semantic ids, box ids)."""
+    o, dirs, norm, xs_f, ys_f = _pixel_rays(pose, h, w, fx, fy, cx, cy)
+    rgb, t_ray, sem, ids = trace(o, dirs, boxes_at(static, movers, frame), return_ids=True)
+    return o, dirs, norm, xs_f, ys_f, rgb, t_ray, sem, ids
+
+
+def _dynamic_flow_of(traced, movers, dt, pose_b, h, w, fx, fy, cx, cy):
+    """Flow of a dynamic trace into frame b, ``dt`` frames later: points on a
+    mover travel with it before the projection."""
+    o, dirs, _, xs_f, ys_f, _, t_ray, sem, ids = traced
+    pts = o + dirs * t_ray[:, None]
+    for mi, m in enumerate(movers):
+        on = ids == mi
+        if on.any():
+            pts[on] += m.velocity * dt
+    return _flow_of(pts, sem, xs_f, ys_f, pose_b, h, w, fx, fy, cx, cy)
+
+
 def render_dynamic_frame(pose, static, movers, frame, h, w, fx, fy, cx, cy):
     """One frame with the movers at their positions of ``frame``: (rgb (H, W,
     3), z-depth (H, W) f32, semantic ids (H, W) int32, moving mask (H, W)
     bool)."""
-    o, dirs, norm, _, _ = _pixel_rays(pose, h, w, fx, fy, cx, cy)
-    rgb, t_ray, sem, ids = trace(o, dirs, boxes_at(static, movers, frame), return_ids=True)
+    _, _, norm, _, _, rgb, t_ray, sem, ids = _dynamic_trace(pose, static, movers, frame, h, w,
+                                                            fx, fy, cx, cy)
     dyn = (ids >= 0) & (ids < len(movers))
     # the camera-space direction has z = 1: z-depth = ray distance / |d_cam|
     return (rgb.reshape(h, w, 3), (t_ray / norm[:, 0]).reshape(h, w).astype(np.float32),
             sem.reshape(h, w).astype(np.int32), dyn.reshape(h, w))
 
 
+def render_dynamic_flow(pose_a, pose_b, static, movers, frame_a, frame_b, h, w, fx, fy, cx, cy):
+    """Exact forward optical flow of the dynamic scene from frame a to frame
+    b: (flow (H, W, 2) f32, valid (H, W) bool, moving mask (H, W) bool)."""
+    traced = _dynamic_trace(pose_a, static, movers, frame_a, h, w, fx, fy, cx, cy)
+    flow, valid = _dynamic_flow_of(traced, movers, frame_b - frame_a, pose_b, h, w,
+                                   fx, fy, cx, cy)
+    ids = traced[-1]
+    return flow, valid, ((ids >= 0) & (ids < len(movers))).reshape(h, w)
+
+
 def write_dynamic_dataset(out_dir: str | Path, n_frames: int = 24, h: int = 188, w: int = 621,
                           seed: int = 0, step: float = 0.8) -> Path:
     """Write the dynamic scene in the KITTI layout (module docstring):
-    frames, z-depth, colour semantics and static masks. Returns out_dir."""
+    frames, z-depth, colour semantics, static masks and the forward flow of
+    every frame but the last. Each frame is traced once: its flow comes from
+    the same trace (``render_dynamic_flow`` traces it again and gives the
+    same arrays). Returns out_dir."""
     out = Path(out_dir)
     seq = "00"
-    for d in (seq, "depth", "sem", "mask"):
+    for d in (seq, "depth", "sem", "mask", "flow_fwd"):
         (out / d).mkdir(parents=True, exist_ok=True)
 
     sx, sy = w / 1242.0, h / 375.0
     fx, fy, cx, cy = FX * sx, FY * sy, CX * sx, CY * sy
-    p2 = np.zeros((3, 4))
-    p2[0, 0], p2[1, 1], p2[0, 2], p2[1, 2], p2[2, 2] = fx, fy, cx, cy, 1.0
-    lines = [name + ": " + " ".join(f"{v:.12e}" for v in p2.reshape(-1))
-             for name in ("P0", "P1", "P2", "P3")]
-    (out / "calib.txt").write_text("\n".join(lines) + "\n")
-
+    _write_calib(out, fx, fy, cx, cy)
     static = make_scene(seed=seed, length=n_frames * step + 90.0)
     movers = make_movers()
     poses = make_poses(n_frames, step=step)
-    with open(out / f"{seq}.txt", "w") as f:
-        for p in poses:
-            f.write(" ".join(f"{v:.12e}" for v in p.reshape(-1)) + "\n")
+    _write_poses(out, seq, poses)
 
     for i, pose in enumerate(poses):
-        rgb, depth, sem, dyn = render_dynamic_frame(pose, static, movers, i, h, w, fx, fy, cx, cy)
+        traced = _dynamic_trace(pose, static, movers, i, h, w, fx, fy, cx, cy)
+        _, _, norm, _, _, rgb, t_ray, sem, ids = traced
+        dyn = ((ids >= 0) & (ids < len(movers))).reshape(h, w)
+        rgb = rgb.reshape(h, w, 3)
         (out / seq / f"{i:06}.png").write_bytes(encode_png_u8((rgb * 255).astype(np.uint8)))
-        np.save(out / "depth" / f"{i:06}.npy", depth)
+        np.save(out / "depth" / f"{i:06}.npy",
+                (t_ray / norm[:, 0]).reshape(h, w).astype(np.float32))
         # colour maps: the datamanager maps colours back to class ids
-        (out / "sem" / f"{i:06}.png").write_bytes(encode_png_u8(SEMANTIC_COLORS[sem]))
+        (out / "sem" / f"{i:06}.png").write_bytes(
+            encode_png_u8(SEMANTIC_COLORS[sem.reshape(h, w)]))
         (out / "mask" / f"{i:06}.png").write_bytes(
             encode_png_u8(((~dyn) * 255).astype(np.uint8)))
-
-    rows = ["Category,R,G,B"] + [f"{c},{r},{g},{b}"
-                                 for c, (r, g, b) in zip(SEMANTIC_CLASSES, SEMANTIC_COLORS)]
-    (out / "semantics_list.txt").write_text("\n".join(rows) + "\n")
+        if i + 1 < len(poses):
+            _save_flow(out / "flow_fwd" / f"{i:06}.npy",
+                       *_dynamic_flow_of(traced, movers, 1, poses[i + 1], h, w, fx, fy, cx, cy))
+    _write_semantics_list(out)
     return out
 
 

@@ -170,15 +170,15 @@ def apply_overrides(spec: MethodSpec, overrides: dict[str, str]) -> MethodSpec:
 
 
 def build_trainer(spec: MethodSpec, device=None) -> Trainer:
-    """The spec's model module and config, checked before any data is read;
-    the datamanager (the dataparser's train and 'val' splits, or the sphere
-    scene without a dataparser); where the model has them, ``num_images`` and
+    """The spec's model module and config; the datamanager (the
+    dataparser's train and 'val' splits, or the sphere scene without a
+    dataparser); where the model has them, ``num_images`` and
     ``num_semantic_classes`` from the data (the semantic head switched off,
     with a warning, when the data has no labels); the compute dtype from
-    ``spec.model_config``."""
+    ``spec.model_config``; with the camera optimizer, its 'camera_opt' Adam
+    group unless the spec has one."""
     dev = resolve_device(device)
     module = _model_module(spec.model_name)
-    module.check_supported(spec.model)
     if spec.dataparser is None:
         from nerf_kbs_tpu_torch.data.synthetic import SyntheticDataManager
 
@@ -199,7 +199,13 @@ def build_trainer(spec: MethodSpec, device=None) -> Trainer:
             print("WARNING: use_semantic=true but the dataset provides no semantic labels — "
                   "disabling the semantic head", flush=True)
             model_cfg = dataclasses.replace(model_cfg, use_semantic=False)
-    return Trainer(spec.trainer, model_cfg, dict(spec.optimizers), dm, device=dev, model=module)
+    optimizers = dict(spec.optimizers)
+    if getattr(model_cfg, "camera_optimizer", "off") != "off" and "camera_opt" not in optimizers:
+        # Adam 6e-4 decaying to 6e-6 over the run: pose registration needs
+        # the late-training floor (a constant 6e-4 lets the poses drift)
+        optimizers["camera_opt"] = OptimizerConfig(
+            lr=6e-4, eps=1e-8, lr_final=6e-6, max_steps=spec.trainer.max_num_iterations)
+    return Trainer(spec.trainer, model_cfg, optimizers, dm, device=dev, model=module)
 
 
 # run-mode flags and their defaults; both spellings (dash and underscore)

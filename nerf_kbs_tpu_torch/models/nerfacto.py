@@ -11,12 +11,12 @@ predicted normals and their losses. The config picks the path; a failure
 never does.
 
 Covered: both paths, the 'last_sample' / 'white' / 'black' backgrounds,
-appearance embeddings, the semantic head, and the rgb (masked when
-``use_mask``), interlevel, distortion, orientation, predicted-normal, depth
-and semantic losses. The camera optimizer and flow or sky supervision raise
-NotImplementedError naming the setting. The config carries every field of
-the JAX package's, with its names and defaults, so that one override path
-means the same in both.
+appearance embeddings, the semantic head, the camera optimizer ('SO3xR3':
+per-camera SE(3) tangents, ``camera_deltas``, with their L2 regularizer),
+and the rgb (masked when ``use_mask``), interlevel, distortion,
+orientation, predicted-normal, depth, semantic, flow and sky losses. The
+config carries every field of the JAX package's, with its names and
+defaults, so that one override path means the same in both.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 
 from nerf_kbs_tpu_torch.cameras.cameras import RayBundle
+from nerf_kbs_tpu_torch.cameras.transforms import exp_map_se3
 from nerf_kbs_tpu_torch.device import resolve_device
 from nerf_kbs_tpu_torch.models.fields import (
     DensityFieldConfig,
@@ -52,10 +53,7 @@ from nerf_kbs_tpu_torch.ops.samplers import RaySamples, anneal_schedule, proposa
 
 @dataclasses.dataclass(frozen=True)
 class NerfactoConfig:
-    """The JAX package's NerfactoConfig, field for field. The camera
-    optimizer's penalties and the flow and sky multipliers are carried for
-    the override paths; a run that needs them raises (see
-    ``check_supported``)."""
+    """The JAX package's NerfactoConfig, field for field."""
 
     num_images: int = 1
     field_type: str = "hash"  # hash | fourier | cp
@@ -114,11 +112,17 @@ class NerfactoConfig:
     use_semantic: bool = False
     use_mask: bool = False
     semantic_loss_weight: float = 0.001
+    # the L1 between the flow that the rendered depth induces in the
+    # forward neighbour and the stored flow, when the batch carries the
+    # stream's flow rows ('forward_flow', 'fwd_w2c', 'fwd_K', 'pixel_xy')
     flow_loss_mult: float = 0.0
+    # the accumulation pushed to 0 on the batch's 'sky' rows
     sky_loss_mult: float = 0.0
     num_semantic_classes: int = 0
     appearance_embedding_dim: int = 32
     compute_dtype: str = "float32"
+    # 'off' or 'SO3xR3': per-camera 6-DoF tangents applied to c2w at ray
+    # generation, with L2 penalties on their translation and rotation parts
     camera_optimizer: str = "off"
     camera_opt_trans_penalty: float = 1e-2
     camera_opt_rot_penalty: float = 1e-3
@@ -190,41 +194,36 @@ class NerfactoConfig:
         )
 
 
-def check_supported(cfg: NerfactoConfig) -> None:
-    """Raises NotImplementedError naming the first setting that is not
-    ported."""
-    unsupported = {
-        "flow_loss_mult": cfg.flow_loss_mult != 0.0,
-        "sky_loss_mult": cfg.sky_loss_mult != 0.0,
-        "camera_optimizer": cfg.camera_optimizer != "off",
-    }
-    for name, bad in unsupported.items():
-        if bad:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported (both field paths, with the "
-                f"rgb, interlevel, distortion, normal, depth and semantic losses)"
-            )
-
-
 def init(cfg: NerfactoConfig, seed: int = 0, device=None) -> dict:
     """Parameters from ``seed`` (drawn on the CPU with one torch.Generator,
-    then moved): {"fields": {...}, "proposal_networks": [{...}, ...]}."""
-    check_supported(cfg)
+    then moved): {"fields": {...}, "proposal_networks": [{...}, ...]} and,
+    with the camera optimizer, "camera_opt": zeros (num_images, 6)."""
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
-    return {
+    params = {
         "fields": nerfacto_field_init(cfg.field, g, dev),
         "proposal_networks": [
             density_field_init(cfg.proposal_field(i), g, dev)
             for i in range(cfg.num_proposal_iterations)
         ],
     }
+    if cfg.camera_optimizer != "off":
+        params["camera_opt"] = torch.zeros(cfg.num_images, 6, device=dev)
+    return params
 
 
 def param_groups(params: dict) -> dict:
-    """Optimizer groups: the top-level entries, 'fields' and
-    'proposal_networks'."""
+    """Optimizer groups: the top-level entries, 'fields',
+    'proposal_networks' and, with the camera optimizer, 'camera_opt'."""
     return {k: params[k] for k in params}
+
+
+def camera_deltas(params: dict):
+    """(N, 3, 4) per-camera pose adjustments for ``generate_rays``, or None
+    without the camera optimizer."""
+    if "camera_opt" not in params:
+        return None
+    return exp_map_se3(params["camera_opt"])
 
 
 def uses_fused_path(cfg: NerfactoConfig, compute_normals: bool | None = None) -> bool:
@@ -278,8 +277,9 @@ def forward(
     'pred_normals' and '_sample_pred_normals'. With ``train`` the samplers
     jitter (from ``generator``, or from ``jitters``: one tensor per sampler
     call, see ``proposal_sample``), the proposal weights are annealed by
-    ``step`` and appearance rows are per camera."""
-    check_supported(cfg)
+    ``step``, appearance rows are per camera and, with the camera
+    optimizer, '_camera_opt_tangent' is the (N, 6) tangents for the loss's
+    regularizer."""
     rays = R.near_far_collider(rays, cfg.near_plane, cfg.far_plane)
     dev = rays.origins.device
     compute_normals = cfg.predict_normals if compute_normals is None else compute_normals
@@ -289,11 +289,14 @@ def forward(
     prop_cfgs = [cfg.proposal_field(i) for i in range(cfg.num_proposal_iterations)]
     anneal = proposal_anneal(cfg, step, train)
     props = params["proposal_networks"]
+    cam_on = cfg.camera_optimizer != "off"
     if use_fused:
-        # positions are constants when sampling is detached (there is no
-        # camera optimizer here): the backward kernels then form no dx.
-        # Round 0 samples are uniform and never depend on parameters.
-        need_dx = [False] + [not cfg.stop_grad_sampling] * (cfg.num_proposal_iterations - 1)
+        # positions are constants when sampling is detached and the rays do
+        # not depend on parameters: the backward kernels then form no dx.
+        # Round 0 samples are uniform, so only the camera optimizer moves
+        # them.
+        need_dx = [cam_on] + [cam_on or not cfg.stop_grad_sampling] * (
+            cfg.num_proposal_iterations - 1)
         density_fns = [
             (lambda pos_t, p=props[i], c=prop_cfgs[i], w=prop_windows[i], nd=need_dx[i]:
              density_field_apply_t(p, c, pos_t, window=w, need_dx=nd))
@@ -324,7 +327,7 @@ def forward(
         field_out = nerfacto_field_apply_t(
             params["fields"], cfg.field, samples.positions_t(rays), rays.directions,
             rays.camera_indices, train=train, window=field_window,
-            need_dx=not cfg.stop_grad_sampling,
+            need_dx=cam_on or not cfg.stop_grad_sampling,
         )
     else:
         field_out = nerfacto_field_apply(
@@ -378,6 +381,8 @@ def forward(
         outputs[f"prop_depth_{i}"] = R.render_median_depth(pw, ps)
     outputs["_view_dirs"] = rays.directions
     outputs["_origins"] = rays.origins
+    if train and "camera_opt" in params:
+        outputs["_camera_opt_tangent"] = params["camera_opt"]
     return outputs
 
 
@@ -416,17 +421,33 @@ def depth_loss(cfg: NerfactoConfig, outputs: dict, batch: dict) -> torch.Tensor:
     return cfg.mono_depth_loss_mult * dl
 
 
+def camera_opt_regularizer(cfg: NerfactoConfig, outputs: dict) -> dict:
+    """{'camera_opt_regularizer': the penalties times the mean squared
+    translation and rotation tangents} when the forward gave the tangents
+    and a penalty is set, else {}. Squared norms are differentiable at the
+    zero start."""
+    if "_camera_opt_tangent" not in outputs or not (
+            cfg.camera_opt_trans_penalty > 0 or cfg.camera_opt_rot_penalty > 0):
+        return {}
+    t = outputs["_camera_opt_tangent"]
+    return {"camera_opt_regularizer":
+            cfg.camera_opt_trans_penalty * torch.mean(torch.sum(t[:, :3] ** 2, -1))
+            + cfg.camera_opt_rot_penalty * torch.mean(torch.sum(t[:, 3:] ** 2, -1))}
+
+
 def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
     """(total, metrics): the rgb MSE against batch['image'] (R, 3), over the
     pixels of batch['mask'] (R, 1) when ``use_mask``, and in training the
     interlevel loss (on the first ``interlevel_ray_fraction`` of the rays),
-    the distortion loss, with ``predict_normals`` the orientation and
-    predicted-normal losses, the semantic cross-entropy against
-    batch['semantics_label'] (R,) and the depth loss against
-    batch['depth_image'] (R, 1), each times its multiplier; the interlevel
-    and distortion terms are skipped when theirs is 0. metrics holds every
-    term and 'psnr' (over the masked pixels when ``use_mask``)."""
-    check_supported(cfg)
+    the distortion loss, the camera optimizer's regularizer, with
+    ``predict_normals`` the orientation and predicted-normal losses, the
+    semantic cross-entropy against batch['semantics_label'] (R,), the flow
+    loss against batch['forward_flow'] (R, 2) (masked by 'flow_valid'), the
+    depth loss against batch['depth_image'] (R, 1) and the sky term on
+    batch['sky'] (R, 1), each times its multiplier; the interlevel,
+    distortion, flow and sky terms are skipped when theirs is 0. metrics
+    holds every term and 'psnr' (over the masked pixels when
+    ``use_mask``)."""
     gt, pred = batch["image"], outputs["rgb"]
     masked = cfg.use_mask and "mask" in batch
     rgb_loss = masked_rgb_loss(pred, gt, batch["mask"]) if masked else L.mse_loss(pred, gt)
@@ -438,6 +459,7 @@ def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
         if cfg.distortion_loss_mult > 0:
             losses["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
                 outputs["ray_samples"], outputs["weights"])
+        losses.update(camera_opt_regularizer(cfg, outputs))
         if cfg.predict_normals and "_sample_normals" in outputs:
             losses["orientation_loss"] = cfg.orientation_loss_mult * L.orientation_loss(
                 outputs["weights"], outputs["_sample_normals"], outputs["_view_dirs"])
@@ -448,8 +470,19 @@ def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
         if cfg.use_semantic and "semantics_label" in batch:
             losses["semantic_loss"] = cfg.semantic_loss_weight * L.semantic_loss(
                 outputs["semantics"], batch["semantics_label"])
+        if cfg.flow_loss_mult > 0.0 and "forward_flow" in batch:
+            pred_flow = L.induced_flow(outputs["_origins"], outputs["_view_dirs"],
+                                       outputs["depth"], batch["pixel_xy"], batch["fwd_w2c"],
+                                       batch["fwd_K"])
+            losses["flow_loss"] = cfg.flow_loss_mult * L.flow_loss(
+                pred_flow, batch["forward_flow"], batch.get("flow_valid"))
         if cfg.use_depth and "depth_image" in batch:
             losses["depth_loss"] = depth_loss(cfg, outputs, batch)
+        if cfg.sky_loss_mult > 0.0 and "sky" in batch:
+            sky = batch["sky"].to(pred.dtype)
+            acc = outputs["accumulation"]
+            losses["sky_loss"] = cfg.sky_loss_mult * (
+                torch.sum(sky * acc**2) / torch.clamp_min(torch.sum(sky), 1.0))
     total = sum(losses.values())
     if masked:
         psnr = masked_psnr(pred.detach(), gt, batch["mask"][..., 0])

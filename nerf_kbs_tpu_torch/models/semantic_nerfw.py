@@ -13,8 +13,10 @@ semantics and the proposal losses read the static weights; the uncertainty
 beta is the transient weights' composite of the per-sample uncertainty
 (weights detached) plus ``uncertainty_min``.
 
-The loss: the interlevel and distortion terms are always there in training;
-the rgb term is, with the transient path, the beta-weighted
+The loss: the interlevel and distortion terms are always there in training,
+and the camera optimizer's regularizer when the forward gave the tangents
+(nerfacto's forward does; the transient one does not, as in the JAX
+package); the rgb term is, with the transient path, the beta-weighted
 mean(sum((gt - rgb)^2) / beta^2) together with 3 + mean(log beta) and
 ``transient_density_loss_mult`` times the mean transient density, else
 masked when ``use_mask`` and a mask comes; the semantic term
@@ -52,15 +54,12 @@ class SemanticNerfWConfig(_nerfacto.NerfactoConfig):
                                    use_transient_embedding=self.use_transient_embedding)
 
 
-check_supported = _nerfacto.check_supported
-
-
 def init(cfg: SemanticNerfWConfig, seed: int = 0, device=None) -> dict:
-    check_supported(cfg)
     return _nerfacto.init(cfg, seed=seed, device=device)
 
 
 param_groups = _nerfacto.param_groups
+camera_deltas = _nerfacto.camera_deltas
 
 
 def forward(params: dict, cfg: SemanticNerfWConfig, rays, step: float = 0, train: bool = False,
@@ -71,7 +70,6 @@ def forward(params: dict, cfg: SemanticNerfWConfig, rays, step: float = 0, train
     'proposal_history', 'directions_norm', 'uncertainty' (R, 1),
     'density_transient' (R, S), 'prop_depth_i' and, with the semantic head,
     'semantics'. Jitter as in ``nerfacto.forward``."""
-    check_supported(cfg)
     if not (cfg.use_transient_embedding and train):
         return _nerfacto.forward(params, cfg, rays, step=step, train=train, generator=generator,
                                  jitters=jitters)
@@ -118,7 +116,6 @@ def forward(params: dict, cfg: SemanticNerfWConfig, rays, step: float = 0, train
 
 def loss(cfg: SemanticNerfWConfig, outputs: dict, batch: dict, train: bool = True):
     """(total, metrics); see the module docstring for the terms."""
-    check_supported(cfg)
     gt, pred = batch["image"], outputs["rgb"]
     losses = {}
     if train:
@@ -126,6 +123,7 @@ def loss(cfg: SemanticNerfWConfig, outputs: dict, batch: dict, train: bool = Tru
             *_nerfacto._first_ray_args(outputs, gt.shape[0], cfg.interlevel_ray_fraction))
         losses["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
             outputs["ray_samples"], outputs["weights"])
+        losses.update(_nerfacto.camera_opt_regularizer(cfg, outputs))
     if train and "uncertainty" in outputs:
         betas = outputs["uncertainty"]
         losses["uncertainty_loss"] = 3.0 + torch.mean(torch.log(betas))

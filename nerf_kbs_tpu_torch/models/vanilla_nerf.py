@@ -85,10 +85,6 @@ class VanillaNerfConfig:
                          compute_dtype=self.compute_dtype)
 
 
-def check_supported(cfg: VanillaNerfConfig) -> None:
-    """Every setting of the model is ported."""
-
-
 def _init_field(cfg: VanillaNerfConfig, g: torch.Generator, dev) -> dict:
     return {"base": mlp_init(cfg.base_mlp, g, dev),
             "density_head": mlp_init(cfg.density_mlp, g, dev),

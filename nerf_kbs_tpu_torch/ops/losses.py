@@ -1,7 +1,8 @@
 """Training losses: rgb MSE, the interlevel (proposal) loss and the
 distortion loss in the samplers' spacing domain, the orientation and
-predicted-normal losses, the monocular and euclidean depth losses, and the
-semantic cross-entropy."""
+predicted-normal losses, the monocular and euclidean depth losses, the
+semantic cross-entropy, and the flow loss on the flow that the rendered
+depth induces."""
 
 from __future__ import annotations
 
@@ -156,3 +157,32 @@ def semantic_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).to(logp.dtype)
     return -torch.mean(torch.sum(logp * onehot, dim=-1))
+
+
+def induced_flow(origins: torch.Tensor, directions: torch.Tensor, depth: torch.Tensor,
+                 pixel_xy: torch.Tensor, neighbor_w2c: torch.Tensor,
+                 neighbor_K: torch.Tensor) -> torch.Tensor:
+    """The optical flow that the rendered depth induces: each ray's
+    termination point projected into the neighbour camera, minus the source
+    pixel. origins, directions (B, 3) world; depth (B, 1) along the ray;
+    pixel_xy (B, 2) the source pixel (u, v); neighbor_w2c (B, 3, 4) world ->
+    neighbour camera, OpenGL (looking down -z); neighbor_K (B, 4) = (fx, fy,
+    cx, cy). Returns (B, 2)."""
+    pts = origins + directions * depth
+    cam = torch.einsum("bij,bj->bi", neighbor_w2c[..., :3], pts) + neighbor_w2c[..., 3]
+    z = torch.clamp_min(-cam[:, 2], 1e-6)
+    fx, fy, cx, cy = (neighbor_K[:, i] for i in range(4))
+    u = fx * (cam[:, 0] / z) + cx
+    v = fy * (-cam[:, 1] / z) + cy
+    return torch.stack([u, v], dim=-1) - pixel_xy
+
+
+def flow_loss(pred_flow: torch.Tensor, gt_flow: torch.Tensor,
+              valid: torch.Tensor | None = None) -> torch.Tensor:
+    """L1 between induced and observed flow, summed over (u, v) and averaged
+    over the valid rows."""
+    err = torch.sum(torch.abs(pred_flow - gt_flow), dim=-1)
+    if valid is None:
+        return torch.mean(err)
+    v = valid.to(err.dtype).reshape(err.shape)
+    return torch.sum(err * v) / torch.clamp_min(torch.sum(v), 1.0)

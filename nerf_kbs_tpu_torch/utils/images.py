@@ -9,10 +9,19 @@ bits a sample (1, 2 and 4 for grey and palette) and at 16 (uint16, as depth
 maps in centimetres are stored). ``convert`` gives the 'RGB' and 'L' views a
 loader asks for, with PIL's integer luma for 'L', so
 ``convert(decode_png(b), "L") > 0`` is what ``np.asarray(Image.open(f)
-.convert("L")) > 0`` gives."""
+.convert("L")) > 0`` gives.
+
+The resizers give, in NumPy, what a loader got from an imaging package:
+``resize_lanczos`` and ``resize_nearest`` are PIL's ``Image.resize`` with
+LANCZOS (its fixed-point separable passes, bit for bit on uint8) and
+NEAREST; ``resize_nearest_cv`` and ``resize_linear_cv`` are OpenCV's
+``cv2.resize`` with INTER_NEAREST and INTER_LINEAR. The two nearest rules
+pick different source pixels: PIL samples at pixel centres, OpenCV at
+floor(x * scale)."""
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
@@ -240,3 +249,125 @@ def image_size(path) -> tuple[int, int]:
     with open(path, "rb") as f:
         data = f.read() if _suffix(path) != "png" else f.read(24)
     return png_size(data) if _suffix(path) == "png" else jpeg.image_size(data)
+
+
+# PIL's fixed-point precision of the resampling coefficients (8-bit images)
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _lanczos3(x: float) -> float:
+    def sinc(v: float) -> float:
+        if v == 0.0:
+            return 1.0
+        v = v * math.pi
+        return math.sin(v) / v
+
+    return sinc(x) * sinc(x / 3.0) if -3.0 <= x < 3.0 else 0.0
+
+
+def _lanczos_coefficients(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for one
+    axis: (first source index of each output (out,), integer taps (out,
+    ksize)). The arithmetic is PIL's, in double, one output at a time."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ss = 1.0 / filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    taps = np.zeros((out_size, ksize), np.int64)
+    first = np.zeros(out_size, np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), in_size) - xmin
+        w = [_lanczos3((x + xmin - center + 0.5) * ss) for x in range(n)]
+        total = 0.0
+        for v in w:
+            total += v
+        for x, v in enumerate(w):
+            k = v / total if total != 0.0 else v
+            taps[xx, x] = int((-0.5 if k < 0 else 0.5) + k * (1 << _PRECISION_BITS))
+        first[xx] = xmin
+    return first, taps
+
+
+def _lanczos_pass(px: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    first, taps = _lanczos_coefficients(px.shape[axis], out_size)
+    src = np.moveaxis(px, axis, 0).astype(np.int64)
+    # taps past a row's support are 0: pad so that every tap index exists
+    src = np.concatenate([src, np.zeros((taps.shape[1],) + src.shape[1:], np.int64)])
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    col = (-1,) + (1,) * (src.ndim - 1)
+    for k in range(taps.shape[1]):
+        acc += src[first + k] * taps[:, k].reshape(col)
+    return np.moveaxis(np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8), 0, axis)
+
+
+def resize_lanczos(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's ``Image.resize((width, height), Image.LANCZOS)`` of uint8 (H, W)
+    or (H, W, C) pixels: the horizontal pass, rounded to uint8, then the
+    vertical pass, each only where that size changes."""
+    if pixels.dtype != np.uint8:
+        raise ValueError(f"{pixels.dtype} pixels: the LANCZOS resizer takes uint8")
+    out = pixels
+    if width != pixels.shape[1]:
+        out = _lanczos_pass(out, 1, width)
+    if height != pixels.shape[0]:
+        out = _lanczos_pass(out, 0, height)
+    return out
+
+
+def _pil_nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    # PIL's affine scaling walks the source coordinate by repeated addition
+    # from the first pixel centre; cumsum adds in the same order
+    a = in_size / out_size
+    steps = np.full(out_size, a)
+    steps[0] = a * 0.5
+    return np.minimum(np.cumsum(steps).astype(np.int64), in_size - 1)
+
+
+def resize_nearest(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's ``Image.resize((width, height), Image.NEAREST)``: each output
+    pixel takes the source pixel under its centre."""
+    return pixels[_pil_nearest_index(pixels.shape[0], height)][
+        :, _pil_nearest_index(pixels.shape[1], width)]
+
+
+def _cv_nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    inv = 1.0 / (out_size / in_size)
+    return np.minimum(np.floor(np.arange(out_size) * inv).astype(np.int64), in_size - 1)
+
+
+def resize_nearest_cv(arr: np.ndarray, width: int, height: int) -> np.ndarray:
+    """OpenCV's ``cv2.resize(arr, (width, height),
+    interpolation=cv2.INTER_NEAREST)``: output x takes source floor(x *
+    in / out)."""
+    return arr[_cv_nearest_index(arr.shape[0], height)][
+        :, _cv_nearest_index(arr.shape[1], width)]
+
+
+def _cv_linear_weights(in_size: int, out_size: int):
+    scale = 1.0 / (out_size / in_size)
+    f = ((np.arange(out_size) + 0.5) * scale - 0.5).astype(np.float32)
+    lo = np.floor(f).astype(np.int64)
+    f = f - lo.astype(np.float32)
+    # OpenCV clamps at the borders: the edge pixel with weight 1
+    left, right = lo < 0, lo >= in_size - 1
+    f[left | right] = 0.0
+    lo[left] = 0
+    lo[right] = in_size - 1
+    return lo, np.minimum(lo + 1, in_size - 1), np.float32(1.0) - f, f
+
+
+def resize_linear_cv(arr: np.ndarray, width: int, height: int) -> np.ndarray:
+    """OpenCV's ``cv2.resize(arr, (width, height),
+    interpolation=cv2.INTER_LINEAR)`` of float32 (H, W) or (H, W, C) data
+    (optical flow): half-pixel-centre bilinear weights in float32, the
+    horizontal pass then the vertical."""
+    a = np.asarray(arr, np.float32)
+    x0, x1, xa, xb = _cv_linear_weights(a.shape[1], width)
+    y0, y1, ya, yb = _cv_linear_weights(a.shape[0], height)
+    row = (1, -1) + (1,) * (a.ndim - 2)
+    col = (-1,) + (1,) * (a.ndim - 1)
+    rows = a[:, x0] * xa.reshape(row) + a[:, x1] * xb.reshape(row)
+    return rows[y0] * ya.reshape(col) + rows[y1] * yb.reshape(col)

@@ -138,8 +138,8 @@ def test_decode_png_refuses_16_bit_and_interlaced():
 
 
 def test_scene_writer_matches_jax(scenes):
-    """Same pixels, depth, semantic colours and masks as the JAX writer, and
-    the same calib, pose and class files; no flow files."""
+    """Same pixels, depth, semantic colours and masks as the JAX writer, the
+    same calib, pose and class files, and the same forward-flow files."""
     jdir, tdir = scenes
     for i in range(FRAMES):
         for sub in ("00", "sem", "mask"):
@@ -150,7 +150,10 @@ def test_scene_writer_matches_jax(scenes):
                                       np.load(jdir / "depth" / f"{i:06}.npy"))
     for name in ("calib.txt", "00.txt", "semantics_list.txt"):
         assert (tdir / name).read_text() == (jdir / name).read_text()
-    assert not (tdir / "flow_fwd").exists()
+    for i in range(FRAMES - 1):
+        np.testing.assert_array_equal(np.load(tdir / "flow_fwd" / f"{i:06}.npy"),
+                                      np.load(jdir / "flow_fwd" / f"{i:06}.npy"))
+    assert not (tdir / "flow_fwd" / f"{FRAMES - 1:06}.npy").exists()
     mask = images.read_image(tdir / "mask" / "000003.png", "L")
     assert (mask == 0).any() and (mask == 255).any()  # the moving cars are masked
 

@@ -183,6 +183,8 @@ def test_port_imports_no_jax():
         "import nerf_kbs_tpu_torch.data.datamanager, nerf_kbs_tpu_torch.data.synthetic_kitti\n"
         "import nerf_kbs_tpu_torch.data.dataparsers.kitti, nerf_kbs_tpu_torch.cameras.poses\n"
         "import nerf_kbs_tpu_torch.ops.metrics, nerf_kbs_tpu_torch.utils.images\n"
+        "import nerf_kbs_tpu_torch.data.stream, nerf_kbs_tpu_torch.cameras.transforms\n"
+        "import nerf_kbs_tpu_torch.data.dataparsers.suds_metadata\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'nerf_kbs_tpu', 'PIL', 'cv2')]\n"
         "assert not bad, bad\n"
@@ -222,11 +224,76 @@ def _png_depth_datamanager(tmp_path):
 
 
 # settings ported since the cases were written: each case now runs the eval
-# forward on the non-fused path and matches JAX (or, for the last two, the
-# transient training forward and the PNG depth loader, their JAX
+# forward on the non-fused path and matches JAX (or, for the others, the
+# transient training forward, the PNG depth loader, the camera optimizer's
+# rays and fused forward, and the flow and sky terms, against their JAX
 # counterparts)
 PORTED = ("field_type", "predict_normals", "disable_scene_contraction",
-          "use_transient_embedding", "16-bit PNG depth")
+          "use_transient_embedding", "16-bit PNG depth", "camera_optimizer", "flow_loss_mult",
+          "sky_loss_mult")
+
+
+def _flow_sky_batch(n, seed=6):
+    """Stream-like supervision rows: rgb, the forward neighbour's w2c and
+    intrinsics, the source pixel, a stored flow with its validity, sky."""
+    rng = np.random.default_rng(seed)
+    w2c = np.tile(np.eye(3, 4, dtype=np.float32), (n, 1, 1))
+    w2c[:, :, 3] = rng.normal(size=(n, 3)).astype(np.float32) * 0.05 + [0.0, 0.0, -2.0]
+    return {"image": rng.random((n, 3)).astype(np.float32),
+            "fwd_w2c": w2c,
+            "fwd_K": np.tile(np.array([[20.0, 20.0, 8.0, 6.0]], np.float32), (n, 1)),
+            "pixel_xy": rng.uniform(0, 16, (n, 2)).astype(np.float32),
+            "forward_flow": rng.normal(size=(n, 2)).astype(np.float32),
+            "flow_valid": (rng.random((n, 1)) > 0.3).astype(np.float32),
+            "sky": (rng.random((n, 1)) > 0.5).astype(np.float32)}
+
+
+def _ported_training_case(name):
+    """The camera optimizer (fused path: rays through camera_deltas of
+    non-zero tangents, the eval forward) or the flow / sky terms (the
+    training forward and loss on a stream-like batch), against JAX."""
+    change = {"camera_optimizer": dict(camera_optimizer="SO3xR3"),
+              "flow_loss_mult": dict(flow_loss_mult=0.001),
+              "sky_loss_mult": dict(sky_loss_mult=0.1)}[name]
+    jcfg, tcfg = _pair(**{**SMALL, **change})
+    jp, tp = _params(jcfg)
+    if name == "camera_optimizer":
+        assert tnerf.uses_fused_path(tcfg) and tuple(tp["camera_opt"].shape) == (3, 6)
+        tang = np.random.default_rng(3).normal(size=(3, 6)).astype(np.float32) * 0.05
+        jp["camera_opt"], tp["camera_opt"] = jnp.asarray(tang), torch.as_tensor(tang)
+        cams_np = orbit_cameras(3, h=6, w=8)
+        box = np.array([[-1.0] * 3, [1.0] * 3])
+        idx = np.stack(np.meshgrid([2], np.arange(6), np.arange(8), indexing="ij"),
+                       -1).reshape(-1, 3).astype(np.int32)
+        jr = jcam.generate_rays(JOutputs([], cams_np, box).cameras(), jnp.asarray(idx),
+                                c2w_delta=jnerf.camera_deltas(jp))
+        tr = tcam.generate_rays(TOutputs([], cams_np, box).cameras("cpu"), torch.as_tensor(idx),
+                                c2w_delta=tnerf.camera_deltas(tp))
+        jout = jax.jit(lambda p, r: jnerf.forward(p, jcfg, r, key=None, step=900,
+                                                  train=False))(jp, jr)
+        with torch.no_grad():
+            tout = tnerf.forward(tp, tcfg, tr, step=900, train=False)
+        _compare(tout, jout)
+        return
+    n = 16
+    jr, tr = _rays(n, seed=2)
+    batch = _flow_sky_batch(n)
+    key = jax.random.PRNGKey(1)
+    jtotal, jm = jax.jit(lambda p: jnerf.loss(
+        jcfg, jnerf.forward(p, jcfg, jr, key=key, step=900, train=True),
+        {k: jnp.asarray(v) for k, v in batch.items()}))(jp)
+    with torch.no_grad():
+        tout = tnerf.forward(tp, tcfg, tr, step=900, train=True, jitters=[
+            torch.tensor(np.array(jax.random.uniform(k, (n, 1))))
+            for k in jax.random.split(key, 3)])
+        ttotal, tm = tnerf.loss(tcfg, tout, {k: torch.as_tensor(v) for k, v in batch.items()})
+    term = {"flow_loss_mult": "flow_loss", "sky_loss_mult": "sky_loss"}[name]
+    assert set(tm) == set(jm) and term in tm
+    for k in tm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(float(ttotal), float(jtotal), rtol=1e-4)
+
+
 TINY_GRIDS = dict(num_levels=4, log2_hashmap_size=10, proposal_num_levels=2,
                   proposal_log2_hashmap_size=8)
 
@@ -244,13 +311,19 @@ TINY_GRIDS = dict(num_levels=4, log2_hashmap_size=10, proposal_num_levels=2,
     (dict(flow_loss_mult=0.001), "flow_loss_mult"),
     (dict(sky_loss_mult=0.1), "sky_loss_mult"),
 ])
-def test_unported_configs_raise(change, name, tmp_path):
-    """What is not ported raises by name; the settings of PORTED (hash and
-    cp fields, normals, disabled contraction) run the eval forward instead,
-    on the non-fused path, and match the JAX package's."""
+def test_unported_configs_raise(change, name, tmp_path, monkeypatch):
+    """Every setting of the cases is ported now, and none raises: the hash
+    and cp fields, normals and disabled contraction run the eval forward on
+    the non-fused path; the others run as ``_ported_training_case`` and the
+    transient and PNG-depth branches say; each matches the JAX package."""
     from nerf_kbs_tpu.models import semantic_nerfw as jsem
     from nerf_kbs_tpu_torch.models import semantic_nerfw
 
+    assert name in PORTED
+    if name in ("camera_optimizer", "flow_loss_mult", "sky_loss_mult"):
+        monkeypatch.setenv("NKT_FUSED", "1")
+        _ported_training_case(name)
+        return
     if change == "png_depth":
         _png_depth_datamanager(tmp_path)
         return
@@ -270,34 +343,42 @@ def test_unported_configs_raise(change, name, tmp_path):
         _compare(tout, jout, ("rgb", "accumulation", "depth", "uncertainty",
                               "density_transient", "prop_depth_0", "prop_depth_1"))
         return
-    if name in PORTED:
-        jcfg, tcfg = _pair(**{**SMALL, **change})
-        assert not tnerf.uses_fused_path(tcfg)
-        jp, tp = _params(jcfg)
-        jr, tr = _rays(16, seed=2)
-        jout = jax.jit(lambda p, r: jnerf.forward(p, jcfg, r, key=None, step=900,
-                                                  train=False))(jp, jr)
-        with torch.no_grad():  # as the renderer and the trainer's eval call it
-            tout = tnerf.forward(tp, tcfg, tr, step=900, train=False)
-        keys = OUT_KEYS + (("normals", "pred_normals") if tcfg.predict_normals else ())
-        _compare(tout, jout, keys)
-        return
-    with pytest.raises(NotImplementedError, match=name):
-        tnerf.init(dataclasses.replace(tnerf.NerfactoConfig(**SMALL), **change), device="cpu")
+    jcfg, tcfg = _pair(**{**SMALL, **change})
+    assert not tnerf.uses_fused_path(tcfg)
+    jp, tp = _params(jcfg)
+    jr, tr = _rays(16, seed=2)
+    jout = jax.jit(lambda p, r: jnerf.forward(p, jcfg, r, key=None, step=900,
+                                              train=False))(jp, jr)
+    with torch.no_grad():  # as the renderer and the trainer's eval call it
+        tout = tnerf.forward(tp, tcfg, tr, step=900, train=False)
+    keys = OUT_KEYS + (("normals", "pred_normals") if tcfg.predict_normals else ())
+    _compare(tout, jout, keys)
 
 
 def test_train_forward_and_bad_background_raise():
-    """The training forward runs; what training still lacks raises by name,
-    in the forward and in the loss."""
+    """The training forward runs, with flow supervision too: its loss has the
+    flow term when the batch carries the flow rows (equal to JAX's
+    induced_flow and flow_loss) and none without them; a bad background
+    still raises."""
+    from nerf_kbs_tpu.ops import losses as jL
+
     r = _small_renderer()
     _, tr = _rays(4)
     out = tnerf.forward(r.params, r.config, tr, train=True,
                         generator=torch.Generator().manual_seed(0))
     assert out["rgb"].shape == (4, 3) and len(out["proposal_history"]) == 2
     flow_cfg = dataclasses.replace(r.config, flow_loss_mult=0.001)
-    with pytest.raises(NotImplementedError, match="flow_loss_mult"):
-        tnerf.forward(r.params, flow_cfg, tr, train=True)
-    with pytest.raises(NotImplementedError, match="flow_loss_mult"):
-        tnerf.loss(flow_cfg, out, {"image": torch.zeros(4, 3)})
+    flow_out = tnerf.forward(r.params, flow_cfg, tr, train=True,
+                             generator=torch.Generator().manual_seed(0))
+    assert torch.equal(flow_out["rgb"], out["rgb"])
+    batch = {k: torch.as_tensor(v) for k, v in _flow_sky_batch(4).items()}
+    _, m = tnerf.loss(flow_cfg, flow_out, batch)
+    want = 0.001 * float(jL.flow_loss(
+        jL.induced_flow(*(jnp.asarray(flow_out[k].detach().numpy())
+                          for k in ("_origins", "_view_dirs", "depth")),
+                        *(jnp.asarray(batch[k].numpy()) for k in ("pixel_xy", "fwd_w2c", "fwd_K"))),
+        jnp.asarray(batch["forward_flow"].numpy()), jnp.asarray(batch["flow_valid"].numpy())))
+    np.testing.assert_allclose(float(m["flow_loss"]), want, rtol=1e-5)
+    assert "flow_loss" not in tnerf.loss(flow_cfg, out, {"image": torch.zeros(4, 3)})[1]
     with pytest.raises(ValueError, match="background_color"):
         tnerf.forward(r.params, dataclasses.replace(r.config, background_color="pink"), tr)

@@ -382,7 +382,9 @@ def test_transient_embedding_raises():
     """The transient path is ported (held against JAX in
     tests/test_torch_transient.py): init makes the transient heads, the
     training forward gives the uncertainty and the eval forward is
-    nerfacto's; what still raises is what nerfacto lacks (flow)."""
+    nerfacto's. Nothing raises any more: with flow_loss_mult set, the
+    transient training forward and loss run and match JAX's, whose
+    semantic-nerfw loss has no flow term."""
     cfg = tsem.SemanticNerfWConfig(**SMALL, use_transient_embedding=True)
     params = tsem.init(cfg, device="cpu")
     assert {"transient_emb", "transient_mlp", "uncertainty_head"} <= set(params["fields"])
@@ -390,5 +392,20 @@ def test_transient_embedding_raises():
     out = tsem.forward(params, cfg, tr, train=True, generator=torch.Generator().manual_seed(0))
     assert out["uncertainty"].shape == (4, 1)
     assert "uncertainty" not in tsem.forward(params, cfg, tr, train=False)
-    with pytest.raises(NotImplementedError, match="flow_loss_mult"):
-        tsem.forward(params, dataclasses.replace(cfg, flow_loss_mult=0.1), tr, train=True)
+    kw = dict(SMALL, use_transient_embedding=True, flow_loss_mult=0.1)
+    jcfg, tcfg = jsem.SemanticNerfWConfig(**kw), tsem.SemanticNerfWConfig(**kw)
+    jp = jsem.init(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jr, tr = _rays(16, seed=2)
+    batch = _batch(16)
+    key = jax.random.PRNGKey(1)
+    _, jm = jax.jit(lambda p: jsem.loss(jcfg, jsem.forward(p, jcfg, jr, key=key, step=900,
+                                                           train=True),
+                                        {k: jnp.asarray(v) for k, v in batch.items()}))(jp)
+    with torch.no_grad():
+        tout = tsem.forward(tp, tcfg, tr, step=900, train=True,
+                            jitters=_jitters(key, jcfg.num_proposal_iterations, 16))
+        _, tm = tsem.loss(tcfg, tout, {k: torch.as_tensor(v) for k, v in batch.items()})
+    assert set(tm) == set(jm) and "flow_loss" not in tm
+    for k in tm:
+        _close(float(tm[k]), float(jm[k]), 1e-4)
