@@ -6,7 +6,8 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 1. device: the card (nvidia-smi name and power limit), then the four kernel
    sources (each with a wgmma body for the flagship widths, a WMMA body for
-   other widths and an f32 body) are built from csrc/ into build/ (one nvcc
+   other widths and an f32 body; the two fused-MLP sources also a wgmma body
+   for the field's base widths) are built from csrc/ into build/ (one nvcc
    per source, started together), with ptxas' registers and spills of every
    wgmma kernel;
 2. kernel parity: each kernel against its plain PyTorch version on the card,
@@ -46,16 +47,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    WMMA bodies; 3 steps in f32 on the card against the
    same 3 steps on the CPU plain path;
 5. kernels A and C at the nerfacto field's base widths (H = 128, (256, 128,
-   128, 16)), which the semantics path runs through their WMMA bodies: held
-   against their plain versions in both bases and dtypes (C with and without
-   dx) at run 2's train-step shape and a ragged N, and timed (part of phase 2);
+   128, 16)), which the semantics path runs through their base-width wgmma
+   bodies: held against their plain versions in both bases and dtypes (C
+   with and without dx, repeats bit-identical) at run 2's train-step shape
+   and a ragged N, every launch on the base-width counters; the wgmma bodies
+   also at N below and around one tile and past the card's resident tiles
+   (against the plain versions and the WMMA bodies) and A at one run-2 eval
+   chunk; timed at the train-step shape, the wgmma and WMMA bodies in turns,
+   C with and without dx (part of phase 2);
 6. the street scene: the port's writer makes an 8-frame 376x1241
    KITTI-layout scene (frames, depth, semantics, masks, forward flow),
    timed;
 7. the two CLI runs, through nerf_kbs_tpu_torch.engine.cli.main in-process:
    nerfacto-tpu (kernels A, B, C, D on their wgmma bodies) and semantic-nerfw
    with nerfacto-tpu's model fields, depth, semantics and masks (the
-   proposals on A / C's wgmma bodies, the base MLP on their WMMA bodies), 30
+   proposals on A / C's wgmma bodies, the base MLP on their base-width wgmma
+   bodies, no WMMA body), 30
    steps of 4,096 rays each, then eval_all_images and a checkpoint; each
    prints steps, step times, rays/s, the first and last loss, the eval
    metrics and the launch counts, which must equal 30 x the per-step counts
@@ -106,8 +113,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    launch on dx, the regularizer in every step, the tangents moved after 30
    steps, the step-0 gradient of the tangents finite and non-zero, a
    profile of one step, and 3 f32 steps at a reduced width card against
-   CPU with the tangents compared; run 7b, semantic-nerfw as registered
-   (hash field) with the camera optimizer, 3 f32 steps card against CPU;
+   CPU with the tangents compared; one step of run 2's configuration with
+   the camera optimizer (the base MLP's C launch on its dx branch); run 7b,
+   semantic-nerfw as registered (hash field) with the camera optimizer, 3
+   f32 steps card against CPU;
 14. run 8, the SUDS stream: sky masks from the scene's semantic colours and
    a metadata.json over its frames (2 held out), SudsMetadataConfig ->
    ChunkedStreamDataManager (random-subset chunks of 65,536 rows, flow and
@@ -118,7 +127,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    held-out frames, a profile of one step, and 3 f32 steps card against CPU
    on the same stream batches;
 15. a {"kernels": [...]} line, each record's "launches" counted per
-   "launches_per" (a frame, a bench step, a run-2 or a run-7 step), then the last line
+   "launches_per" (a frame, a bench step, a run-2 or a run-7 step, a run-2
+   step with the camera optimizer), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or run from a directory without the port, it exits non-zero
@@ -740,10 +750,11 @@ def phase_kernels():
 
     # kernels A and C at the nerfacto field's base widths (H = 128, (256, 128,
     # 128, 16)): the semantics path runs the base MLP alone in them, through
-    # their WMMA bodies (the wgmma bodies take the proposal widths only).
-    # Parity in both bases and dtypes (C with and without dx) at run 2's
-    # train-step shape (4096 rays x 48 samples) and a ragged N; then times at
-    # the train-step shape, tri, bf16, no dx
+    # their base-width wgmma bodies. Parity in both bases and dtypes (C with
+    # and without dx) at run 2's train-step shape (4096 rays x 48 samples) and
+    # a ragged N; the wgmma bodies at the edge N values and A at one eval
+    # chunk; then times at the train-step shape, tri, bf16, the wgmma and
+    # WMMA bodies in turns, C with and without dx
     hB = fB  # the field's frequencies, (3, 128)
     base_dims = fcfg.base_mlp.dims
     n_base = 4096 * cfg.num_nerf_samples_per_ray
@@ -781,7 +792,7 @@ def phase_kernels():
                       f"fourier_mlp_fwd base widths n={n} {basis} bf16={bf16}: err {err}")
                 emit({"phase": "parity", "kernel": "fourier_mlp_fwd", "widths": "base",
                       "dims": list(base_dims), "n": n, "basis": basis,
-                      "dtype": "bf16" if bf16 else "f32", "body": "wmma" if bf16 else "f32",
+                      "dtype": "bf16" if bf16 else "f32", "body": "base_wgmma" if bf16 else "f32",
                       "max_abs_err": err, "tol": tol, "max_abs_ref": float(want.abs().max())})
                 for need_dx in (False, True):
                     kern, plain = base_c(basis, bf16, need_dx, x, g)
@@ -796,7 +807,7 @@ def phase_kernels():
                     emit({"phase": "parity", "kernel": "fourier_mlp_bwd", "widths": "base",
                           "dims": list(base_dims), "n": n, "basis": basis,
                           "dtype": "bf16" if bf16 else "f32", "need_dx": need_dx,
-                          "body": "wmma" if bf16 else "f32", "sum_tol": SUM_TOLERANCE,
+                          "body": "base_wgmma" if bf16 else "f32", "sum_tol": SUM_TOLERANCE,
                           "max_rel_err": max(e for e, pp in zip(errs, per_point) if not pp),
                           "last_layer_rel_err": errs[-1],
                           "per_point_outlier_share": max(out, default=None),
@@ -809,47 +820,147 @@ def phase_kernels():
                     del got, want, again
         del x, g
         torch.cuda.empty_cache()
+    # bf16 on the base-width wgmma bodies; f32 on the f32 bodies, which count
+    # under the kernels' plain keys
     ran = {k: v for k, v in ff.LAUNCHES.items() if v}
-    check(ran == {"fourier_mlp": 8, "fourier_mlp_bwd": 32},
-          f"base-width launches {ran} (all through the WMMA and f32 bodies)")
+    check(ran == {"fourier_mlp_base_wgmma": 4, "fourier_mlp": 4,
+                  "fourier_mlp_bwd_base_wgmma": 16, "fourier_mlp_bwd": 16},
+          f"base-width launches {ran}")
+
+    # the base-width bodies below and around one tile and past the tiles the
+    # card holds at once (2 x 2 warpgroups an SM in the forward, 2 in the
+    # backward's per-point pass), held as the proposal widths' above: the
+    # forward to its plain version and to the WMMA body; the backward's last
+    # layer (dW_2, db_2: no mask) to the plain version and every output to
+    # the WMMA body, which rounds and masks at the same places
+    for n in (1, 63, 64, 65, 64 * 3 + 1, 64 * 132 * 4 + 1):
+        x = positions(n)
+        g = torch.randn(base_dims[-1], n, generator=gen).to(dev)
+        for basis in ("tri", "sincos"):
+            before = dict(ff.LAUNCHES)
+            kern, plain = base_a(basis, True, x)
+            got, want = kern(), plain()
+            err = float((got - want).abs().max())
+            err_old = float((got - wmma_body(kern, "fourier_mlp_fwd")()).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= TOLERANCE[(basis, True)]
+                  and err_old <= TOLERANCE[(basis, True)],
+                  f"fourier_mlp_fwd base n={n} {basis}: err {err}, vs WMMA body {err_old}")
+            errs = {}
+            for need_dx in (False, True):
+                kern, plain = base_c(basis, True, need_dx, x, g)
+                got, want, again = kern(), plain(), kern()
+                old = wmma_body(kern, "fourier_mlp_bwd")()
+                check(all(bool(torch.isfinite(t).all()) for t in got),
+                      f"fourier_mlp_bwd base n={n}: non-finite output")
+                last = [int(need_dx) + 2, int(need_dx) + 5]  # dW_2, db_2
+                errs[need_dx] = {"last_layer_vs_plain": max(rel_err(got[i], want[i]) for i in last),
+                                 "all_vs_plain": max(rel_err(a, b) for a, b in zip(got, want)),
+                                 "all_vs_wmma_body": max(rel_err(a, b)
+                                                         for a, b in zip(got, old))}
+                check(errs[need_dx]["last_layer_vs_plain"] <= SUM_TOLERANCE
+                      and errs[need_dx]["all_vs_wmma_body"] <= SUM_TOLERANCE,
+                      f"fourier_mlp_bwd base n={n} {basis} need_dx={need_dx}: {errs[need_dx]}")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"fourier_mlp_bwd base n={n} {basis}: a repeat gave other bits")
+            moved = {k: ff.LAUNCHES[k] - before[k] for k in ff.LAUNCHES if ff.LAUNCHES[k] != before[k]}
+            check(moved == {"fourier_mlp_base_wgmma": 1, "fourier_mlp": 1,
+                            "fourier_mlp_bwd_base_wgmma": 4, "fourier_mlp_bwd": 2},
+                  f"base edge launches {moved}")
+            emit({"phase": "parity_edge", "kernels": "fourier_mlp_fwd, fourier_mlp_bwd",
+                  "widths": "base", "n": n, "basis": basis, "dtype": "bf16",
+                  "fwd_max_abs_err": err, "fwd_vs_wmma_body": err_old,
+                  "tol": TOLERANCE[(basis, True)],
+                  "bwd_rel_err": {"no_dx": errs[False], "dx": errs[True]},
+                  "sum_tol": SUM_TOLERANCE, "repeat_bit_identical": True})
+        del x, g
+        torch.cuda.empty_cache()
+
+    # A at one eval chunk of run 2 (1 << 16 rays x 48 samples)
+    n_chunk = (1 << 16) * cfg.num_nerf_samples_per_ray
+    x = positions(n_chunk)
+    for basis in ("tri", "sincos"):
+        kern, plain = base_a(basis, True, x)
+        got = kern()
+        err = float((got - plain()).abs().max())
+        err_old = float((got - wmma_body(kern, "fourier_mlp_fwd")()).abs().max())
+        emit({"phase": "parity", "kernel": "fourier_mlp_fwd", "widths": "base",
+              "dims": list(base_dims), "n": n_chunk, "basis": basis, "dtype": "bf16",
+              "body": "base_wgmma", "max_abs_err": err, "vs_wmma_body": err_old,
+              "tol": TOLERANCE[(basis, True)]})
+        check(bool(torch.isfinite(got).all()) and err <= TOLERANCE[(basis, True)]
+              and err_old <= TOLERANCE[(basis, True)],
+              f"fourier_mlp_fwd base n={n_chunk} {basis}: err {err}, vs WMMA body {err_old}")
+        del got
+    del x
+    torch.cuda.empty_cache()
 
     bm_all = macs(base_dims)
     base_hidden = sum(base_dims[1:-1])
     base_w = sum(t.numel() for t in (*bws, *bbs)) + fB.numel()
-    for name, per_point_bytes, w_floats, mac, src, line in (
-        ("fourier_mlp_fwd", 12 + 4 * base_dims[-1], base_w, 3 * fB.shape[1] + sum(bm_all),
-         "fourier_mlp_fwd.cu", 329),
-        ("fourier_mlp_bwd", 12 + 4 * base_dims[-1], 2 * base_w,
-         3 * fB.shape[1] + sum(bm_all[:-1]) + sum(bm_all) + sum(bm_all[1:]),
+    c_base_mac = 3 * fB.shape[1] + sum(bm_all[:-1]) + sum(bm_all) + sum(bm_all[1:])
+    for name, need_dx, per_point_bytes, w_floats, mac, src, line in (
+        ("fourier_mlp_fwd", False, 12 + 4 * base_dims[-1], base_w,
+         3 * fB.shape[1] + sum(bm_all), "fourier_mlp_fwd.cu", 329),
+        ("fourier_mlp_bwd", False, 12 + 4 * base_dims[-1], 2 * base_w, c_base_mac,
          "fourier_mlp_bwd.cu", 381),
+        # with dx: d_enc = W_0 . dh_0 (2H x 128 MACs a point), B . dproj, and
+        # the dx write
+        ("fourier_mlp_bwd", True, 12 + 4 * base_dims[-1] + 12, 2 * base_w,
+         c_base_mac + bm_all[0] + 3 * fB.shape[1], "fourier_mlp_bwd.cu", 381),
     ):
         x = positions(n_base)
         is_c = name == "fourier_mlp_bwd"
         g = torch.randn(base_dims[-1], n_base, generator=gen).to(dev)
-        kern, plain = base_c("tri", True, False, x, g) if is_c else base_a("tri", True, x)
-        got, want = kern(), plain()
-        err = (max(rel_err(a, b) for a, b in zip(got, want)) if is_c
-               else float((got - want).abs().max()))
-        del got, want
-        ev = [time_ms(kern, 20), time_ms(kern, 20)]
-        dv, by_name = device_ms(kern, 20)
+        kern, plain = base_c("tri", True, need_dx, x, g) if is_c else base_a("tri", True, x)
+        old = wmma_body(kern, name)
+        got, want, prev = kern(), plain(), old()
+        if is_c:
+            err = max(rel_err(a, b) for a, b in zip(got, want) if a.shape[-1] != n_base)
+            err_old = max(rel_err(a, b) for a, b in zip(prev, want) if a.shape[-1] != n_base)
+            out = max([outliers(a, b, BWD_TOLERANCE[("tri", True)])
+                       for a, b in zip(got, want) if a.shape[-1] == n_base], default=None)
+            check(err <= SUM_TOLERANCE and err_old <= SUM_TOLERANCE
+                  and (out is None or out <= PER_POINT_OUTLIERS),
+                  f"{name} base dx={need_dx}: rel err {err}, WMMA body {err_old}, outliers {out}")
+        else:
+            err = float((got - want).abs().max())
+            err_old = float((prev - want).abs().max())
+            check(err <= TOLERANCE[("tri", True)] and err_old <= TOLERANCE[("tri", True)],
+                  f"{name} base: err {err}, WMMA body {err_old}")
+        del got, want, prev
+        reps = 10 if is_c else 20
+        turns = [both_ms(old, 3), both_ms(kern, reps), both_ms(kern, reps), both_ms(old, 3)]
+        by_name = turns[1][2]
+        ev, dv = [t[0] for t in turns], [t[1] for t in turns]
         plain_ms = time_ms(plain, 3)
-        alu = alu_ops_per_point(name, fB.shape[1], base_hidden, base_dims[-1])
-        rec = {"name": f"{name}_base", "route": "cuda",
+        alu = alu_ops_per_point(name, fB.shape[1], base_hidden, base_dims[-1], need_dx=need_dx)
+        body_kernel = f"{name}_base_wgmma_kernel"
+        rec = {"name": f"{name}_base" + ("_dx" if need_dx else ""), "route": "cuda",
                "source": f"nerf_kbs_tpu_torch/csrc/{src}",
                "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
                "max_abs_err": err,
                **({"err_is": "weight and bias gradients, relative to each one's largest "
-                             "magnitude"} if is_c else {}),
-               "ms": sum(ev) / 2, "plain_ms": plain_ms,
-               **bound(n_base * per_point_bytes + 4 * w_floats, 2.0 * n_base * mac, n_base * alu,
-                       bf16=True),
+                             "magnitude", "per_point_outlier_share": out,
+                   "need_dx": need_dx} if is_c else {}),
+               "ms": (ev[1] + ev[2]) / 2, "plain_ms": plain_ms,
+               **bound(n_base * per_point_bytes + 4 * w_floats, 2.0 * n_base * mac,
+                       n_base * alu, bf16=True),
                "library_ms": None, "n_points": n_base, "dims": list(base_dims),
-               "h_freqs": fB.shape[1], "basis": "tri", "dtype": "bf16", "body": "wmma",
-               "alu_instructions_per_point": alu, "turns_ms": ev, "device_ms": dv,
+               "h_freqs": fB.shape[1], "basis": "tri", "dtype": "bf16", "body": "base_wgmma",
+               "alu_instructions_per_point": alu, "wmma_body_ms": (ev[0] + ev[3]) / 2,
+               "wmma_body_max_err": err_old, "turns_ms": ev,
+               "device_ms": (dv[1] + dv[2]) / 2, "wmma_body_device_ms": (dv[0] + dv[3]) / 2,
+               "device_turns_ms": dv,
+               "body_kernel_ms": sum(v for k, v in by_name.items() if body_kernel in k),
                "device_ms_by_kernel": {k[:60]: v for k, v in by_name.items()}}
         if is_c:
-            rec["need_dx"] = False
+            rec.update({
+                "per_point_pass_ms": rec.pop("body_kernel_ms"),
+                "weight_gradient_passes_ms": sum(v for k, v in by_name.items()
+                                                 if "nkt_field_dw" in k),
+                "reduction_ms": sum(v for k, v in by_name.items()
+                                    if "nkt_reduce_partials" in k),
+                "scratch_bytes": ff._mlp_base_scratch_bytes(n_base)})
         emit({"phase": "timing", **rec})
         records.append(rec)
         del x, g
@@ -1251,6 +1362,11 @@ def _run_argv(scene: str, out: str) -> list:
             "--dataparser.image_width", str(SCENE_HW[1])]
 
 
+# run 2's launches per train step and per eval chunk: the proposal fields on
+# A / C's wgmma bodies (2 each), the base MLP on their base-width ones (1)
+RUN2_STEP = {"fourier_mlp_wgmma": 2, "fourier_mlp_base_wgmma": 1, "fourier_mlp_bwd_wgmma": 2,
+             "fourier_mlp_bwd_base_wgmma": 1}
+RUN2_CHUNK = {"fourier_mlp_wgmma": 2, "fourier_mlp_base_wgmma": 1}
 RUN2_MODEL = ["--model.field_type", "fourier", "--model.hidden_dim", "128",
               "--model.num_layers", "3", "--model.base_res", "4", "--model.max_res", "256",
               "--model.fourier_basis", "tri", "--model.num_proposal_samples_per_ray", "96,32",
@@ -1404,12 +1520,10 @@ def phase_cli(records, scene: str) -> None:
     torch.cuda.empty_cache()
 
     # run 2: semantic-nerfw; the proposal fields on A / C's wgmma bodies, the
-    # base MLP on A / C's WMMA bodies at (256, 128, 128, 16); eval chunks of
-    # 1 << 16 rays (the method's)
+    # base MLP on their base-width wgmma bodies at (256, 128, 128, 16); eval
+    # chunks of 1 << 16 rays (the method's)
     argv2 = argv1 + RUN2_MODEL + _run2_data(scene)
-    per_step2 = {"fourier_mlp_wgmma": 2, "fourier_mlp": 1, "fourier_mlp_bwd_wgmma": 2,
-                 "fourier_mlp_bwd": 1}
-    per_chunk2 = {"fourier_mlp_wgmma": 2, "fourier_mlp": 1}
+    per_step2, per_chunk2 = RUN2_STEP, RUN2_CHUNK
     calls, summary, restore = _depth_alignment_spy()
     try:
         r2 = _cli_run(cli, ff, "semantic-nerfw", argv2, out, per_step2, per_chunk2)
@@ -1452,11 +1566,11 @@ def phase_cli(records, scene: str) -> None:
     # the base-width records count per run-2 step, as the others per frame or step
     for rec in records:
         if rec["name"].endswith("_base"):
-            wrapper = WRAPPER[rec["name"][:-len("_base")]]
-            rec["launches"] = one_step[wrapper]
+            counter = f"{WRAPPER[rec['name'][:-len('_base')]]}_base_wgmma"
+            rec["launches"] = one_step[counter]
             rec["launches_per"] = "4,096-ray run-2 train step"
-            rec["launches_per_eval_chunk"] = per_chunk2.get(wrapper, 0)
-            rec["run2_launches"] = r2["launches"][wrapper]
+            rec["launches_per_eval_chunk"] = per_chunk2.get(counter, 0)
+            rec["run2_launches"] = r2["launches"][counter]
     phase_profile(lambda: trainer.train_step(batch), 4096, what="semantic-nerfw train step",
                   top=25)
     del trainer
@@ -1904,7 +2018,7 @@ def phase_camera_opt(records, scene: str) -> None:
     grad1 = fresh.params["camera_opt"].grad
     check(bool(torch.isfinite(grad1).all()), f"run 7 step-1 tangent gradient {grad1}")
     for rec in records:
-        if rec["name"].endswith("_dx"):
+        if rec["name"].endswith("_dx") and "_base" not in rec["name"]:
             wrapper = WRAPPER[rec["name"][:-len("_dx")]]
             rec["launches"] = one_step[f"{wrapper}_wgmma"]
             rec["launches_per"] = "4,096-ray run-7 train step"
@@ -1930,6 +2044,38 @@ def phase_camera_opt(records, scene: str) -> None:
     phase_profile(lambda: base.train_step(batch), 4096,
                   what="run 1 train step (beside run 7's)", top=16)
     del base
+    torch.cuda.empty_cache()
+
+    # one step of run 2's configuration with the camera optimizer: the base
+    # MLP's C launch takes the base-width body's dx branch there
+    run2 = cli.build_trainer(cli.apply_overrides(
+        cli.method_registry["semantic-nerfw"](),
+        _pairs(_run_argv(scene, out) + RUN2_MODEL + _run2_data(scene) + CAMERA_OPT)))
+    batch = run2._to_device(run2.dm.next_train(0))
+    real, seen = ff._mlp_backward, []
+
+    def spy(spec, *args):
+        seen.append((tuple(spec.layer_dims), spec.need_dx))
+        return real(spec, *args)
+
+    ff.reset_launches()
+    ff._mlp_backward = spy
+    try:
+        run2.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        ff._mlp_backward = real
+    one_step = {k: v for k, v in ff.LAUNCHES.items() if v}
+    base_calls = [dx for dims, dx in seen if dims == tuple(run2.model_config.field.base_mlp.dims)]
+    check(one_step == RUN2_STEP and base_calls == [True],
+          f"one run-2 step with the camera optimizer launched {one_step}, backward calls {seen}")
+    for rec in records:
+        if rec["name"] == "fourier_mlp_bwd_base_dx":
+            rec["launches"] = one_step["fourier_mlp_bwd_base_wgmma"]
+            rec["launches_per"] = "4,096-ray run-2 train step with --model.camera_optimizer SO3xR3"
+    emit({"phase": "cli_run2_camera_opt_step", "launches": one_step,
+          "backward_calls_dims_need_dx": [[list(d), dx] for d, dx in seen]})
+    del run2
     torch.cuda.empty_cache()
 
     # f32 at a reduced width, card against CPU, the tangents compared too;

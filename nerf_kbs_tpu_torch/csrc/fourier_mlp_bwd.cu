@@ -20,7 +20,7 @@
 // of the width-1 step, ~650 scalar instructions a point, 31 us on the 132
 // SMs x 128 lanes of an H100 SXM at its maximum clock of 1.98 GHz.
 //
-// What the design does about it. Three bodies; in all of them each block
+// What the design does about it. Four bodies; in all of them each block
 // leaves its weight-gradient sums in a partial of its own and a second small
 // kernel sums the partials in block order: no float atomics, and a repeat of
 // the launch gives the same bits.
@@ -49,13 +49,32 @@
 //   encoding's layout, so the thread that made s(u), c(u) applies their
 //   derivatives and B and a quad shuffle finishes dx. Nothing per point
 //   reaches device memory but dx.
+// - bf16 at the field's base widths (H = 128, dims (256, 128, 128, 16), the
+//   semantics path's base MLP): the field backward's design for its base
+//   chain (wgmma_bwd.cuh), in two passes. The per-point pass
+//   (fourier_mlp_bwd_base_wgmma_kernel), persistent blocks of two
+//   warpgroups, each on its own 64-point tile with no block barrier, the
+//   base image (BaseImage) resident as in the forward: it recomputes the two
+//   hidden layers keeping the relu masks as bits from the f32
+//   pre-activations, takes dh_2 = g (all 16 columns, bf16 for the products,
+//   f32 for the bias sum), and forms dh_1 and dh_0 by W . dh products on the
+//   resident W^T with the trans flag, in registers; with NEED_DX d_enc =
+//   dh_0 . W_0^T and dx = B . (d_enc * slopes) as the field backward forms
+//   it. Bias gradients are f32 sums of the unrounded dh by a shuffle
+//   butterfly. h1, h2, dh_0, dh_1 and dh_2 go out once as bf16 tiles in the
+//   core layout, 528 values a point (MlpBaseScratch). The weight-gradient
+//   passes are the field backward's own (nkt_field_dw0_kernel for dW_0,
+//   which recomputes the encoding; nkt_field_dw_kernel for dW_1, dW_2).
+//   What bounds it: ~238 kFLOP a point on the tensor cores (recompute, dW,
+//   W . dh), 0.047 ms at the 196,608 points of a 4,096-ray step; the scratch
+//   round trip adds ~416 MB of device memory traffic there (~0.12 ms).
 // - bf16 at any other widths (fourier_mlp_bwd_mma_kernel, chain_bwd.cuh):
 //   WMMA tiles with activations in shared memory; each tile's act^T . dh goes
 //   through the block's partial in L2. At the proposal widths it needs about
-//   five times the wgmma body's time.
+//   five times the wgmma body's time, at the base widths 24 times the
+//   bound.
 // - f32 compute (the oracle mode): one thread per point (chain_bwd.cuh).
-#include "chain_bwd.cuh"
-#include "wgmma_chain.cuh"
+#include "wgmma_bwd.cuh"
 
 #define NKT_C_ROWS 64
 
@@ -552,23 +571,182 @@ static int launch_wgmma(const float* x, int n, const float* Bm, const void* imag
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 compute at the field's base widths: wgmma (see wgmma_bwd.cuh)
+// ---------------------------------------------------------------------------
+
+// Warpgroups per block of the per-point pass, one block per SM, as the field
+// backward's: ptxas gives the pass all 255 registers a thread (88 to 232
+// bytes of spills in three of its four instances), so two warpgroups of 128
+// threads are what an SM's 65,536 registers hold.
+#define NKT_C_BASE_WARPGROUPS 2
+
+// Per-point widths (bf16 values) of what the per-point pass leaves for the
+// weight-gradient passes, laid out as the field backward's FieldScratch: the
+// hidden layers' inputs h1, h2 and the pre-activation gradients of layers
+// 0..2.
+struct MlpBaseScratch {
+  static constexpr int h1 = 0, h2 = 128, d_b0 = 256, d_b1 = 384, d_b2 = 512, total = 528;
+};
+
+// The per-point pass: forward through the two hidden layers, then backward
+// from dh_2 = g, every activation and gradient in registers between
+// products. It writes dx (NEED_DX), the scratch tiles and the block's bias
+// gradients (f32 sums) into its partial.
+template <bool TRI, bool NEED_DX>
+__global__ void __launch_bounds__(NKT_C_BASE_WARPGROUPS * NKT_WG_THREADS, 1)
+    fourier_mlp_bwd_base_wgmma_kernel(const float* __restrict__ x, int n,
+                                      const float* __restrict__ Bm,
+                                      const uint4* __restrict__ image,
+                                      const float* __restrict__ wb, Chain ch, GradLayout gl,
+                                      const float* __restrict__ g, float* __restrict__ dx,
+                                      uint32_t* __restrict__ scratch,
+                                      float* __restrict__ partials, int stride) {
+  using I = BaseImage;
+  using S = MlpBaseScratch;
+  extern __shared__ __align__(128) unsigned char smem[];
+  nkt_base_stage(smem, image, wb, ch, Bm);
+  const uint32_t ws = nkt_smem_addr(smem);
+  const float* bs = reinterpret_cast<const float*>(smem + I::bytes);
+  const float* Bs = bs + I::bias_floats;
+  const WgLane L = nkt_wg_lane();
+  const int lane = threadIdx.x % 32;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+
+  // bias-gradient sums over all of this thread's tiles
+  float db_b0[nkt_db_count(64)] = {}, db_b1[nkt_db_count(64)] = {}, db_b2[nkt_db_count(8)] = {};
+
+  // no block barrier in this loop: each warpgroup walks its own tiles
+  for (int tile = blockIdx.x * NKT_C_BASE_WARPGROUPS + threadIdx.x / NKT_WG_THREADS;
+       tile < ntiles; tile += gridDim.x * NKT_C_BASE_WARPGROUPS) {
+    const long long pa = (long long)tile * NKT_WG_ROWS + 16 * L.w + L.g, pb = pa + 8;
+    float xa[3], xb[3];
+    nkt_wg_load_x(x, n, tile, L, xa, xb);
+    // dh_2 = g at the thread's entries of a (64, 16) accumulator: d[4j + e]
+    // row a, d[4j + 2 + e] row b, of column 8j + 2t + e (zeros past the edge)
+    float d[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const size_t c = 8 * (i / 4) + 2 * L.t + i % 2;
+      const long long p = i % 4 < 2 ? pa : pb;
+      d[i] = p < n ? g[c * n + p] : 0.0f;
+    }
+
+    // ---- forward through the hidden layers, keeping the relu masks
+    uint32_t m_h1[2], m_h2[2];
+    uint32_t h[32];
+    {
+      float acc[64];
+      nkt_wg_first_layer<TRI, I::H>(acc, Bs, L.t, xa, xb, ws + I::w_b0);
+      nkt_wg_relu_pack<true>(acc, bs + I::b_b0, L.t, h, m_h1);
+      nkt_wg_store_tile<128>(scratch, S::h1, ntiles, tile, L, h);
+      nkt_wg_forward<8>(acc, h, ws + I::w_b1);
+      nkt_wg_relu_pack<true>(acc, bs + I::b_b1, L.t, h, m_h2);
+      nkt_wg_store_tile<128>(scratch, S::h2, ntiles, tile, L, h);
+    }
+
+    // ---- dh_2 = g: its f32 column sums, then rounded as one k-step
+    uint32_t d16[4];
+    nkt_wg_colsum(d, lane, db_b2);
+    d16[0] = nkt_pack_bf16(d[0], d[1]);
+    d16[1] = nkt_pack_bf16(d[2], d[3]);
+    d16[2] = nkt_pack_bf16(d[4], d[5]);
+    d16[3] = nkt_pack_bf16(d[6], d[7]);
+    nkt_wg_store_tile<16>(scratch, S::d_b2, ntiles, tile, L, d16);
+
+    // ---- backward through the chain
+    {
+      float acc[64];
+      nkt_wg_backward<1>(acc, d16, ws + I::w_b2, 16, 0);
+      nkt_wg_dh(acc, m_h2, lane, db_b1, h);
+      nkt_wg_store_tile<128>(scratch, S::d_b1, ntiles, tile, L, h);
+      nkt_wg_backward<8>(acc, h, ws + I::w_b1, 128, 0);
+      nkt_wg_dh(acc, m_h1, lane, db_b0, h);
+      nkt_wg_store_tile<128>(scratch, S::d_b0, ntiles, tile, L, h);
+      if (NEED_DX) nkt_wg_base_dx<TRI>(acc, h, ws + I::w_b0, Bs, L, xa, xb, pa, pb, n, dx);
+    }
+  }
+
+  // ---- the block's bias gradients: every warp's sums side by side in shared
+  // memory (over the image, which nothing reads any more), then summed over
+  // warps in order
+  __syncthreads();
+  float* dbs = reinterpret_cast<float*>(smem);
+  constexpr int NW = NKT_C_BASE_WARPGROUPS * 4;
+  float* row = dbs + (threadIdx.x / 32) * I::bias_floats;
+  nkt_wg_db_put<64>(db_b0, lane, row + I::b_b0);
+  nkt_wg_db_put<64>(db_b1, lane, row + I::b_b1);
+  nkt_wg_db_put<8>(db_b2, lane, row + I::b_b2);
+  __syncthreads();
+  float* gpart = partials + (size_t)blockIdx.x * stride;
+  const int off[3] = {I::b_b0, I::b_b1, I::b_b2}, end[3] = {I::b_b1, I::b_b2, I::bias_floats};
+  for (int l = 0; l < 3; ++l)
+    for (int c = threadIdx.x; c < end[l] - off[l]; c += blockDim.x) {
+      float sum = 0.0f;
+      for (int w = 0; w < NW; ++w) sum += dbs[w * I::bias_floats + off[l] + c];
+      gpart[gl.b[l] + c] = sum;
+    }
+}
+
+// The per-point pass, then dW_0, dW_1 and dW_2 over its scratch; every pass
+// on the same `grid` blocks, each block filling its own partial.
+template <bool TRI, bool NEED_DX>
+static int launch_base_wgmma(const float* x, int n, const float* Bm, const void* image,
+                             const float* wb, const Chain& ch, const GradLayout& gl,
+                             const float* g, float* dx, uint32_t* scratch, float* partials,
+                             int partial_rows, int stride, int* nblocks, cudaStream_t stream) {
+  using S = MlpBaseScratch;
+  constexpr int smem = BaseImage::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(fourier_mlp_bwd_base_wgmma_kernel<TRI, NEED_DX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  int grid = sms;
+  if (grid > ntiles) grid = ntiles;
+  if (grid > partial_rows) grid = partial_rows;
+  *nblocks = grid;
+  fourier_mlp_bwd_base_wgmma_kernel<TRI, NEED_DX>
+      <<<grid, NKT_C_BASE_WARPGROUPS * NKT_WG_THREADS, smem, stream>>>(
+          x, n, Bm, reinterpret_cast<const uint4*>(image), wb, ch, gl, g, dx, scratch, partials,
+          stride);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const size_t per = (size_t)ntiles * (NKT_WG_ROWS / 2);  // words per unit of width
+  if ((rc = launch_dw0<TRI>(x, n, Bm, scratch + S::d_b0 * per, ntiles, grid, partials, stride,
+                            gl.w[0], stream)) != 0)
+    return rc;
+  if ((rc = launch_dw<128, 128>(scratch, S::h1, S::d_b1, ntiles, grid, partials, stride, gl.w[1],
+                                0, 128, stream)) != 0)
+    return rc;
+  return launch_dw<128, 16>(scratch, S::h2, S::d_b2, ntiles, grid, partials, stride, gl.w[2], 0,
+                            128, stream);
+}
+
 // x (3, n), Bm (3, H), wb the packed chain with f32 (unrounded) weights, g
 // (dims[n_layers], n), all f32 and contiguous on the device. dx (3, n) is
 // written when need_dx (it may be null otherwise). partials is scratch of
 // partial_rows x partial_stride floats, partial_stride being the padded size
 // of one block's weight gradients (sum over layers of pad16(in) * pad16(out) +
 // pad16(out)). dwb receives the gradients in wb's packed layout (the padding
-// between parts is left as it was). bf16 compute has two bodies, named by
-// `variant`: 1 is the wgmma body, for the proposal fields' widths only
+// between parts is left as it was). bf16 compute has three bodies, named by
+// `variant`: 1 is the wgmma body for the proposal fields' widths
 // (nkt_mlp_is_flagship), and needs `image`, W_0^T as bf16 of image_bytes
-// (wgmma_chain.cuh MlpImage); 0 is the WMMA body, which takes every shape.
-// Launches on `stream`, does not synchronise; returns the launch error (0 on
-// success).
+// (wgmma_chain.cuh MlpImage); 2 is the wgmma design for the field's base
+// widths (nkt_mlp_is_base: a per-point pass, then the weight-gradient
+// passes), and needs `image`, the base chain's bf16 image (BaseImage), and
+// `scratch`, of ceil(n / 64) * 64 * MlpBaseScratch::total bf16 values; 0 is
+// the WMMA body, which takes every shape. Launches on `stream`, does not
+// synchronise; returns the launch error (0 on success).
 extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H, const float* wb,
                                    int wb_floats, const int* dims, int n_layers, int tri, int bf16,
                                    int need_dx, const float* g, float* dx, float* partials,
                                    int partial_rows, int partial_stride, float* dwb, int variant,
-                                   const void* image, int image_bytes, void* stream) {
+                                   const void* image, int image_bytes, void* scratch,
+                                   long long scratch_bytes, void* stream) {
   Chain ch;
   const int packed = nkt_chain_from_dims(&ch, dims, n_layers);
   if (packed < 0) return packed;
@@ -577,9 +755,12 @@ extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H
   nkt_grad_layout(ch, &gl, &stride);
   if (packed != wb_floats || dims[0] != 2 * H || stride != partial_stride || partial_rows < 1)
     return NKT_ERR_PACKING;
-  if (variant != 0 && !(bf16 && variant == 1 && nkt_mlp_is_flagship(ch, H) &&
-                        image_bytes == MlpImage::w0_bytes))
-    return NKT_ERR_VARIANT;
+  const long long ntiles = ((long long)n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  const bool proposal = variant == 1 && nkt_mlp_is_flagship(ch, H) &&
+                        image_bytes == MlpImage::w0_bytes;
+  const bool base = variant == 2 && nkt_mlp_is_base(ch, H) && image_bytes == BaseImage::bytes &&
+                    scratch_bytes == ntiles * NKT_WG_ROWS * MlpBaseScratch::total * 2;
+  if (variant != 0 && !(bf16 && (proposal || base))) return NKT_ERR_VARIANT;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (n == 0) {
     cudaError_t err = cudaMemsetAsync(dwb, 0, (size_t)wb_floats * sizeof(float), s);
@@ -589,8 +770,16 @@ extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H
 #define NKT_ARGS x, n, Bm, image, wb, ch, gl, g, dx, partials, partial_rows, stride, &nblocks, s
 #define NKT_PICK(TRI) \
   (need_dx ? launch_wgmma<TRI, true>(NKT_ARGS) : launch_wgmma<TRI, false>(NKT_ARGS))
+#define NKT_BASE_ARGS                                                                     \
+  x, n, Bm, image, wb, ch, gl, g, dx, reinterpret_cast<uint32_t*>(scratch), partials,      \
+      partial_rows, stride, &nblocks, s
+#define NKT_PICK_BASE(TRI)                                   \
+  (need_dx ? launch_base_wgmma<TRI, true>(NKT_BASE_ARGS)     \
+           : launch_base_wgmma<TRI, false>(NKT_BASE_ARGS))
   if (variant == 1)
     rc = tri ? NKT_PICK(true) : NKT_PICK(false);
+  else if (variant == 2)
+    rc = tri ? NKT_PICK_BASE(true) : NKT_PICK_BASE(false);
   else if (bf16)
     rc = tri ? launch_mma<true>(x, n, Bm, H, wb, ch, gl, g, need_dx, dx, partials, partial_rows,
                                 stride, &nblocks, s)
@@ -601,6 +790,8 @@ extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H
                                 stride, &nblocks, s)
              : launch_f32<false>(x, n, Bm, H, wb, ch, gl, g, need_dx, dx, partials, partial_rows,
                                  stride, &nblocks, s);
+#undef NKT_PICK_BASE
+#undef NKT_BASE_ARGS
 #undef NKT_PICK
 #undef NKT_ARGS
   if (rc != 0) return rc;

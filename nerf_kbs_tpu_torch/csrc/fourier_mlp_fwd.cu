@@ -5,6 +5,8 @@
 //   proj = B^T x (f32), s, c = tri or sin/cos of proj,
 //   h = relu(W0a^T s + W0b^T c + b0), ..., out = W_last^T h + b_last,
 // feature-major: x (3, N) f32 in, out (out_dim, N) f32 out.
+// The one pallas_call (`:329`) serves the proposal fields' widths and, on
+// the semantics path, the nerfacto field's base chain alone.
 //
 // What bounds it here: at the proposal fields' shapes (H = 40, dims
 // (80, 16, 1)) a point moves 16 bytes of device memory (12 in, 4 out) and
@@ -16,7 +18,13 @@
 // H100 SXM execute in 56 us at its maximum clock of 1.98 GHz. The kernel is
 // bound by the f32 ALUs.
 //
-// What the design does about it. Three bodies:
+// At the nerfacto field's base widths (H = 128, dims (256, 128, 128, 16)),
+// which the semantics path runs alone in this kernel, a point costs ~103
+// kFLOP on the tensor cores against 76 bytes (x 12, out 64) and ~2.3 K f32
+// instructions (the encoding and the epilogues): the bound is the tensor
+// cores, 0.021 ms for the 196,608 points of a 4,096-ray step.
+//
+// What the design does about it. Four bodies:
 // - bf16 at the proposal fields' widths (fourier_mlp_fwd_wgmma_kernel, see
 //   wgmma_chain.cuh): nothing but the encoding's own arithmetic is left per
 //   point. One warpgroup owns a 64-point tile and every per-point value lives
@@ -37,10 +45,24 @@
 //   encoding's own instructions, at a little under half the ALUs' peak.
 //   wgmma rather than mma.sync.m16n8k16: the tensor cores are idle either
 //   way, and the header, its layouts and its probe were there.
+// - bf16 at the base widths (fourier_mlp_fwd_base_wgmma_kernel): the field
+//   forward's base chain without the rgb chain. One warpgroup owns a 64-point
+//   tile with no block barrier in the tile loop; x goes straight into
+//   registers; the encoding, in the field's feature order, is made k-step by
+//   k-step into A operands behind the running m64n128k16 product
+//   (nkt_wg_first_layer); bias, relu and the bf16 rounding pack each
+//   accumulator into the next layer's A operand in registers. The 100 KB
+//   image of the three W^T matrices is staged once a block by cp.async, with
+//   the biases and B beside it (~103 KB). The last layer's 16 columns plus
+//   their bias go out as f32, unrounded, a warp's store 32 contiguous bytes
+//   per column. Blocks of two warpgroups, two blocks an SM: the shared memory
+//   holds two images, and the body fits the 128 registers a thread that
+//   leaves (ptxas: 122 and 124, no spills), the accumulator (64), the packed
+//   activations (32) and the rest.
 // - bf16 at any other widths (fourier_mlp_fwd_mma_kernel, mma_chain.cuh):
 //   WMMA tiles with activations in shared memory and four block barriers a
 //   tile; at the proposal widths it needs about four times the wgmma body's
-//   time.
+//   time, at the base widths about 18 times the bound.
 // - f32 compute (the oracle mode): one thread per point on f32 FMAs
 //   (fused_chain.cuh).
 #include "mma_chain.cuh"
@@ -283,14 +305,100 @@ static int launch_wgmma(const float* x, int n, const float* Bm, const void* imag
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 compute at the field's base widths: wgmma (see wgmma_chain.cuh)
+// ---------------------------------------------------------------------------
+
+// Warpgroups per block, each on its own tiles, and blocks per SM (see the
+// note at the top).
+#define NKT_A_BASE_WARPGROUPS 2
+#define NKT_A_BASE_BLOCKS_PER_SM 2
+
+template <bool TRI>
+__global__ void __launch_bounds__(NKT_A_BASE_WARPGROUPS * NKT_WG_THREADS, NKT_A_BASE_BLOCKS_PER_SM)
+    fourier_mlp_fwd_base_wgmma_kernel(const float* __restrict__ x, int n,
+                                      const float* __restrict__ Bm,
+                                      const uint4* __restrict__ image,
+                                      const float* __restrict__ wb, Chain ch,
+                                      float* __restrict__ out) {
+  using I = BaseImage;
+  extern __shared__ __align__(128) unsigned char smem[];
+  nkt_base_stage(smem, image, wb, ch, Bm);
+  const uint32_t ws = nkt_smem_addr(smem);
+  const float* bs = reinterpret_cast<const float*>(smem + I::bytes);
+  const float* Bs = bs + I::bias_floats;
+  const WgLane L = nkt_wg_lane();
+  // the last layer's bias at the thread's columns 2t, 2t + 1, 8 + 2t, 9 + 2t
+  const float2 b_lo = *reinterpret_cast<const float2*>(bs + I::b_b2 + 2 * L.t);
+  const float2 b_hi = *reinterpret_cast<const float2*>(bs + I::b_b2 + 8 + 2 * L.t);
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+
+  // no barrier from here on: each warpgroup walks its own tiles
+  for (int tile = blockIdx.x * NKT_A_BASE_WARPGROUPS + threadIdx.x / NKT_WG_THREADS;
+       tile < ntiles; tile += gridDim.x * NKT_A_BASE_WARPGROUPS) {
+    float xa[3], xb[3];
+    nkt_wg_load_x(x, n, tile, L, xa, xb);
+    uint32_t h[32];
+    {
+      float acc[64];
+      nkt_wg_first_layer<TRI, I::H>(acc, Bs, L.t, xa, xb, ws + I::w_b0);
+      nkt_wg_relu_pack<false>(acc, bs + I::b_b0, L.t, h, nullptr);
+      nkt_wg_forward<8>(acc, h, ws + I::w_b1);
+      nkt_wg_relu_pack<false>(acc, bs + I::b_b1, L.t, h, nullptr);
+    }
+    float acc[8];
+    nkt_wg_forward<8>(acc, h, ws + I::w_b2);
+    // acc[4j + e] is row a, acc[4j + 2 + e] row b, of column 8j + 2t + e
+    const long long pa = (long long)tile * NKT_WG_ROWS + 16 * L.w + L.g, pb = pa + 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const size_t c = 8 * (i / 4) + 2 * L.t + i % 2;
+      const float2 b = i < 4 ? b_lo : b_hi;
+      const long long p = i % 4 < 2 ? pa : pb;
+      if (p < n) out[c * n + p] = acc[i] + (i % 2 ? b.y : b.x);
+    }
+  }
+}
+
+template <bool TRI>
+static int launch_base_wgmma(const float* x, int n, const float* Bm, const void* image,
+                             const float* wb, const Chain& ch, float* out, cudaStream_t stream) {
+  constexpr int THREADS = NKT_A_BASE_WARPGROUPS * NKT_WG_THREADS;
+  constexpr int smem = BaseImage::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(fourier_mlp_fwd_base_wgmma_kernel<TRI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // all of the SM's shared memory and L1 as shared memory: two images
+  if ((err = cudaFuncSetAttribute(fourier_mlp_fwd_base_wgmma_kernel<TRI>,
+                                  cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+    return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fourier_mlp_fwd_base_wgmma_kernel<TRI>, THREADS, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return NKT_ERR_SMEM;
+  const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
+  const int want = (ntiles + NKT_A_BASE_WARPGROUPS - 1) / NKT_A_BASE_WARPGROUPS;
+  const int grid = want < sms * per_sm ? want : sms * per_sm;
+  fourier_mlp_fwd_base_wgmma_kernel<TRI><<<grid, THREADS, smem, stream>>>(
+      x, n, Bm, reinterpret_cast<const uint4*>(image), wb, ch, out);
+  return (int)cudaGetLastError();
+}
+
 // x (3, n) f32, Bm (3, H) f32, wb the packed chain (see fused_chain.cuh) whose
 // first layer takes 2H inputs, out (dims[n_layers], n) f32; all contiguous on
-// the device. f32 compute runs on FMAs. bf16 compute has two bodies, named by
-// `variant`: 1 is the wgmma body, for the proposal fields' widths only (see
+// the device. f32 compute runs on FMAs. bf16 compute has three bodies, named
+// by `variant`: 1 is the wgmma body for the proposal fields' widths (see
 // nkt_mlp_is_flagship), and needs `image`, W_0^T as bf16 of image_bytes
 // (wgmma_chain.cuh MlpImage); it rounds the rest of wb to bf16 itself, so wb
-// may come unrounded. 0 is the WMMA body, which takes every shape and wants
-// the weights in wb already rounded.
+// may come unrounded. 2 is the wgmma body for the field's base widths (see
+// nkt_mlp_is_base), and needs `image`, the base chain's bf16 image
+// (BaseImage); it reads only the f32 biases of wb. 0 is the WMMA body, which
+// takes every shape and wants the weights in wb already rounded.
 // Launches on `stream`, does not synchronise; returns the launch error (0 on
 // success).
 extern "C" int nkt_fourier_mlp_fwd(const float* x, int n, const float* Bm, int H, const float* wb,
@@ -301,14 +409,18 @@ extern "C" int nkt_fourier_mlp_fwd(const float* x, int n, const float* Bm, int H
   const int packed = nkt_chain_from_dims(&ch, dims, n_layers);
   if (packed < 0) return packed;
   if (packed != wb_floats || dims[0] != 2 * H) return NKT_ERR_PACKING;
-  if (variant != 0 && !(bf16 && variant == 1 && nkt_mlp_is_flagship(ch, H) &&
-                        image_bytes == MlpImage::w0_bytes))
-    return NKT_ERR_VARIANT;
+  const bool proposal = variant == 1 && nkt_mlp_is_flagship(ch, H) &&
+                        image_bytes == MlpImage::w0_bytes;
+  const bool base = variant == 2 && nkt_mlp_is_base(ch, H) && image_bytes == BaseImage::bytes;
+  if (variant != 0 && !(bf16 && (proposal || base))) return NKT_ERR_VARIANT;
   if (n == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (variant == 1)
     return tri ? launch_wgmma<true>(x, n, Bm, image, wb, ch, out, s)
                : launch_wgmma<false>(x, n, Bm, image, wb, ch, out, s);
+  if (variant == 2)
+    return tri ? launch_base_wgmma<true>(x, n, Bm, image, wb, ch, out, s)
+               : launch_base_wgmma<false>(x, n, Bm, image, wb, ch, out, s);
   if (bf16) {
     MmaChain m;
     int w_elems = 0, b_floats = 0;

@@ -1,8 +1,9 @@
 // Warpgroup MLP chain on Hopper's wgmma (m64nNk16, bf16 inputs, f32
 // accumulation in registers), for all four kernels at the flagship widths:
 // the two field kernels (fourier_field_fwd.cu, fourier_field_bwd.cu, see
-// FieldImage) and the two proposal-field kernels (fourier_mlp_fwd.cu,
-// fourier_mlp_bwd.cu, see MlpImage).
+// FieldImage), the two fused-MLP kernels at the proposal fields' widths
+// (fourier_mlp_fwd.cu, fourier_mlp_bwd.cu, see MlpImage) and the same two at
+// the field's base widths, the base chain alone (see BaseImage).
 //
 // One warpgroup (4 warps) owns a tile of 64 points, the M dimension of every
 // product. Thread (w, g, t) = (warp in the group, lane / 4, lane % 4) holds
@@ -441,24 +442,40 @@ __device__ __forceinline__ void nkt_wg_base_out(const float (&acc)[8], const flo
   }
 }
 
-// The flagship field's weight image: the six W^T matrices in the core
-// layout, one after another (the host builds it, see ops/fused_field.py
-// `_weight_image`), and the places of the padded biases in shared memory.
-// KR is the rgb chain's padded input width: column 0 is sigma_raw's place
-// (a zero weight row), 1..15 geo, 16.. the per-point feats.
-template <int KR>
-struct FieldImage {
+// The base chain's weight image, H = 128, (256, 128, 128, 16): its three W^T
+// matrices in the core layout, one after another (the host builds it, see
+// ops/fused_field.py `_chain_image_index`), and the places of its biases in
+// shared memory. It is the first part of FieldImage and what the fused-MLP
+// kernels' base-width bodies hold alone.
+struct BaseImage {
   static constexpr int H = 128;
   static constexpr int w_b0 = 0;                     // [128][256]
   static constexpr int w_b1 = w_b0 + 128 * 256 * 2;  // [128][128]
   static constexpr int w_b2 = w_b1 + 128 * 128 * 2;  // [16][128]
-  static constexpr int w_r0 = w_b2 + 16 * 128 * 2;   // [64][KR]
-  static constexpr int w_r1 = w_r0 + 64 * KR * 2;    // [64][64]
-  static constexpr int w_r2 = w_r1 + 64 * 64 * 2;    // [16][64]
+  static constexpr int bytes = w_b2 + 16 * 128 * 2;
+  // biases, floats
+  static constexpr int b_b0 = 0, b_b1 = 128, b_b2 = 256, bias_floats = 272;
+  // shared memory of a block: the image, the biases, then B (3, H)
+  static constexpr int smem_bytes = bytes + (bias_floats + 3 * H) * 4;
+};
+
+// The flagship field's weight image: the base chain's (BaseImage), then the
+// rgb chain's three W^T matrices in the core layout (the host builds it, see
+// ops/fused_field.py `_weight_image`), and the places of the padded biases in
+// shared memory. KR is the rgb chain's padded input width: column 0 is
+// sigma_raw's place (a zero weight row), 1..15 geo, 16.. the per-point feats.
+template <int KR>
+struct FieldImage {
+  static constexpr int H = BaseImage::H;
+  static constexpr int w_b0 = BaseImage::w_b0, w_b1 = BaseImage::w_b1, w_b2 = BaseImage::w_b2;
+  static constexpr int w_r0 = BaseImage::bytes;     // [64][KR]
+  static constexpr int w_r1 = w_r0 + 64 * KR * 2;  // [64][64]
+  static constexpr int w_r2 = w_r1 + 64 * 64 * 2;  // [16][64]
   static constexpr int bytes = w_r2 + 16 * 64 * 2;
   // biases, floats
-  static constexpr int b_b0 = 0, b_b1 = 128, b_b2 = 256, b_r0 = 272, b_r1 = 336, b_r2 = 400;
-  static constexpr int bias_floats = 416;
+  static constexpr int b_b0 = BaseImage::b_b0, b_b1 = BaseImage::b_b1, b_b2 = BaseImage::b_b2;
+  static constexpr int b_r0 = BaseImage::bias_floats, b_r1 = b_r0 + 64, b_r2 = b_r1 + 64;
+  static constexpr int bias_floats = b_r2 + 16;
 };
 
 // True when the two chains have the widths FieldImage is written for.
@@ -492,6 +509,34 @@ __device__ __forceinline__ void nkt_field_stage(unsigned char* smem, const uint4
   }
   float* Bs = bs + I::bias_floats;
   for (int i = threadIdx.x; i < 3 * I::H; i += blockDim.x) Bs[i] = Bm[i];
+}
+
+// True when the chain is the base chain BaseImage is written for.
+static inline bool nkt_mlp_is_base(const Chain& ch, int H) {
+  return H == BaseImage::H && ch.n_layers == 3 && ch.dims[0] == 256 && ch.dims[1] == 128 &&
+         ch.dims[2] == 128 && ch.dims[3] == 16;
+}
+
+// Device, whole block: the base image into shared memory at smem by
+// cp.async, its biases from the packed chain wb and B (3, H) behind it; ends
+// with the block barrier that makes all of it visible to wgmma.
+__device__ __forceinline__ void nkt_base_stage(unsigned char* smem, const uint4* image,
+                                               const float* wb, const Chain& ch,
+                                               const float* Bm) {
+  using I = BaseImage;
+  uint4* ws = reinterpret_cast<uint4*>(smem);
+  for (int i = threadIdx.x; i < I::bytes / 16; i += blockDim.x) nkt_cp_async16(ws + i, image + i);
+  nkt_cp_commit();
+  float* bs = reinterpret_cast<float*>(smem + I::bytes);
+  const int off[3] = {I::b_b0, I::b_b1, I::b_b2}, end[3] = {I::b_b1, I::b_b2, I::bias_floats};
+  for (int l = 0; l < 3; ++l)
+    for (int i = threadIdx.x; i < end[l] - off[l]; i += blockDim.x)
+      bs[off[l] + i] = wb[ch.b_off[l] + i];
+  float* Bs = bs + I::bias_floats;
+  for (int i = threadIdx.x; i < 3 * I::H; i += blockDim.x) Bs[i] = Bm[i];
+  nkt_cp_wait<0>();
+  nkt_fence_async_smem();
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------

@@ -40,7 +40,8 @@ _SIGNATURES = {
     ),
     "fourier_mlp_bwd": (
         "nkt_fourier_mlp_bwd",
-        [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P],
+        [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _L,
+         _P],
     ),
     "fourier_field_bwd": (
         "nkt_fourier_field_bwd",

@@ -22,9 +22,11 @@ spec says ``need_dx``.
 A wrapper given CUDA tensors launches its kernel (``csrc/``) or raises; given
 CPU tensors it runs the plain version. ``LAUNCHES`` counts kernel launches
 (a backward's passes over the points and its reduction belong to one launch).
-Every kernel has two bf16 bodies: the wgmma body for the flagship widths
-(``_wgmma_field``, ``_wgmma_mlp``), counted under the ``*_wgmma`` keys, and
-the WMMA body for every other shape.
+Every kernel has a wgmma body for the flagship widths (``_wgmma_field``;
+``_wgmma_mlp`` for the proposal fields), counted under the ``*_wgmma`` keys,
+and the WMMA body for every other shape. The two fused-MLP kernels have a
+second wgmma body, for the field's base chain that the semantics path runs
+alone (``_wgmma_mlp_base``), counted under the ``*_base_wgmma`` keys.
 """
 
 from __future__ import annotations
@@ -39,10 +41,12 @@ from nerf_kbs_tpu_torch.ops import _kernels
 
 # kernel launches per wrapper, added to only where a kernel is launched
 KERNELS = ("fourier_mlp", "fourier_field_mlp", "fourier_mlp_bwd", "fourier_field_mlp_bwd")
-LAUNCHES = {**dict.fromkeys(KERNELS, 0), **{f"{k}_wgmma": 0 for k in KERNELS}}
-# measurement only: the kernels (names from KERNELS) whose flagship widths go
-# through the WMMA body too, so that one run can time both bodies of a kernel
-# on the same inputs while the others keep their wgmma bodies
+LAUNCHES = {**dict.fromkeys(KERNELS, 0), **{f"{k}_wgmma": 0 for k in KERNELS},
+            "fourier_mlp_base_wgmma": 0, "fourier_mlp_bwd_base_wgmma": 0}
+# measurement only: the kernels (names from KERNELS) whose flagship widths
+# (and, for the fused MLP, base widths) go through the WMMA body too, so that
+# one run can time both bodies of a kernel on the same inputs while the
+# others keep their wgmma bodies
 FORCE_WMMA: frozenset = frozenset()
 
 
@@ -329,10 +333,34 @@ def _wgmma_field(spec: "FusedFieldSpec") -> bool:
 
 
 def _wgmma_mlp(spec: "FusedMLPSpec") -> bool:
-    """True for the shapes the wgmma bodies of the two proposal-field kernels
-    are written for (csrc/wgmma_chain.cuh ``nkt_mlp_is_flagship``): bf16,
-    H = 40, dims (80, 16, 1)."""
+    """True for the shapes the proposal-width wgmma bodies of the two
+    fused-MLP kernels are written for (csrc/wgmma_chain.cuh
+    ``nkt_mlp_is_flagship``): bf16, H = 40, dims (80, 16, 1)."""
     return spec.bf16 and spec.h_freqs == 40 and tuple(spec.layer_dims) == (80, 16, 1)
+
+
+def _wgmma_mlp_base(spec: "FusedMLPSpec") -> bool:
+    """True for the shapes the base-width wgmma bodies of the two fused-MLP
+    kernels are written for (csrc/wgmma_chain.cuh ``nkt_mlp_is_base``): bf16,
+    H = 128, dims (256, 128, 128, 16), the nerfacto field's base chain."""
+    return (spec.bf16 and spec.h_freqs == 128
+            and tuple(spec.layer_dims) == (256, 128, 128, 16))
+
+
+# the fused-MLP kernels' bodies: counter suffix -> the C entry's `variant`
+_MLP_VARIANTS = {"": 0, "_wgmma": 1, "_base_wgmma": 2}
+
+
+def _mlp_body(spec: "FusedMLPSpec", kernel: str) -> str:
+    """The counter suffix of the body a CUDA call of ``kernel`` (a fused-MLP
+    name of KERNELS) runs for ``spec``: '_wgmma', '_base_wgmma', or '' for
+    the WMMA and f32 bodies (and for every shape the kernel is forced
+    through WMMA for, see FORCE_WMMA)."""
+    if kernel in FORCE_WMMA:
+        return ""
+    if _wgmma_mlp(spec):
+        return "_wgmma"
+    return "_base_wgmma" if _wgmma_mlp_base(spec) else ""
 
 
 def _core_offset(r, c, rows: int):
@@ -349,28 +377,43 @@ def _shift_rgb_rows(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([w.new_zeros(1, w.shape[1]), w], dim=0)
 
 
+def _chain_image_index(dims: tuple, start: int, zero: int, shift_first: int = 0) -> np.ndarray:
+    """For each bf16 element of one chain's weight image, its source in a
+    flat buffer that holds the chain's packed weights from ``start`` on and a
+    zero at ``zero``. The image holds, layer after layer, W^T (pad16(out)
+    rows of pad16(in) columns, zeros in the padding) in the core layout; the
+    first matrix is shifted ``shift_first`` rows down (``_shift_rgb_rows``)."""
+    w_off = _packed_offsets(dims)[0]
+    parts = []
+    for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        shift = shift_first if l == 0 else 0
+        K, N = _pad16(din + shift), _pad16(dout)
+        n_, k_ = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+        valid = (n_ < dout) & (k_ >= shift) & (k_ - shift < din)
+        src = np.where(valid, start + w_off[l] + (k_ - shift) * dout + n_, zero)
+        idx = np.empty(N * K, dtype=np.int64)
+        idx[_core_offset(n_, k_, N).reshape(-1)] = src.reshape(-1)
+        parts.append(idx)
+    return np.concatenate(parts)
+
+
 @functools.lru_cache(maxsize=None)
 def _weight_image_index(base_dims: tuple, rgb_dims: tuple) -> np.ndarray:
-    """For each bf16 element of the weight image, its source in
-    cat([base packed, rgb packed, [0]]). The image holds, layer after layer,
-    W^T (pad16(out) rows of pad16(in) columns, zeros in the padding) in the
-    core layout; the rgb chain's first matrix gets ``_shift_rgb_rows``."""
+    """For each bf16 element of the field's weight image, its source in
+    cat([base packed, rgb packed, [0]]): the base chain's image, then the rgb
+    chain's with its first matrix shifted (``_chain_image_index``)."""
     _, _, base_floats = _packed_offsets(base_dims)
     _, _, rgb_floats = _packed_offsets(rgb_dims)
     zero = base_floats + rgb_floats
-    parts = []
-    for dims, start, is_rgb in ((base_dims, 0, False), (rgb_dims, base_floats, True)):
-        w_off = _packed_offsets(dims)[0]
-        for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
-            shift = 1 if is_rgb and l == 0 else 0
-            K, N = _pad16(din + shift), _pad16(dout)
-            n_, k_ = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
-            valid = (n_ < dout) & (k_ >= shift) & (k_ - shift < din)
-            src = np.where(valid, start + w_off[l] + (k_ - shift) * dout + n_, zero)
-            idx = np.empty(N * K, dtype=np.int64)
-            idx[_core_offset(n_, k_, N).reshape(-1)] = src.reshape(-1)
-            parts.append(idx)
-    return np.concatenate(parts)
+    return np.concatenate([_chain_image_index(base_dims, 0, zero),
+                           _chain_image_index(rgb_dims, base_floats, zero, shift_first=1)])
+
+
+@functools.lru_cache(maxsize=None)
+def _base_image_index(dims: tuple) -> np.ndarray:
+    """For each bf16 element of one chain's image alone (the base-width
+    bodies' BaseImage), its source in cat([packed, [0]])."""
+    return _chain_image_index(dims, 0, _packed_offsets(dims)[2])
 
 
 _image_index_on_device: dict = {}
@@ -423,6 +466,13 @@ def _mlp_image(wb: torch.Tensor, dims) -> torch.Tensor:
     return wb[_index_on(wb.device, _mlp_image_index, tuple(dims))].to(torch.bfloat16)
 
 
+def _base_image(wb: torch.Tensor, dims) -> torch.Tensor:
+    """The bf16 image of a whole packed chain, for the base-width bodies (one
+    gather, one cast)."""
+    index = _index_on(wb.device, _base_image_index, tuple(dims))
+    return torch.cat([wb, wb.new_zeros(1)])[index].to(torch.bfloat16)
+
+
 def _field_scratch_bytes(n: int, feat_dim: int) -> int:
     """Bytes the wgmma backward's per-point pass leaves for its
     weight-gradient pass (csrc/fourier_field_bwd.cu ``FieldScratch``): per
@@ -434,8 +484,21 @@ def _field_scratch_bytes(n: int, feat_dim: int) -> int:
     return tiles * 64 * (800 + 16 + feat_dim) * 2
 
 
+def _mlp_base_scratch_bytes(n: int) -> int:
+    """Bytes the base-width backward's per-point pass leaves for its
+    weight-gradient passes (csrc/fourier_mlp_bwd.cu ``MlpBaseScratch``): per
+    point, as bf16, the hidden layers' inputs (128 + 128) and the three
+    pre-activation gradients (128 + 128 + 16), for whole 64-point tiles."""
+    tiles = (n + 63) // 64
+    return tiles * 64 * 528 * 2
+
+
 def _sm_count(t: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+# the weight image each wgmma body of the fused-MLP kernels stages
+_mlp_images = {"_wgmma": _mlp_image, "_base_wgmma": _base_image}
 
 
 def _mlp_forward(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
@@ -450,19 +513,20 @@ def _mlp_forward(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
         raise ValueError(f"layer_dims[0] {spec.layer_dims[0]} != 2 * h_freqs {2 * H}")
     x = x_t.contiguous()
     Bc = B.contiguous()
-    wgmma = _wgmma_mlp(spec) and "fourier_mlp" not in FORCE_WMMA
-    # the wgmma body rounds the weights itself (the image's cast, the staging)
-    wb = _pack(ws, bs, spec.layer_dims, spec.bf16 and not wgmma)
+    body = _mlp_body(spec, "fourier_mlp")
+    # the wgmma bodies round the weights themselves (the image's cast, the
+    # staging)
+    wb = _pack(ws, bs, spec.layer_dims, spec.bf16 and not body)
     out = torch.empty(spec.out_dim, n, device=x.device, dtype=torch.float32)
-    image = _mlp_image(wb, spec.layer_dims) if wgmma else None
+    image = _mlp_images[body](wb, spec.layer_dims) if body else None
     _kernels.call(
         "fourier_mlp_fwd", x.data_ptr(), n, Bc.data_ptr(), H, wb.data_ptr(), wb.numel(),
         _kernels.int_array(spec.layer_dims), spec.num_layers,
-        int(spec.basis == "tri"), int(spec.bf16), int(wgmma),
-        image.data_ptr() if wgmma else None, 2 * image.numel() if wgmma else 0,
+        int(spec.basis == "tri"), int(spec.bf16), _MLP_VARIANTS[body],
+        image.data_ptr() if body else None, 2 * image.numel() if body else 0,
         out.data_ptr(), _stream(x),
     )
-    LAUNCHES["fourier_mlp_wgmma" if wgmma else "fourier_mlp"] += 1
+    LAUNCHES["fourier_mlp" + body] += 1
     return out
 
 
@@ -486,17 +550,21 @@ def _mlp_backward(spec: FusedMLPSpec, x_t, B, ws, bs, g):
     dx = torch.empty(3, n, device=x.device, dtype=torch.float32) if spec.need_dx else None
     rows, stride = 4 * _sm_count(x), _partial_stride(spec.layer_dims)
     partials = torch.empty(rows * stride, device=x.device, dtype=torch.float32)
-    wgmma = _wgmma_mlp(spec) and "fourier_mlp_bwd" not in FORCE_WMMA
-    image = _mlp_image(wb, spec.layer_dims) if wgmma else None
+    body = _mlp_body(spec, "fourier_mlp_bwd")
+    image = _mlp_images[body](wb, spec.layer_dims) if body else None
+    scratch = None
+    if body == "_base_wgmma":
+        scratch = torch.empty(_mlp_base_scratch_bytes(n), device=x.device, dtype=torch.uint8)
     _kernels.call(
         "fourier_mlp_bwd", x.data_ptr(), n, Bc.data_ptr(), H, wb.data_ptr(), wb.numel(),
         _kernels.int_array(spec.layer_dims), spec.num_layers,
         int(spec.basis == "tri"), int(spec.bf16), int(spec.need_dx), gc.data_ptr(),
         dx.data_ptr() if spec.need_dx else None, partials.data_ptr(), rows, stride,
-        dwb.data_ptr(), int(wgmma), image.data_ptr() if wgmma else None,
-        2 * image.numel() if wgmma else 0, _stream(x),
+        dwb.data_ptr(), _MLP_VARIANTS[body], image.data_ptr() if body else None,
+        2 * image.numel() if body else 0, scratch.data_ptr() if scratch is not None else None,
+        scratch.numel() if scratch is not None else 0, _stream(x),
     )
-    LAUNCHES["fourier_mlp_bwd_wgmma" if wgmma else "fourier_mlp_bwd"] += 1
+    LAUNCHES["fourier_mlp_bwd" + body] += 1
     dws, dbs = _unpack(dwb, spec.layer_dims)
     return dx, dws, dbs
 

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
-card, at small shapes: the two forwards and the two backwards. Marked ``cuda``: they skip on hosts without a card.
+card, at small shapes: the two forwards and the two backwards, every wgmma
+body also at the edge N values. Marked ``cuda``: they skip on hosts without a card.
 Run on a CUDA host with ``python -m pytest tests/test_torch_cuda_kernels.py``."""
 
 import numpy as np
@@ -14,8 +15,8 @@ pytestmark = pytest.mark.cuda
 # possible flip of one bf16 rounding where an f32 sum differs in its last bit
 TOL = {False: 1e-4, True: 2e-2}
 # the nerfacto field's base MLP (H = 128) as the semantics path runs it alone
-# in the fused MLP kernels, through their WMMA bodies; enough points that a
-# weight gradient is a sum over many (see BWD_TOL)
+# in the fused MLP kernels, through their base-width wgmma bodies in bf16;
+# enough points that a weight gradient is a sum over many (see BWD_TOL)
 BASE_WIDTHS = ((256, 128, 128, 16), 20000)
 
 
@@ -49,7 +50,7 @@ def test_fourier_mlp_kernel(dev, basis, bf16, dims, n):
     x, B = _inputs(rng, dims[0] // 2, n, basis, dev)
     ws, bs = _mlp(rng, dims, dev)
     spec = ff.FusedMLPSpec(h_freqs=dims[0] // 2, layer_dims=dims, bf16=bf16, basis=basis)
-    key = "fourier_mlp_wgmma" if ff._wgmma_mlp(spec) else "fourier_mlp"
+    key = "fourier_mlp" + ff._mlp_body(spec, "fourier_mlp")
     before = ff.LAUNCHES[key]
     got = ff.fourier_mlp(spec, x, B, ws, bs)
     assert ff.LAUNCHES[key] == before + 1
@@ -86,10 +87,6 @@ def _rel_err(got, want):
 # summation order; bf16: also flips of single bf16 roundings of dh and of
 # activations, which the sums over points average out
 BWD_TOL = {False: 1e-4, True: 2e-2}
-# the nerfacto field's base MLP (H = 128) as the semantics path runs it alone
-# in the fused MLP kernels, through their WMMA bodies; enough points that a
-# weight gradient is a sum over many (see BWD_TOL)
-BASE_WIDTHS = ((256, 128, 128, 16), 20000)
 
 
 def _check_all(names, got, want, tol):
@@ -118,9 +115,10 @@ def test_fourier_mlp_backward_kernel(dev, basis, bf16, need_dx, dims, n):
     out = ff.fourier_mlp(spec, x, B, ws, bs)
     # a non-contiguous gradient, as autograd hands over views
     out.backward(g.T.contiguous().T)
-    body = "_wgmma" if ff._wgmma_mlp(spec) else ""
-    assert ff.LAUNCHES["fourier_mlp" + body] == before["fourier_mlp" + body] + 1
-    assert ff.LAUNCHES["fourier_mlp_bwd" + body] == before["fourier_mlp_bwd" + body] + 1
+    fwd = "fourier_mlp" + ff._mlp_body(spec, "fourier_mlp")
+    bwd = "fourier_mlp_bwd" + ff._mlp_body(spec, "fourier_mlp_bwd")
+    assert ff.LAUNCHES[fwd] == before[fwd] + 1
+    assert ff.LAUNCHES[bwd] == before[bwd] + 1
     dx, dws, dbs = ff.fourier_mlp_backward_reference(
         x.detach(), B, [w.detach() for w in ws], [b.detach() for b in bs], g, basis, bf16,
         need_dx)
@@ -424,6 +422,84 @@ def test_fourier_mlp_backward_kernel_flagship(dev, basis, need_dx, n):
     _check_all(names, flat(got), flat(old), 2e-3)
     if n >= 5000:
         _check_all(names[:4], flat(got)[:4], flat(want)[:4], BWD_TOL[True])
+    if need_dx:
+        off = ((got[0] - want[0]).abs() > BWD_TOL[True] * want[0].abs().max()).any(dim=0)
+        assert int(off.sum()) <= max(1, n // 500)
+    again = ff._mlp_backward(spec, x, B, ws, bs, g)
+    for a, b in zip(flat(again), flat(got)):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the two fused-MLP kernels at the field's base widths (H = 128, (256, 128,
+# 128, 16)), which run their base-width wgmma bodies
+# ---------------------------------------------------------------------------
+
+BASE_DIMS = BASE_WIDTHS[0]
+
+
+@pytest.mark.parametrize("basis", ["tri", "sincos"])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_fourier_mlp_kernel_base(dev, basis, n):
+    rng = np.random.default_rng(25)
+    x, B = _inputs(rng, 128, n, basis, dev)
+    ws, bs = _mlp(rng, BASE_DIMS, dev)
+    spec = ff.FusedMLPSpec(h_freqs=128, layer_dims=BASE_DIMS, bf16=True, basis=basis)
+    before = dict(ff.LAUNCHES)
+    got = ff.fourier_mlp(spec, x, B, ws, bs)
+    assert ff.LAUNCHES["fourier_mlp_base_wgmma"] == before["fourier_mlp_base_wgmma"] + 1
+    assert ff.LAUNCHES["fourier_mlp"] == before["fourier_mlp"]
+    want = ff.fourier_mlp_reference(x, B, ws, bs, basis, True)
+    ff.FORCE_WMMA = frozenset({"fourier_mlp"})
+    try:
+        old = ff.fourier_mlp(spec, x, B, ws, bs)
+    finally:
+        ff.FORCE_WMMA = frozenset()
+    assert ff.LAUNCHES["fourier_mlp"] == before["fourier_mlp"] + 1
+    torch.cuda.synchronize()
+    assert got.shape == (16, n) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL[True]
+    assert float((got - old).abs().max()) <= TOL[True]
+
+
+@pytest.mark.parametrize("basis", ["tri", "sincos"])
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_fourier_mlp_backward_kernel_base(dev, basis, need_dx, n):
+    rng = np.random.default_rng(27)
+    x, B = _inputs(rng, 128, n, basis, dev)
+    ws, bs = _mlp(rng, BASE_DIMS, dev)
+    g = torch.tensor(rng.normal(size=(16, n)), dtype=torch.float32, device=dev)
+    spec = ff.FusedMLPSpec(h_freqs=128, layer_dims=BASE_DIMS, bf16=True, basis=basis,
+                           need_dx=need_dx)
+
+    def flat(res):
+        return [*res[1], *res[2]] + ([res[0]] if need_dx else [])
+
+    before = dict(ff.LAUNCHES)
+    got = ff._mlp_backward(spec, x, B, ws, bs, g)
+    assert ff.LAUNCHES["fourier_mlp_bwd_base_wgmma"] == before["fourier_mlp_bwd_base_wgmma"] + 1
+    assert ff.LAUNCHES["fourier_mlp_bwd"] == before["fourier_mlp_bwd"]
+    want = ff.fourier_mlp_backward_reference(x, B, ws, bs, g, basis, True, need_dx)
+    ff.FORCE_WMMA = frozenset({"fourier_mlp_bwd"})
+    try:
+        old = ff._mlp_backward(spec, x, B, ws, bs, g)
+    finally:
+        ff.FORCE_WMMA = frozenset()
+    torch.cuda.synchronize()
+    assert (got[0] is None) == (not need_dx)
+    names = ["dW0", "dW1", "dW2", "db0", "db1", "db2", "dx"]
+    # dW2 and db2 pass no mask: against the plain version. Every output
+    # against the WMMA body, which rounds and masks at the same places and
+    # differs in the order of the f32 sums only. Against the plain version a
+    # relu mask can fall the other way at a point, which moves a gradient
+    # summed over few points by percents: there dx is held at all but a few
+    # points, and the weight gradients once the points are thousands.
+    _check_all([names[2], names[5]], [flat(got)[2], flat(got)[5]],
+               [flat(want)[2], flat(want)[5]], BWD_TOL[True])
+    _check_all(names, flat(got), flat(old), 2e-3)
+    if n >= 5000:
+        _check_all(names[:6], flat(got)[:6], flat(want)[:6], BWD_TOL[True])
     if need_dx:
         off = ((got[0] - want[0]).abs() > BWD_TOL[True] * want[0].abs().max()).any(dim=0)
         assert int(off.sum()) <= max(1, n // 500)

@@ -54,19 +54,25 @@ def _j(arrs):
 
 
 @pytest.mark.parametrize("basis", ["tri", "sincos"])
-@pytest.mark.parametrize("dims,n", [((24, 16, 5), 300), ((24, 16, 16, 1), 190)])
+# the last case is the nerfacto field's base MLP (H = 128), which the
+# semantics path runs alone in this kernel; 130 points are ragged against
+# JAX's 128-point tile
+@pytest.mark.parametrize("dims,n", [((24, 16, 5), 300), ((24, 16, 16, 1), 190),
+                                    ((256, 128, 128, 16), 130)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_fourier_mlp_matches_jax_kernel(basis, dims, n, bf16):
-    rng, x, B = _case(0, 12, n, basis)
+    H = dims[0] // 2
+    rng, x, B = _case(0, H, n, basis)
     ws, bs = _mlp(rng, dims)
-    jspec = jff.FusedMLPSpec(h_freqs=12, layer_dims=dims, tile=128, interpret=True,
+    jspec = jff.FusedMLPSpec(h_freqs=H, layer_dims=dims, tile=128, interpret=True,
                              bf16=bf16, basis=basis)
     want = np.asarray(jff.fourier_mlp(jspec, jnp.asarray(x), jnp.asarray(B), _j(ws), _j(bs)))
-    tspec = tff.FusedMLPSpec(h_freqs=12, layer_dims=dims, bf16=bf16, basis=basis)
+    tspec = tff.FusedMLPSpec(h_freqs=H, layer_dims=dims, bf16=bf16, basis=basis)
     got = tff.fourier_mlp(tspec, torch.as_tensor(x), torch.as_tensor(B), _t(ws), _t(bs))
     assert got.shape == (dims[-1], n)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL_BF16 if bf16 else ATOL, rtol=0)
-    assert tff.LAUNCHES["fourier_mlp"] == 0  # CPU tensors never launch
+    # CPU tensors never launch
+    assert tff.LAUNCHES["fourier_mlp"] == tff.LAUNCHES["fourier_mlp_base_wgmma"] == 0
 
 
 @pytest.mark.parametrize("basis", ["tri", "sincos"])

@@ -1,6 +1,7 @@
 """What the wgmma field kernels' host side decides, on the CPU: the shifted
 rgb weight matrix, the weight image's layout, and the sizes of the scratch
-and partial tensors the wrappers allocate."""
+and partial tensors the wrappers allocate; the same for the fused-MLP
+kernels' base-width bodies (the base chain's image alone, their scratch)."""
 
 import numpy as np
 import pytest
@@ -80,6 +81,29 @@ def test_weight_image_against_unpack(base_dims, rgb_dims):
     assert off == image.numel()
 
 
+@pytest.mark.parametrize("rounded", [True, False])
+def test_base_image_against_unpack(rounded):
+    """The base-width bodies' image is the base chain's part of the field's
+    image: every layer W^T in the core layout, bf16, bit for bit; from
+    unrounded weights (the backward's) the cast rounds as ``_cast`` does."""
+    rng = np.random.default_rng(2)
+    ws, bs = _mlp(rng, FLAGSHIP_BASE)
+    wb = ff._pack(ws, bs, FLAGSHIP_BASE, rounded)
+    image = ff._base_image(wb, FLAGSHIP_BASE)
+    assert image.dtype == torch.bfloat16 and image.numel() * 2 == 102400
+    off = 0
+    for w in ff._unpack(wb, FLAGSHIP_BASE)[0]:
+        K, N = w.shape
+        n_, k_ = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+        got = image[off:off + N * K].float()[torch.from_numpy(ff._core_offset(n_, k_, N))]
+        assert torch.equal(got, ff._cast(w, True).T)
+        off += N * K
+    assert off == image.numel()
+    rgb_wb = ff._pack(*_mlp(rng, (31, 64, 64, 3)), (31, 64, 64, 3), rounded)
+    field = ff._weight_image(wb, rgb_wb, FLAGSHIP_BASE, (31, 64, 64, 3))
+    assert torch.equal(field[:image.numel()], image)
+
+
 def test_core_offset_is_a_permutation_of_cores():
     r, c = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
     off = ff._core_offset(r, c, 64)
@@ -96,6 +120,13 @@ def test_field_scratch_bytes(n, F):
     grads = np.array([128, 128, 16, 64, 64, 16])  # pre-activation gradients
     tiles = -(-n // 64)
     assert ff._field_scratch_bytes(n, F) == int(tiles * 64 * 2 * (acts.sum() + grads.sum()))
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 193, 196608, 1000003])
+def test_mlp_base_scratch_bytes(n):
+    acts = [128, 128]  # the hidden layers' inputs (the encoding is recomputed)
+    grads = [128, 128, 16]  # the three pre-activation gradients
+    assert ff._mlp_base_scratch_bytes(n) == -(-n // 64) * 64 * 2 * (sum(acts) + sum(grads))
 
 
 @pytest.mark.parametrize("chains", [

@@ -1,7 +1,9 @@
-"""What the wgmma bodies of the two proposal-field kernels leave to the host,
-on the CPU: the pair order of the encoding along the first layer's K axis,
-the bf16 image of W_0^T in that order, its inverse on the way out of the
-backward, the shape test of the dispatch and the size of the partial."""
+"""What the wgmma bodies of the two fused-MLP kernels leave to the host, on
+the CPU: at the proposal fields' widths the pair order of the encoding along
+the first layer's K axis, the bf16 image of W_0^T in that order and its
+inverse on the way out of the backward; the shape tests of the dispatch
+(also of the base-width bodies), the launch counters and the size of the
+partial."""
 
 import numpy as np
 import pytest
@@ -125,10 +127,41 @@ def test_wgmma_mlp_shapes():
     assert not ff._wgmma_mlp(spec(layer_dims=(80, 16, 16, 1)))
 
 
+BASE = (256, 128, 128, 16)
+
+
+@pytest.mark.parametrize("kw,want", [
+    ({}, True), ({"basis": "tri", "need_dx": False}, True),
+    ({"bf16": False}, False),
+    ({"h_freqs": 64, "layer_dims": (128, 128, 128, 16)}, False),
+    ({"layer_dims": (256, 64, 64, 16)}, False),
+    ({"layer_dims": (256, 128, 128, 1)}, False),
+    ({"layer_dims": (256, 128, 16)}, False),
+    ({"h_freqs": 40, "layer_dims": DIMS}, False)])
+def test_wgmma_mlp_base_shapes(kw, want):
+    """The base-width bodies take bf16, H = 128, (256, 128, 128, 16) in
+    either basis and refuse every other shape; the two predicates never
+    both hold, and the body names the counter."""
+    spec = ff.FusedMLPSpec(**{**dict(h_freqs=128, layer_dims=BASE), **kw})
+    assert ff._wgmma_mlp_base(spec) == want
+    assert not (ff._wgmma_mlp_base(spec) and ff._wgmma_mlp(spec))
+    for kernel in ("fourier_mlp", "fourier_mlp_bwd"):
+        body = ff._mlp_body(spec, kernel)
+        assert body == ("_base_wgmma" if want else "_wgmma" if ff._wgmma_mlp(spec) else "")
+        assert kernel + body in ff.LAUNCHES
+        ff.FORCE_WMMA = frozenset({kernel})
+        try:
+            assert ff._mlp_body(spec, kernel) == ""
+        finally:
+            ff.FORCE_WMMA = frozenset()
+
+
 def test_launch_counters_and_forcing():
-    """Every kernel counts its two bodies apart, and nothing is forced
-    through a WMMA body unless a measurement names it."""
-    assert set(ff.LAUNCHES) == {*ff.KERNELS, *(f"{k}_wgmma" for k in ff.KERNELS)}
+    """Every kernel counts its bodies apart (the fused-MLP kernels' base-width
+    bodies under keys of their own), and nothing is forced through a WMMA
+    body unless a measurement names it."""
+    assert set(ff.LAUNCHES) == {*ff.KERNELS, *(f"{k}_wgmma" for k in ff.KERNELS),
+                                "fourier_mlp_base_wgmma", "fourier_mlp_bwd_base_wgmma"}
     assert ff.FORCE_WMMA == frozenset()
     ff.LAUNCHES["fourier_mlp_wgmma"] += 3
     ff.reset_launches()
@@ -161,4 +194,23 @@ def test_flagship_mlp_on_the_cpu_is_the_plain_version(basis, need_dx):
     rx, rws, rbs = ff.fourier_mlp_backward_reference(x, B, ws, bs, g, basis, True, need_dx)
     assert (dx is None) == (not need_dx)
     assert all(torch.equal(a, b) for a, b in zip(dws + dbs, rws + rbs))
+    assert not any(ff.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("basis", ["tri", "sincos"])
+def test_base_mlp_on_the_cpu_is_the_plain_version(basis):
+    """CPU tensors at the base widths never reach a kernel either."""
+    rng = np.random.default_rng(4)
+    n, H = 70, 128
+    x = torch.tensor(rng.random((3, n)), dtype=torch.float32)
+    B = torch.tensor(rng.normal(size=(3, H)), dtype=torch.float32)
+    ws, bs = _mlp(rng, BASE)
+    g = torch.tensor(rng.normal(size=(16, n)), dtype=torch.float32)
+    spec = ff.FusedMLPSpec(h_freqs=H, layer_dims=BASE, basis=basis)
+    ff.reset_launches()
+    out = ff.fourier_mlp(spec, x, B, ws, bs)
+    assert torch.equal(out, ff.fourier_mlp_reference(x, B, ws, bs, basis, True))
+    dx, dws, dbs = ff._mlp_backward(spec, x, B, ws, bs, g)
+    rx, rws, rbs = ff.fourier_mlp_backward_reference(x, B, ws, bs, g, basis, True, True)
+    assert all(torch.equal(a, b) for a, b in zip([dx] + dws + dbs, [rx] + rws + rbs))
     assert not any(ff.LAUNCHES.values())
