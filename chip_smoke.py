@@ -126,7 +126,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    chunk build's host time against the steps it overlapped, the eval of the
    held-out frames, a profile of one step, and 3 f32 steps card against CPU
    on the same stream batches;
-15. a {"kernels": [...]} line, each record's "launches" counted per
+15. the preprocessing pipeline (process_data/) on the street scene,
+   f32 with TF32 off, no fused kernel launched (checked): the motion-mask
+   driver at 640x192 (seeded monodepth2 and RAFT at 20 iterations, the
+   trained segmenter of outputs/segmenter3), its seconds a frame pair, host
+   share and peak memory and each network's ms a call; the host pieces of
+   a pair (frame decode and BICUBIC resize, PNG encodes, dilation); the
+   flow extraction both ways (14 RAFT calls); the inpainting driver at
+   432x240 (window 10, stride 4) on the combined masks and on the scene's
+   true moving masks, pixels far from the masks equal to the frames' own
+   JPEG round trip; COLMAP text model -> build_kitti_metadata ->
+   SudsMetadataConfig.load_items of both splits; the exact motion chain of
+   tools/demo_motion_pipeline.py at 8 frames of 188x621, its mean IoU
+   within 0.005 of the JAX package's 0.9684; every network card against CPU
+   in f32, and the driver's first pair on the CPU against the card's;
+16. a {"kernels": [...]} line, each record's "launches" counted per
    "launches_per" (a frame, a bench step, a run-2 or a run-7 step, a run-2
    step with the camera optimizer), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2277,6 +2291,533 @@ def phase_stream(scene: str) -> None:
     check(max(rels) <= 2e-3, f"run 8 card vs CPU f32 steps: {rels}")
 
 
+# ---------------------------------------------------------------------------
+# the preprocessing pipeline (process_data/): motion masks, flows, inpainting,
+# COLMAP -> metadata.json, and the exact motion chain
+# ---------------------------------------------------------------------------
+
+# the JAX package's defaults: the motion-mask and flow working size, the
+# inpainter's
+PRE_HW = (192, 640)
+INPAINT_HW = (240, 432)
+INPAINT_WINDOW, INPAINT_STRIDE = 10, 4
+# tools/demo_motion_pipeline.py at its defaults, and its recorded mean IoU
+# (outputs/motion_pipeline_demo/result.json)
+CHAIN = {"frames": 8, "h": 188, "w": 621, "th": 0.3}
+JAX_CHAIN_IOU = 0.9683959286159285
+CHAIN_IOU_TOL = 0.005
+SEGMENTER = HERE / "outputs" / "segmenter3" / "segmenter.npz"
+# card against CPU, f32, the same weights, as a share of the output's
+# largest magnitude: the single-pass networks to 1e-4 (cuDNN's and MKL's f32
+# sums differ in order); RAFT to 1e-3, because its 20 recurrent iterations
+# re-sample the correlation pyramid at the coordinates the previous ones
+# moved, so the order differences of one pass feed the next
+VS_CPU_TOL = {"depth": 1e-4, "pose": 1e-4, "raft": 1e-3, "segmenter": 1e-4, "inpaint": 1e-4}
+MASK_SHARE_TOL = 1e-3
+
+
+def exact_motion_chain(n_frames: int, h: int, w: int, th: float, device=None) -> dict:
+    """The chain of tools/demo_motion_pipeline.py on the port's ops: the
+    port's dynamic street scene (two moving cars) at h x w gives exact depth,
+    ego-motion, optical flow and the true moving masks; per pair, exact depth
+    and pose -> pose2flow -> moving_probability -> hard_motion_mask (times
+    the flow's validity) -> instances_from_components(min_area=32) ->
+    per_object_fusion, scored by IoU against the true dynamic mask. ->
+    {"mean_iou", "per_frame_iou" (rounded to 4 places, as the tool's),
+    "median_static_flow_err_px", "masks" (uint8 0/1), "seconds_ops"}."""
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.data.synthetic_kitti import (
+        CX, CY, FX, FY, make_movers, make_poses, make_scene, render_dynamic_flow,
+        render_dynamic_frame,
+    )
+    from nerf_kbs_tpu_torch.device import resolve_device
+    from nerf_kbs_tpu_torch.process_data.motion_mask import (
+        hard_motion_mask, instances_from_components, moving_probability, per_object_fusion,
+    )
+    from nerf_kbs_tpu_torch.process_data.warp import pose2flow
+
+    dev = resolve_device(device)
+    sx, sy = w / 1242.0, h / 375.0
+    cam = (FX * sx, FY * sy, CX * sx, CY * sy)
+    K = np.array([[cam[0], 0, cam[2]], [0, cam[1], cam[3]], [0, 0, 1.0]], np.float32)
+    K_t = torch.as_tensor(K, device=dev)[None]
+    K_inv_t = torch.as_tensor(np.linalg.inv(K).astype(np.float32), device=dev)[None]
+    static = make_scene(0, n_frames * 0.8 + 90.0)
+    movers = make_movers()
+    poses = make_poses(n_frames)
+    ious, static_errs, masks, ops_s = [], [], [], 0.0
+    for i in range(n_frames - 1):
+        _, depth, _, dyn_gt = render_dynamic_frame(poses[i], static, movers, i, h, w, *cam)
+        optical, valid, _ = render_dynamic_flow(poses[i], poses[i + 1], static, movers, i, i + 1,
+                                                h, w, *cam)
+        Pa, Pb = np.eye(4), np.eye(4)
+        Pa[:3], Pb[:3] = poses[i], poses[i + 1]
+        rel = (np.linalg.inv(Pb) @ Pa)[:3].astype(np.float32)
+        t0 = time.perf_counter()
+        rigid = pose2flow(torch.as_tensor(depth, device=dev)[None],
+                          torch.as_tensor(rel, device=dev)[None], K_t, K_inv_t)[0]
+        valid_t = torch.as_tensor(valid, device=dev)
+        # invalid pixels (sky, behind the camera) carry the rigid flow, as a
+        # real flow net gives flow everywhere
+        opt_t = torch.where(valid_t[None], torch.as_tensor(np.moveaxis(optical, -1, 0),
+                                                           device=dev), rigid)
+        prob = moving_probability(opt_t, rigid)
+        hard = (hard_motion_mask(prob, th) * valid_t.to(torch.uint8)).cpu().numpy()
+        diff = torch.linalg.vector_norm(opt_t - rigid, dim=0).cpu().numpy()
+        ops_s += time.perf_counter() - t0
+        static_errs.append(float(np.median(diff[valid & ~dyn_gt])))
+        inst = instances_from_components(hard, min_area=32)
+        dyn_pred = (1 - per_object_fusion(inst, hard)).astype(bool)
+        union = float((dyn_pred | dyn_gt).sum())
+        ious.append(float((dyn_pred & dyn_gt).sum()) / max(union, 1.0))
+        masks.append(dyn_pred.astype(np.uint8))
+    return {"mean_iou": float(np.mean(ious)), "per_frame_iou": [round(v, 4) for v in ious],
+            "median_static_flow_err_px": round(float(np.median(static_errs)), 4),
+            "masks": masks, "seconds_ops": ops_s}
+
+
+def _intrinsics(scene: str) -> tuple:
+    """The scene's P2 intrinsics (fx, fy, cx, cy) at its own size."""
+    from nerf_kbs_tpu_torch.cameras.poses import intrinsics_from_projection, read_kitti_calib
+
+    return intrinsics_from_projection(read_kitti_calib(str(Path(scene) / "calib.txt"))["P2"])[:4]
+
+
+def _motion_cfg(scene: str, out: str):
+    from nerf_kbs_tpu_torch.process_data.motion_mask_driver import MotionMaskConfig
+
+    fx, fy, cx, cy = _intrinsics(scene)
+    return MotionMaskConfig(image_path=str(Path(scene) / "00"), output_path=out, camera="custom",
+                            fx=fx, fy=fy, cx=cx, cy=cy, segmenter_ckpt=str(SEGMENTER),
+                            width=PRE_HW[1], height=PRE_HW[0])
+
+
+def _net_times(name: str, fn, reps: int = 5) -> dict:
+    """CUDA-event ms of back-to-back calls, the device ms of one call
+    (torch.profiler, every kernel it launched) and its longest kernels."""
+    ms = time_ms(fn, reps)
+    wall_us, events = device_events(fn)
+    return {"net": name, "ms": ms, "device_ms": sum(us for _, us, _ in events) / 1e3,
+            "launches": sum(c for _, _, c in events), "wall_ms_profiled": wall_us / 1e3,
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, us, c in events[:6]]}
+
+
+# the driver's stages, by the function that does each
+DRIVER_STAGES = {"build_networks": "network set-up (seeded weights, checkpoint)",
+                 "load_frame": "frame read and resize", "_predict_depth": "depth",
+                 "predict_pose": "pose", "compute_flow": "raft", "pose2flow": "rigid flow",
+                 "moving_probability": "moving probability", "predict": "segmenter",
+                 "extract_instances": "instance votes", "per_object_fusion": "fusion",
+                 "_write_png": "png encodes and writes",
+                 "flow_to_image": "flow colour coding", "render_mask_on_image": "overlay"}
+
+
+def _host_breakdown(work) -> dict:
+    """Wall seconds of one call of ``work`` by driver stage (cumulative time
+    of each stage's function under cProfile, which adds a cost to every
+    Python call and so inflates the stages that make many: RAFT's), the
+    rest under "other"."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(work)
+    total = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    out = {}
+    for (_, _, fn), (_, _, _, cum, _) in stats.items():
+        if fn in DRIVER_STAGES:
+            out[DRIVER_STAGES[fn]] = out.get(DRIVER_STAGES[fn], 0.0) + cum
+    out["other"] = total - sum(out.values())
+    out["total"] = total
+    return out
+
+
+def phase_preprocess_motion_mask(scene: str, out_dir: str) -> str:
+    """motion_mask_driver.run over the scene's 8 frames at 640x192: seeded
+    monodepth2 (ResNet-18) and RAFT (20 iterations), the trained segmenter
+    (outputs/segmenter3), the camera from the scene's P2. A warm-up run
+    writes the outputs, a second is timed, a third is profiled (host share
+    = 1 - device busy / wall) with the peak memory; then each network's
+    ms a call at the driver's shapes."""
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.device import resolve_device
+    from nerf_kbs_tpu_torch.process_data import motion_mask_driver as drv
+    from nerf_kbs_tpu_torch.utils.images import png_size
+
+    out = str(Path(out_dir) / "motion")
+    cfg = _motion_cfg(scene, out)
+    t0 = time.perf_counter()
+    res = drv.run(cfg)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    drv.run(cfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = _peak_mib(lambda: drv.run(cfg))
+    prof_wall_us, events = device_events(lambda: drv.run(cfg))
+    busy_ms = sum(us for _, us, _ in events) / 1e3
+    host_s = _host_breakdown(lambda: drv.run(cfg))
+    pairs = res["frames"]
+    check(pairs == 7, f"{pairs} frame pairs")
+    for sub in ("moving_prob", "hard_mask", "combined_mask", "rendered", "cam_flow",
+                "depth_show"):
+        files = sorted((Path(out) / sub).glob("*.png"))
+        check(len(files) == 7 and all(png_size(f.read_bytes()[:24]) == (PRE_HW[1], PRE_HW[0])
+                                      for f in files), f"motion/{sub}: {len(files)} files")
+    poses = np.load(Path(out) / "poses.npy")
+    check(poses.shape == (7, 4, 4) and np.isfinite(poses).all()
+          and np.array_equal(poses[:, 3], np.tile([0, 0, 0, 1.0], (7, 1))),
+          f"poses.npy {poses.shape}")
+
+    dev = resolve_device(None)
+    m2, raft, seg = drv.build_networks(cfg, dev)
+    h, w = PRE_HW
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(2, 3, h, w, device=dev, generator=g)
+    seg_in = torch.rand(1, 6, h, w, device=dev, generator=g)
+    with torch.no_grad():
+        nets = [_net_times("depth (batch 2, the flip pair)", lambda: m2.predict_disparity(x)),
+                _net_times("pose", lambda: m2.predict_pose(x[:1], x[1:])),
+                _net_times("raft (20 iterations)", lambda: raft.compute_flow(x[:1], x[1:])),
+                _net_times("segmenter", lambda: seg(seg_in))]
+    emit({"phase": "preprocess_motion_mask", "frames": 8, "pairs": pairs, "image": list(PRE_HW),
+          "precision": "f32 (TF32 off)", "first_run_s": first_s, "wall_s": wall_s,
+          "s_per_pair": wall_s / pairs, "profiled_wall_s": prof_wall_us / 1e6,
+          "device_busy_ms": busy_ms, "host_share": max(0.0, 1.0 - busy_ms * 1e3 / prof_wall_us),
+          "peak_mib": peak, "dynamic_pixels": res["dynamic_pixels"],
+          "host_breakdown_s_per_pair": {k: v / pairs for k, v in host_s.items()}, "nets": nets})
+    return out
+
+
+def phase_preprocess_host_io(scene: str) -> None:
+    """The host pieces of a frame pair on one core: decode + BICUBIC resize
+    of a 376x1241 frame, the PNG encode of a 640x192 mask and of an RGB
+    overlay, and the dilation of a 240x432 mask."""
+    import numpy as np
+
+    from nerf_kbs_tpu_torch.process_data.motion_mask import dilate_mask
+    from nerf_kbs_tpu_torch.process_data.motion_mask_driver import load_frame
+    from nerf_kbs_tpu_torch.utils.images import encode_png_u8, read_image, resize_bicubic
+
+    frame = Path(scene) / "00" / "000000.png"
+    px = read_image(frame, "RGB")
+    rng = np.random.default_rng(0)
+    mask = (rng.random(PRE_HW) > 0.9).astype(np.uint8) * 255
+    rgb = rng.integers(0, 256, PRE_HW + (3,), dtype=np.uint8)
+
+    def host_ms(fn, reps=3):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    emit({"phase": "preprocess_host_io", "frame": list(SCENE_HW),
+          "load_frame_ms": host_ms(lambda: load_frame(frame, PRE_HW[1], PRE_HW[0])),
+          "decode_png_ms": host_ms(lambda: read_image(frame, "RGB")),
+          "resize_bicubic_ms": host_ms(lambda: resize_bicubic(px, PRE_HW[1], PRE_HW[0])),
+          "encode_png_mask_ms": host_ms(lambda: encode_png_u8(mask)),
+          "encode_png_rgb_ms": host_ms(lambda: encode_png_u8(rgb)),
+          "dilate_mask_ms": host_ms(lambda: dilate_mask(mask[:INPAINT_HW[0], :INPAINT_HW[1]] > 0))})
+
+
+def phase_preprocess_flows(scene: str, out_dir: str) -> str:
+    """raft_driver.extract_flows over the 8 frames, both directions: 14 RAFT
+    calls at 640x192, 20 iterations, seeded."""
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.process_data.raft_driver import FlowExtractConfig, extract_flows
+
+    out = str(Path(out_dir) / "flows")
+    cfg = FlowExtractConfig(image_dir=str(Path(scene) / "00"), output_dir=out,
+                            width=PRE_HW[1], height=PRE_HW[0])
+    extract_flows(cfg)
+    t0 = time.perf_counter()
+    res = extract_flows(cfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fwd = sorted((Path(out) / "flow_fwd").glob("*.npy"))
+    bwd = sorted((Path(out) / "flow_bwd").glob("*.npy"))
+    viz = sorted((Path(out) / "flow_viz").glob("*.png"))
+    flows = [np.load(f) for f in fwd + bwd]
+    check(res["pairs"] == 7 and len(fwd) == len(bwd) == len(viz) == 7
+          and all(f.shape == PRE_HW + (2,) and f.dtype == np.float32 and np.isfinite(f).all()
+                  for f in flows), f"flows: {len(fwd)} / {len(bwd)} / {len(viz)}")
+    check([f.stem for f in fwd] == [f"{i:06}" for i in range(7)]
+          and [f.stem for f in bwd] == [f"{i:06}" for i in range(1, 8)], "flow file names")
+    emit({"phase": "preprocess_flows", "pairs": 7, "raft_calls": 14, "wall_s": wall_s,
+          "ms_per_call": wall_s / 14 * 1e3, "flow_abs_max_px": float(max(np.abs(f).max()
+                                                                         for f in flows))})
+    return out
+
+
+def _inpaint_run(gen, scene: str, masks: Path, out: str) -> dict:
+    """inpaint.run (once to warm, once timed) and the check of its 8 JPEGs:
+    pixels more than 32 px (in both axes) from the dilated mask must equal
+    the input frame's own JPEG round trip exactly. The composite keeps the
+    frame outside the mask, JPEG codes each 16x16 MCU alone, and the
+    decoder's chroma upsampling reads the next MCU's samples: 32 px covers a
+    pixel's MCU and its neighbours."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from nerf_kbs_tpu_torch.process_data import inpaint as inp
+    from nerf_kbs_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
+
+    cfg = inp.InpaintDriverConfig(image_dir=str(Path(scene) / "00"), mask_dir=str(masks),
+                                  output_dir=out, width=INPAINT_HW[1], height=INPAINT_HW[0],
+                                  window=INPAINT_WINDOW, neighbor_stride=INPAINT_STRIDE)
+    inp.run(cfg, generator=gen)
+    t0 = time.perf_counter()
+    written = inp.run(cfg, generator=gen)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(len(written) == 8 and all(Path(p).name == f"rgb_{i:05d}.jpg"
+                                    for i, p in enumerate(written)), f"{len(written)} JPEGs")
+    frames, dilated, _ = inp.load_frames_and_masks(cfg)
+    far = np.stack([ndimage.maximum_filter(m, size=65, mode="constant") == 0 for m in dilated])
+    worst = 0
+    for i, p in enumerate(written):
+        got = decode_jpeg(Path(p).read_bytes()).astype(int)
+        ref = decode_jpeg(encode_jpeg((frames[i] * 255).astype(np.uint8), quality=95)).astype(int)
+        check(got.shape == INPAINT_HW + (3,), f"{p}: {got.shape}")
+        if far[i].any():
+            worst = max(worst, int(np.abs(got - ref)[far[i]].max()))
+    check(worst == 0, f"inpaint: pixels far from the mask moved by {worst}")
+    return {"wall_s": wall_s, "hole_share": float(dilated.mean()),
+            "far_share_checked": float(far.mean()), "far_max_diff": worst,
+            "frames": frames, "dilated": dilated}
+
+
+def phase_preprocess_inpaint(scene: str, motion: str, out_dir: str) -> str:
+    """inpaint.run at 432x240, window 10, stride 4, seeded: on the 8 frames
+    and the combined masks (the last pair's mask stands for the last frame,
+    which ends no pair), timed a window; then on the scene's true moving
+    masks, whose dilation leaves most of the frame to check (the seeded
+    networks' masks, dilated, may cover all of it). Then the generator's
+    ms a call."""
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.device import resolve_device
+    from nerf_kbs_tpu_torch.process_data import inpaint as inp
+    from nerf_kbs_tpu_torch.utils.images import decode_png, encode_png_u8
+
+    combined = Path(out_dir) / "inpaint_masks"
+    true = Path(out_dir) / "inpaint_true_masks"
+    combined.mkdir(parents=True, exist_ok=True)
+    true.mkdir(parents=True, exist_ok=True)
+    for i in range(8):
+        (combined / f"{i:06}.png").write_bytes(
+            (Path(motion) / "combined_mask" / f"{min(i, 6):06}.png").read_bytes())
+        static = decode_png((Path(scene) / "mask" / f"{i:06}.png").read_bytes())
+        (true / f"{i:06}.png").write_bytes(encode_png_u8(((static == 0) * 255).astype(np.uint8)))
+    dev = resolve_device(None)
+    gen = inp.seeded_generator(0).to(dev).eval()
+    out = str(Path(out_dir) / "fill_img")
+    run = _inpaint_run(gen, scene, combined, out)
+    run_true = _inpaint_run(gen, scene, true, str(Path(out_dir) / "fill_img_true"))
+    check(run_true["far_share_checked"] > 0.01,
+          f"true masks leave {run_true['far_share_checked']} of the frames to check")
+    windows = len(inp.window_plan(8, INPAINT_STRIDE, INPAINT_WINDOW))
+    ids = inp.window_plan(8, INPAINT_STRIDE, INPAINT_WINDOW)[0]
+    clip = torch.as_tensor(run["frames"][ids], device=dev).permute(0, 3, 1, 2)[None]
+    mclip = torch.as_tensor(run["dilated"][ids], device=dev)[None]
+    with torch.no_grad():
+        net = _net_times("inpaint generator (T = 10)", lambda: gen(clip, mclip))
+    emit({"phase": "preprocess_inpaint", "frames": 8, "image": list(INPAINT_HW),
+          "windows": windows, "wall_s": run["wall_s"], "s_per_window": run["wall_s"] / windows,
+          **{k: run[k] for k in ("hole_share", "far_share_checked", "far_max_diff")},
+          "true_masks": {k: run_true[k] for k in ("wall_s", "hole_share", "far_share_checked",
+                                                  "far_max_diff")},
+          "nets": [net]})
+    return out
+
+
+def _write_colmap_text_model(scene: str, sparse: Path) -> None:
+    """A COLMAP text model of the scene's poses (00.txt, camera -> world,
+    OpenCV) and P2 intrinsics: one PINHOLE camera, each image's
+    world -> camera quaternion and translation, named by its frame."""
+    import numpy as np
+
+    sparse.mkdir(parents=True, exist_ok=True)
+    fx, fy, cx, cy = _intrinsics(scene)
+    h, w = SCENE_HW
+    (sparse / "cameras.txt").write_text(f"1 PINHOLE {w} {h} {fx} {fy} {cx} {cy}\n")
+    lines = []
+    for i, row in enumerate(np.loadtxt(Path(scene) / "00.txt").reshape(-1, 3, 4)):
+        R = row[:, :3].T
+        t = -R @ row[:, 3]
+        # rotation matrix -> quaternion (w, x, y, z); the scene's rotations
+        # are small, so w is far from 0
+        qw = np.sqrt(max(1.0 + np.trace(R), 1e-12)) / 2
+        q = [qw, (R[2, 1] - R[1, 2]) / (4 * qw), (R[0, 2] - R[2, 0]) / (4 * qw),
+             (R[1, 0] - R[0, 1]) / (4 * qw)]
+        lines += [f"{i + 1} {' '.join(map(str, q))} {' '.join(map(str, t))} 1 {i:06}.png", ""]
+    (sparse / "images.txt").write_text("\n".join(lines))
+
+
+def phase_preprocess_metadata(scene: str, motion: str, flows: str, out_dir: str) -> None:
+    """COLMAP -> metadata.json: a text model of the scene's poses, the
+    scene's frames, the smoke's flows and combined masks and the scene
+    writer's depth under the asset templates (motion/<seq>/{flow_fwd,
+    flow_bwd, depth_npy, motion_mask}, fill_img/<seq>), build_kitti_metadata
+    with every 4th frame held out, then SudsMetadataConfig.load_items of
+    both splits: frame counts and the neighbours."""
+    import shutil
+
+    import numpy as np
+
+    from nerf_kbs_tpu_torch.data.dataparsers.suds_metadata import SudsMetadataConfig
+    from nerf_kbs_tpu_torch.process_data.colmap_io import read_model
+    from nerf_kbs_tpu_torch.process_data.metadata import KittiMetadataConfig, build_kitti_metadata
+
+    root = Path(out_dir) / "metadata"
+    seq = "0000"
+    sparse = root / "colmap" / "0"
+    _write_colmap_text_model(scene, sparse)
+    cams, imgs = read_model(str(sparse))
+    check(len(cams) == 1 and len(imgs) == 8, f"COLMAP model: {len(cams)} / {len(imgs)}")
+    assets = root / "motion" / seq
+    shutil.copytree(Path(scene) / "00", root / "fill_img" / seq)
+    shutil.copytree(Path(flows) / "flow_fwd", assets / "flow_fwd")
+    shutil.copytree(Path(flows) / "flow_bwd", assets / "flow_bwd")
+    shutil.copytree(Path(scene) / "depth", assets / "depth_npy")
+    shutil.copytree(Path(motion) / "combined_mask", assets / "motion_mask")
+    t0 = time.perf_counter()
+    items = build_kitti_metadata(KittiMetadataConfig(
+        colmap_sparse_dir=str(sparse), image_dir=str(root / "fill_img"),
+        motion_dir=str(root / "motion"), sequence=seq, output_path=str(root / "metadata.json"),
+        test_every=4))
+    build_s = time.perf_counter() - t0
+    meta = json.loads((root / "metadata.json").read_text())
+    train, _ = SudsMetadataConfig(metadata_path=str(root / "metadata.json")).load_items("train")
+    val, _ = SudsMetadataConfig(metadata_path=str(root / "metadata.json")).load_items("val")
+    check(len(items) == 8 and len(train) == 7 and len(val) == 1 and val[0].image_index == 4,
+          f"splits {len(train)} / {len(val)}")
+    # metadata.json's neighbours skip the held-out frame 4; the train split
+    # renumbers them by position among its own 7 frames
+    raw = [(fr["forward_neighbor_index"], fr["backward_neighbor_index"]) for fr in meta["frames"]]
+    check(raw == list(zip([1, 2, 3, 5, 5, 6, 7, 7], [0, 0, 1, 2, 3, 3, 5, 6])),
+          f"metadata.json neighbours {raw}")
+    fwd = [it.forward_neighbor_index for it in train]
+    bwd = [it.backward_neighbor_index for it in train]
+    check(fwd == [1, 2, 3, 4, 5, 6, 6] and bwd == [0, 0, 1, 2, 3, 4, 5],
+          f"train neighbours fwd {fwd} bwd {bwd}")
+    c2w = np.stack([np.asarray(it.c2w) for it in train + val])
+    check(np.abs(c2w[:, :, 3]).max() <= 1.0 and meta["pose_scale_factor"] > 0,
+          "poses not normalised")
+    check(all(Path(it.forward_flow_path).exists() for it in train if it.image_index < 7),
+          "forward flow files")
+    emit({"phase": "preprocess_metadata", "frames": len(items), "train": len(train),
+          "val": len(val), "build_s": build_s, "pose_scale_factor": meta["pose_scale_factor"],
+          "forward_neighbours": fwd, "backward_neighbours": bwd})
+
+
+def phase_preprocess_exact_chain() -> None:
+    """tools/demo_motion_pipeline.py's chain at its defaults on the card:
+    its mean IoU within CHAIN_IOU_TOL of the JAX package's recorded one."""
+    t0 = time.perf_counter()
+    res = exact_motion_chain(CHAIN["frames"], CHAIN["h"], CHAIN["w"], CHAIN["th"])
+    seconds = time.perf_counter() - t0
+    emit({"phase": "preprocess_exact_chain", **CHAIN, "mean_iou": res["mean_iou"],
+          "jax_mean_iou": JAX_CHAIN_IOU, "tol": CHAIN_IOU_TOL,
+          "per_frame_iou": res["per_frame_iou"],
+          "median_static_flow_err_px": res["median_static_flow_err_px"], "seconds": seconds,
+          "seconds_device_ops": res["seconds_ops"]})
+    check(abs(res["mean_iou"] - JAX_CHAIN_IOU) <= CHAIN_IOU_TOL,
+          f"exact chain mean IoU {res['mean_iou']} against {JAX_CHAIN_IOU}")
+
+
+def phase_preprocess_vs_cpu(scene: str, motion: str, out_dir: str) -> None:
+    """Each network's f32 forward on the card against the same module on the
+    CPU, the same weights and inputs, at the driver's sizes: depth (the flip
+    pair at 640x192), pose, RAFT (20 iterations), the segmenter, one inpaint
+    window (432x240, T = 10); then the driver's first pair on the CPU
+    against the card run's outputs (masks by the share of pixels that
+    differ)."""
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.device import resolve_device
+    from nerf_kbs_tpu_torch.process_data import inpaint as inp
+    from nerf_kbs_tpu_torch.process_data import motion_mask_driver as drv
+    from nerf_kbs_tpu_torch.utils.images import decode_png
+
+    cfg = _motion_cfg(scene, str(Path(out_dir) / "motion_cpu"))
+    h, w = PRE_HW
+    g = torch.Generator().manual_seed(1)
+    frames = torch.rand(2, 3, h, w, generator=g)
+    seg_in = torch.rand(1, 6, h, w, generator=g)
+    ih, iw = INPAINT_HW
+    clip = torch.rand(1, INPAINT_WINDOW, 3, ih, iw, generator=g)
+    holes = (torch.rand(1, INPAINT_WINDOW, ih, iw, generator=g) > 0.8).float()
+
+    def outputs(dev):
+        m2, raft, seg = drv.build_networks(cfg, dev)
+        gen = inp.seeded_generator(0).to(dev).eval()
+        x = frames.to(dev)
+        with torch.no_grad():
+            return {"depth": m2.predict_disparity(x), "pose": m2.predict_pose(x[:1], x[1:]),
+                    "raft": raft.compute_flow(x[:1], x[1:]), "segmenter": seg(seg_in.to(dev)),
+                    "inpaint": gen(clip.to(dev), holes.to(dev))}
+
+    card = {k: v.cpu() for k, v in outputs(resolve_device(None)).items()}
+    cpu = outputs(torch.device("cpu"))
+    rows = []
+    for name, tol in VS_CPU_TOL.items():
+        diff = float((card[name] - cpu[name]).abs().max())
+        scale = float(cpu[name].abs().max())
+        rows.append({"net": name, "max_abs_diff": diff, "scale": scale, "rel_diff": diff / scale,
+                     "rel_tol": tol})
+    t0 = time.perf_counter()
+    drv.run(cfg, max_frames=2, device="cpu")
+    cpu_pair_s = time.perf_counter() - t0
+    shares = {}
+    for sub in ("hard_mask", "combined_mask"):
+        a = decode_png((Path(motion) / sub / "000000.png").read_bytes())
+        b = decode_png((Path(cfg.output_path) / sub / "000000.png").read_bytes())
+        shares[sub] = float((a != b).mean())
+    prob_levels = int(np.abs(
+        decode_png((Path(motion) / "moving_prob" / "000000.png").read_bytes()).astype(int)
+        - decode_png((Path(cfg.output_path) / "moving_prob" / "000000.png").read_bytes())).max())
+    pose_diff = float(np.abs(np.load(Path(motion) / "poses.npy")[:1]
+                             - np.load(Path(cfg.output_path) / "poses.npy")).max())
+    emit({"phase": "preprocess_vs_cpu", "nets": rows, "mask_share_differing": shares,
+          "mask_share_tol": MASK_SHARE_TOL, "moving_prob_max_level_diff": prob_levels,
+          "pose_matrix_max_diff": pose_diff, "cpu_pair_s": cpu_pair_s})
+    for r in rows:
+        check(r["rel_diff"] <= r["rel_tol"], f"{r['net']} card vs CPU: {r['rel_diff']}")
+    check(max(shares.values()) <= MASK_SHARE_TOL, f"driver masks card vs CPU: {shares}")
+
+
+def phase_preprocess(scene: str, out_dir: str) -> None:
+    """The preprocessing phases on the street scene; no fused kernel may
+    launch in them."""
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    ff.reset_launches()
+    motion = phase_preprocess_motion_mask(scene, out_dir)
+    phase_preprocess_host_io(scene)
+    flows = phase_preprocess_flows(scene, out_dir)
+    phase_preprocess_inpaint(scene, motion, out_dir)
+    phase_preprocess_metadata(scene, motion, flows, out_dir)
+    phase_preprocess_exact_chain()
+    phase_preprocess_vs_cpu(scene, motion, out_dir)
+    moved = {k: v for k, v in ff.LAUNCHES.items() if v}
+    emit({"phase": "preprocess_fused_launches", "launches": moved})
+    check(not moved, f"the preprocessing phases launched fused kernels: {moved}")
+
+
 def _pairs(argv: list) -> dict:
     """--k v pairs of an argv list as override paths."""
     return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
@@ -2317,6 +2858,7 @@ def main() -> int:
         phase_registry(scene, phase_vkitti_scene(tmp))
         phase_camera_opt(records, scene)
         phase_stream(scene)
+        phase_preprocess(scene, tmp)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]
     check(not bad, f"imported {bad}")

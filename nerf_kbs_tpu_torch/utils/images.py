@@ -14,10 +14,13 @@ loader asks for, with PIL's integer luma for 'L', so
 The resizers give, in NumPy, what a loader got from an imaging package:
 ``resize_lanczos`` and ``resize_nearest`` are PIL's ``Image.resize`` with
 LANCZOS (its fixed-point separable passes, bit for bit on uint8) and
-NEAREST; ``resize_nearest_cv`` and ``resize_linear_cv`` are OpenCV's
+NEAREST; ``resize_bicubic`` is its default BICUBIC;
+``resize_nearest_cv`` and ``resize_linear_cv`` are OpenCV's
 ``cv2.resize`` with INTER_NEAREST and INTER_LINEAR. The two nearest rules
 pick different source pixels: PIL samples at pixel centres, OpenCV at
-floor(x * scale)."""
+floor(x * scale). ``erode`` and ``dilate`` are OpenCV's morphology with its
+elliptic and cross structuring elements (``ellipse_offsets``,
+``cross_offsets``), bit for bit on uint8."""
 
 from __future__ import annotations
 
@@ -265,13 +268,30 @@ def _lanczos3(x: float) -> float:
     return sinc(x) * sinc(x / 3.0) if -3.0 <= x < 3.0 else 0.0
 
 
-def _lanczos_coefficients(in_size: int, out_size: int):
+def _bicubic(x: float) -> float:
+    # PIL's cubic convolution with a = -0.5
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+# PIL's filters with their support at scale 1
+_FILTERS = {"lanczos": (_lanczos3, 3.0), "bicubic": (_bicubic, 2.0)}
+
+
+def _coefficients(in_size: int, out_size: int, kind: str):
     """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for one
     axis: (first source index of each output (out,), integer taps (out,
-    ksize)). The arithmetic is PIL's, in double, one output at a time."""
+    ksize)). The arithmetic is PIL's, in double, one output at a time; the
+    support widens by the scale when downsampling."""
+    filt, base_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = base_support * filterscale
     ss = 1.0 / filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     taps = np.zeros((out_size, ksize), np.int64)
@@ -280,7 +300,7 @@ def _lanczos_coefficients(in_size: int, out_size: int):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         n = min(int(center + support + 0.5), in_size) - xmin
-        w = [_lanczos3((x + xmin - center + 0.5) * ss) for x in range(n)]
+        w = [filt((x + xmin - center + 0.5) * ss) for x in range(n)]
         total = 0.0
         for v in w:
             total += v
@@ -291,8 +311,8 @@ def _lanczos_coefficients(in_size: int, out_size: int):
     return first, taps
 
 
-def _lanczos_pass(px: np.ndarray, axis: int, out_size: int) -> np.ndarray:
-    first, taps = _lanczos_coefficients(px.shape[axis], out_size)
+def _resample_pass(px: np.ndarray, axis: int, out_size: int, kind: str) -> np.ndarray:
+    first, taps = _coefficients(px.shape[axis], out_size, kind)
     src = np.moveaxis(px, axis, 0).astype(np.int64)
     # taps past a row's support are 0: pad so that every tap index exists
     src = np.concatenate([src, np.zeros((taps.shape[1],) + src.shape[1:], np.int64)])
@@ -303,18 +323,30 @@ def _lanczos_pass(px: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.moveaxis(np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8), 0, axis)
 
 
+def _resize(pixels: np.ndarray, width: int, height: int, kind: str) -> np.ndarray:
+    if pixels.dtype != np.uint8:
+        raise ValueError(f"{pixels.dtype} pixels: the {kind} resizer takes uint8")
+    out = pixels
+    if width != pixels.shape[1]:
+        out = _resample_pass(out, 1, width, kind)
+    if height != pixels.shape[0]:
+        out = _resample_pass(out, 0, height, kind)
+    return out
+
+
 def resize_lanczos(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
     """PIL's ``Image.resize((width, height), Image.LANCZOS)`` of uint8 (H, W)
     or (H, W, C) pixels: the horizontal pass, rounded to uint8, then the
     vertical pass, each only where that size changes."""
-    if pixels.dtype != np.uint8:
-        raise ValueError(f"{pixels.dtype} pixels: the LANCZOS resizer takes uint8")
-    out = pixels
-    if width != pixels.shape[1]:
-        out = _lanczos_pass(out, 1, width)
-    if height != pixels.shape[0]:
-        out = _lanczos_pass(out, 0, height)
-    return out
+    return _resize(pixels, width, height, "lanczos")
+
+
+def resize_bicubic(pixels: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's ``Image.resize((width, height))`` of uint8 (H, W) or (H, W, C)
+    pixels, whose default filter is BICUBIC: the same two passes as
+    ``resize_lanczos`` with the cubic kernel (a = -0.5, support 2); an
+    unchanged size returns the pixels as they are."""
+    return _resize(pixels, width, height, "bicubic")
 
 
 def _pil_nearest_index(in_size: int, out_size: int) -> np.ndarray:
@@ -371,3 +403,59 @@ def resize_linear_cv(arr: np.ndarray, width: int, height: int) -> np.ndarray:
     col = (-1,) + (1,) * (a.ndim - 1)
     rows = a[:, x0] * xa.reshape(row) + a[:, x1] * xb.reshape(row)
     return rows[y0] * ya.reshape(col) + rows[y1] * yb.reshape(col)
+
+
+def _morphology(mask: np.ndarray, offsets: list, iterations: int, erode: bool) -> np.ndarray:
+    """min (erode) or max (dilate) of ``mask`` over the (dy, dx) offsets of a
+    structuring element, ``iterations`` times; pixels outside the image take
+    no part (OpenCV's default border for both)."""
+    px = np.asarray(mask, np.uint8)
+    h, w = px.shape
+    r = max(max(abs(dy), abs(dx)) for dy, dx in offsets)
+    fill = 255 if erode else 0
+    pick = np.minimum if erode else np.maximum
+    for _ in range(iterations):
+        padded = np.pad(px, r, constant_values=fill)
+        out = None
+        for dy, dx in offsets:
+            tap = padded[r + dy:r + dy + h, r + dx:r + dx + w]
+            out = tap.copy() if out is None else pick(out, tap, out=out)
+        px = out
+    return px
+
+
+def ellipse_offsets(size: int) -> list:
+    """The (dy, dx) offsets of OpenCV's ``getStructuringElement(MORPH_ELLIPSE,
+    (size, size))`` about its centre anchor: in row i, the columns from c - d
+    to c + d with d = round(c * sqrt(1 - (i - r)^2 / r^2)), rounded half to
+    even as ``saturate_cast<int>`` does."""
+    r = c = size // 2
+    inv_r2 = 1.0 / (r * r) if r else 0.0
+    out = []
+    for i in range(size):
+        dy = i - r
+        d = int(np.rint(c * math.sqrt((r * r - dy * dy) * inv_r2)))
+        out += [(dy, j - c) for j in range(max(c - d, 0), min(c + d + 1, size))]
+    return out
+
+
+def cross_offsets(size: int) -> list:
+    """The (dy, dx) offsets of OpenCV's ``getStructuringElement(MORPH_CROSS,
+    (size, size))`` about its default anchor (size // 2, size // 2): for an
+    even size the arms reach one pixel further up and left than down and
+    right."""
+    a = size // 2
+    return sorted({(i - a, 0) for i in range(size)} | {(0, j - a) for j in range(size)})
+
+
+def erode(mask: np.ndarray, offsets: list, iterations: int = 1) -> np.ndarray:
+    """OpenCV's ``cv2.erode(mask, kernel, iterations=...)`` of uint8 (H, W)
+    data, the kernel given by its offsets (``ellipse_offsets``,
+    ``cross_offsets``)."""
+    return _morphology(mask, offsets, iterations, erode=True)
+
+
+def dilate(mask: np.ndarray, offsets: list, iterations: int = 1) -> np.ndarray:
+    """OpenCV's ``cv2.dilate(mask, kernel, iterations=...)`` of uint8 (H, W)
+    data: out(y, x) is the largest src(y + dy, x + dx) over the offsets."""
+    return _morphology(mask, offsets, iterations, erode=False)
