@@ -72,7 +72,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and whether the rendered depth carries a gradient); the eval time of
    each split; a profile of one run-2 step, whose launch counts must be
    run 2's per-step counts; 3 f32 steps of run 2's configuration at a
-   reduced width against the CPU plain path;
+   reduced width against the CPU plain path; after run 1 (phase
+   live_viewer) run 1 again with --trainer.vis viewer+tensorboard and
+   --viewer-port: a client thread reads the page, /status, /render (rgb and
+   depth), /orbit and /latest while training runs and drives a websocket
+   session (status pushes, poses answered with PNGs, ping, close); the launch
+   counts must be run 1's plus the viewer's chunks x (2 A + 1 B) on the wgmma
+   bodies, the losses run 1's to the bit (else within the spread of two
+   runs without the viewer), /render?cam=0 after training the trainer's own
+   render, and the event file one record per metrics.jsonl line with valid
+   CRCs; then --eval-only with --trainer.require_lpips true on seeded LPIPS
+   checkpoints (one image's LPIPS card against CPU, the device ms of a
+   call), and --render-only with --render-focal-mult 2 --render-pos-shift
+   0.1,0,0 --render-frame-range 0,1 (9 frames of 376x1241);
 8. run 3, semantic-nerfw as registered (the hash field, 16 levels of a 2^19
    table from 16 to 2048, proposals 5 levels of 2^17, (256, 96) -> 48
    samples, appearance embedding 32, bf16) with depth, semantics and masks,
@@ -106,7 +118,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    fit_psnr and fit_psnr_right in the eval). For each: the median step time,
    the eval time of the split, the peak memory of a step and of an eval
    chunk, a profile of one step, and 3 f32 steps at a reduced width on the
-   card against the CPU plain path;
+   card against the CPU plain path (for vanilla-nerf at 10 position
+   frequencies also each f32 run's distance from an f64 CPU run); one
+   --render-only frame of run 4's configuration at a reduced width card
+   against CPU, its temporal distortion reading the cameras' times;
 13. run 7, nerfacto-tpu with --model.camera_optimizer SO3xR3 through
    cli.main on the street scene (30 steps of 4,096 rays, bf16, eval of the
    split): launch counts A 2 / B 1 / C 2 / D 1 a step with every C and D
@@ -116,7 +131,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    CPU with the tangents compared; one step of run 2's configuration with
    the camera optimizer (the base MLP's C launch on its dx branch); run 7b,
    semantic-nerfw as registered (hash field) with the camera optimizer, 3
-   f32 steps card against CPU;
+   f32 steps card against CPU, with each run's distance from an f64 CPU run;
 14. run 8, the SUDS stream: sky masks from the scene's semantic colours and
    a metadata.json over its frames (2 held out), SudsMetadataConfig ->
    ChunkedStreamDataManager (random-subset chunks of 65,536 rows, flow and
@@ -139,7 +154,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    SudsMetadataConfig.load_items of both splits; the exact motion chain of
    tools/demo_motion_pipeline.py at 8 frames of 188x621, its mean IoU
    within 0.005 of the JAX package's 0.9684; every network card against CPU
-   in f32, and the driver's first pair on the CPU against the card's;
+   in f32, and the driver's first pair on the CPU against the card's; one
+   step of each preprocessing trainer (RAFT at 640x192 with 12 iterations,
+   the segmenter, the inpainter at 432x240 with T = 10) card against CPU,
+   its ms and peak memory;
 16. a {"kernels": [...]} line, each record's "launches" counted per
    "launches_per" (a frame, a bench step, a run-2 or a run-7 step, a run-2
    step with the camera optimizer), then the last line
@@ -152,6 +170,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -1156,7 +1175,8 @@ def phase_slice(records):
     emit({"phase": "slice_vs_cpu", "camera": [24, 32], "max_abs_err": errs, "tol": 1e-3})
     check(all(e <= 1e-3 for e in errs.values()), f"card vs CPU render: {errs}")
 
-    viewer = ViewerServer(renderer, port=0).start()
+    viewer = ViewerServer(renderer, port=0)
+    viewer.start_background()
     base = f"http://127.0.0.1:{viewer.port}"
     try:
         with urllib.request.urlopen(base + "/status", timeout=60) as resp:
@@ -1170,7 +1190,7 @@ def phase_slice(records):
         emit({"phase": "viewer", "status": status, "png_bytes": sizes,
               "seconds": time.perf_counter() - t0})
     finally:
-        viewer.close()
+        viewer.shutdown()
 
 
 def phase_train(records):
@@ -1532,6 +1552,10 @@ def phase_cli(records, scene: str) -> None:
           "eval_images": 2, "ms_per_image": split_s * 1e3 / 2})
     del trainer
     torch.cuda.empty_cache()
+    phase_live_viewer(cli, ff, scene, r1)
+    phase_lpips(cli, argv1, ckpt_dir, r1)
+    phase_render_overrides(cli, ff, argv1, ckpt_dir)
+    torch.cuda.empty_cache()
 
     # run 2: semantic-nerfw; the proposal fields on A / C's wgmma bodies, the
     # base MLP on their base-width wgmma bodies at (256, 128, 128, 16); eval
@@ -1595,6 +1619,396 @@ def phase_cli(records, scene: str) -> None:
     _card_vs_cpu(cli, "semantic-nerfw", argv2 + REDUCED_FOURIER, "cli_semantic_nerfw_vs_cpu")
 
 
+# ---------------------------------------------------------------------------
+# the live viewer during run 1, LPIPS, the render overrides (phase cli)
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(url: str) -> tuple:
+    """(status, content type, body) of a GET; an HTTP error is an answer."""
+    import urllib.error
+
+    try:
+        with urllib.request.urlopen(url, timeout=300) as resp:
+            return resp.status, resp.headers["Content-Type"], resp.read()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, e.headers["Content-Type"], e.read()
+
+
+def ws_client_frame(payload: bytes, opcode: int = 0x1, fin: bool = True,
+                    mask: bytes = b"\x0a\x0b\x0c\x0d", length=None) -> bytes:
+    """An RFC-6455 client frame: masked unless ``mask`` is empty;
+    ``length`` claims another payload length than the payload's."""
+    import struct
+
+    n = len(payload) if length is None else length
+    head = bytes([(0x80 if fin else 0) | opcode])
+    mbit = 0x80 if mask else 0
+    if n < 126:
+        head += bytes([mbit | n])
+    elif n < 1 << 16:
+        head += bytes([mbit | 126]) + struct.pack(">H", n)
+    else:
+        head += bytes([mbit | 127]) + struct.pack(">Q", n)
+    body = bytes(c ^ mask[i & 3] for i, c in enumerate(payload)) if mask else payload
+    return head + (mask or b"") + body
+
+
+class WSClient:
+    """A scripted RFC-6455 client of the viewer: masked frames out,
+    unmasked frames in. ``pipelined`` bytes go out in the same write as the
+    upgrade request; ``key`` is the key sent and ``head`` the server's
+    answer, a 101."""
+
+    def __init__(self, port: int, pipelined: bytes = b"", timeout: float = 300):
+        import base64
+        import socket
+
+        self.s = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+        self.key = base64.b64encode(b"nkt-chip-smoke!!").decode()
+        self.s.sendall((f"GET /ws HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+                        f"Connection: Upgrade\r\nSec-WebSocket-Key: {self.key}\r\n"
+                        "Sec-WebSocket-Version: 13\r\n\r\n").encode() + pipelined)
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            resp += self.s.recv(4096)
+        self.head, leftover = resp.split(b"\r\n\r\n", 1)
+        check(b" 101 " in self.head.split(b"\r\n")[0] + b" ",
+              f"websocket upgrade: {self.head[:80]}")
+        self.buf = bytearray(leftover)
+
+    def _read(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            chunk = self.s.recv(1 << 16)
+            check(bool(chunk), "the viewer closed the websocket mid-frame")
+            self.buf.extend(chunk)
+        out = bytes(self.buf[:n])
+        del self.buf[:n]
+        return out
+
+    def recv(self) -> tuple:
+        """(opcode, payload) of the next frame, which must be unmasked."""
+        import struct
+
+        hdr = self._read(2)
+        check(not hdr[1] & 0x80, "the viewer sent a masked frame")
+        n = hdr[1] & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", self._read(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", self._read(8))[0]
+        return hdr[0] & 0x0F, self._read(n)
+
+    def send(self, payload: bytes, opcode: int = 0x1, fin: bool = True) -> None:
+        self.s.sendall(ws_client_frame(payload, opcode, fin))
+
+    def close(self) -> None:
+        self.s.close()
+
+
+def _crc32c_bitwise(data: bytes) -> int:
+    """CRC-32C (Castagnoli, reflected 0x82F63B78) bit by bit, independent of
+    the writer's table."""
+    c = 0xFFFFFFFF
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 if c & 1 else 0)
+    c ^= 0xFFFFFFFF
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _event_records(path: Path) -> list:
+    """The payloads of a TFRecord event file; every length and payload CRC
+    must hold."""
+    import struct
+
+    data, out = path.read_bytes(), []
+    while data:
+        (n,) = struct.unpack("<Q", data[:8])
+        check(struct.unpack("<I", data[8:12])[0] == _crc32c_bitwise(data[:8])
+              and struct.unpack("<I", data[12 + n:16 + n])[0]
+              == _crc32c_bitwise(data[12:12 + n]), f"{path.name}: bad CRC")
+        out.append(data[12:12 + n])
+        data = data[16 + n:]
+    return out
+
+
+LIVE_POSES = 3
+LIVE_POSE_SIZE = 128
+LIVE_ORBIT_SIZE = 192
+
+
+def phase_live_viewer(cli, ff, scene: str, run1: dict) -> None:
+    """Run 1 again through cli.main with --trainer.vis viewer+tensorboard
+    and --viewer-port: a client thread waits for step 1 (the trainer is held
+    there until the client has read /, /status and opened a websocket), then
+    while training runs on reads /render?cam=0, its depth, /orbit and
+    /latest (no dumps yet), sends poses over the websocket and reads the PNGs
+    and the status pushes, pings and closes. The launch counts must be run
+    1's plus the viewer's chunks x (2 A + 1 B), all wgmma; the 30 losses run
+    1's to the bit; after training, /render?cam=0 the trainer's own render of
+    camera 0, and /latest an eval dump; the event file one record per
+    metrics.jsonl line with valid CRCs."""
+    import math
+    import threading
+
+    import numpy as np
+
+    from nerf_kbs_tpu_torch.engine.trainer import Trainer
+    from nerf_kbs_tpu_torch.utils import images
+
+    out = tempfile.mkdtemp(prefix="nkt_live_")
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    gate, at_step_1 = threading.Event(), threading.Event()
+    real_step = Trainer.train_step
+
+    def gated(self, batch, jitters=None):
+        res = real_step(self, batch, jitters)
+        if self.step == 1:
+            at_step_1.set()
+            gate.wait(300)
+        return res
+
+    seen: dict = {"errors": []}
+
+    def client():
+        try:
+            check(at_step_1.wait(300), "the live run never reached step 1")
+            code, ctype, _ = _http(base + "/")
+            check((code, ctype) == (200, "text/html"), f"GET / answered {code} {ctype}")
+            seen["status"] = json.loads(_http(base + "/status")[2])
+            ws = WSClient(port)
+            op, payload = ws.recv()
+            check(op == 0x1, f"first websocket frame opcode {op}")
+            steps = [json.loads(payload)["step"]]
+            gate.set()  # training runs on while the client renders
+            frames = {}
+            for name, path, shape in (
+                    ("render", "/render?cam=0", SCENE_HW),
+                    ("render_depth", "/render?cam=0&kind=depth", SCENE_HW),
+                    ("orbit", f"/orbit?theta=0.7&phi=0.3&radius=1.6&size={LIVE_ORBIT_SIZE}",
+                     (LIVE_ORBIT_SIZE,) * 2)):
+                t0 = time.perf_counter()
+                code, ctype, body = _http(base + path)
+                ms = (time.perf_counter() - t0) * 1e3
+                check((code, ctype) == (200, "image/png"), f"GET {path} answered {code}")
+                check(images.decode_png(body).shape == (*shape, 3), f"GET {path}: bad PNG")
+                frames[name] = {"ms": ms, "bytes": len(body),
+                                "step_after": json.loads(_http(base + "/status")[2])["step"]}
+            code, _, _ = _http(base + "/latest")
+            frames["latest_during_training"] = code
+            pose_ms = []
+            for k in range(LIVE_POSES):
+                t0 = time.perf_counter()
+                ws.send(json.dumps({"type": "pose", "theta": 0.3 * k, "phi": 0.3,
+                                    "size": LIVE_POSE_SIZE}).encode())
+                while True:
+                    op, payload = ws.recv()
+                    if op == 0x1:
+                        steps.append(json.loads(payload)["step"])
+                        continue
+                    check(op == 0x2 and images.decode_png(payload).shape
+                          == (LIVE_POSE_SIZE, LIVE_POSE_SIZE, 3), "pose: bad PNG frame")
+                    pose_ms.append((time.perf_counter() - t0) * 1e3)
+                    break
+            deadline = time.monotonic() + 600
+            while steps[-1] < 30 and time.monotonic() < deadline:
+                op, payload = ws.recv()
+                if op == 0x1:
+                    steps.append(json.loads(payload)["step"])
+            ws.send(b"nkt", opcode=0x9)
+            while (frame := ws.recv())[0] == 0x1:
+                pass
+            check(frame == (0xA, b"nkt"), f"ping answered {frame[:1]}")
+            ws.send(b"\x03\xe8", opcode=0x8)
+            check(ws.recv() == (0x8, b"\x03\xe8"), "close not echoed")
+            ws.close()
+            seen.update(steps=steps, frames=frames, pose_ms=pose_ms)
+        except BaseException as e:  # reported by the main thread
+            seen["errors"].append(repr(e))
+            gate.set()
+
+    thread = threading.Thread(target=client, daemon=True)
+    Trainer.train_step = gated
+    thread.start()
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        viewer = cli.main(["nerfacto-tpu"] + _run_argv(scene, out)
+                          + ["--trainer.vis", "viewer+tensorboard", "--viewer-port", str(port)])
+    finally:
+        Trainer.train_step = real_step
+        gate.set()
+    wall = time.perf_counter() - t0
+    thread.join(timeout=900)
+    launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    try:
+        check(not thread.is_alive() and not seen["errors"], f"live viewer client: {seen}")
+        steps = seen["steps"]
+        chunk = viewer.trainer.config.eval_num_rays_per_chunk
+        viewer_chunks = (2 * math.ceil(SCENE_HW[0] * SCENE_HW[1] / chunk)
+                         + math.ceil(LIVE_ORBIT_SIZE ** 2 / chunk)
+                         + LIVE_POSES * math.ceil(LIVE_POSE_SIZE ** 2 / chunk))
+        want = dict(run1["launches"])
+        for k, per_chunk in (("fourier_mlp_wgmma", 2), ("fourier_field_mlp_wgmma", 1)):
+            want[k] = want.get(k, 0) + per_chunk * viewer_chunks
+        lines = [json.loads(ln) for ln in
+                 (viewer.trainer.out_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [ln["total_loss"] for ln in lines if "total_loss" in ln]
+        run1_losses = run1["loss_terms"]["total_loss"]
+        step_ms = [4096 / ln["rays_per_sec"] * 1e3 for ln in lines if "total_loss" in ln]
+        rec = {"phase": "live_viewer", "method": "nerfacto-tpu", "steps": len(losses),
+               "wall_s": wall, "status_at_step_1": seen["status"], "pushed_steps": steps,
+               "http": seen["frames"], "viewer_ms_a_frame": seen["frames"]["render"]["ms"],
+               "pose_ms": seen["pose_ms"], "launches": launches, "launches_want": want,
+               "viewer_chunks": viewer_chunks, "losses_equal_run1_bits": losses == run1_losses,
+               "step_ms": step_ms, "median_step_ms": sorted(step_ms[2:])[len(step_ms[2:]) // 2],
+               "run1_median_step_ms": run1["median_step_ms"]}
+        if losses != run1_losses:
+            # then two runs without the viewer set the spread the live run is held to
+            tmp = tempfile.mkdtemp(prefix="nkt_run1_again_")
+            again = _cli_run(cli, ff, "nerfacto-tpu", _run_argv(scene, tmp), tmp,
+                             run1["launches_per_step"], run1["launches_per_eval_chunk"],
+                             phase="cli_nerfacto_tpu_again")
+            rec.update({"run1_repeat_spread": max(
+                abs(a - b) / abs(b) for a, b in zip(again["loss_terms"]["total_loss"],
+                                                    run1_losses)),
+                "live_max_rel_diff": max(abs(a - b) / abs(b)
+                                         for a, b in zip(losses, run1_losses))})
+        emit(rec)
+        check(steps == sorted(steps) and len(set(steps)) >= 2 and steps[0] == 1
+              and steps[-1] == 30, f"pushed steps {steps}")
+        check(launches == want, f"live run launches {launches}, want {want}")
+        check(len(losses) == 30 and (losses == run1_losses
+                                     or rec["live_max_rel_diff"] <= rec["run1_repeat_spread"]),
+              f"live run losses {losses} against run 1's {run1_losses}")
+        # after training: the viewer's frame is the trainer's own render
+        code, _, body = _http(base + "/render?cam=0")
+        own = images.to_uint8(viewer.trainer.render_camera(0)["rgb"])
+        check(code == 200 and np.array_equal(images.decode_png(body), own),
+              "/render?cam=0 differs from the trainer's render of camera 0")
+        viewer.trainer.eval_image(0)  # an eval dump for /latest
+        dump = sorted((viewer.trainer.out_dir / "eval_images").glob("*_rgb.png"))[-1]
+        check(_http(base + "/latest")[2] == dump.read_bytes(), "/latest is not the eval dump")
+        (events,) = list((viewer.trainer.out_dir / "tensorboard").iterdir())
+        n_records = len(_event_records(events))
+        emit({"phase": "live_viewer_after_training", "final_render_equals_trainer": True,
+              "latest_after_eval": dump.name, "metrics_lines": len(lines),
+              "event_records": n_records})
+        check(n_records == len(lines) + 1, f"{n_records} event records, {len(lines)} lines")
+    finally:
+        viewer.shutdown()
+
+
+def write_lpips_checkpoints(out: Path) -> None:
+    """The seeded LPIPS checkpoint pair in the official layout (values not
+    perceptual), written by ``tools/make_lpips_ckpt.py`` itself."""
+    import runpy
+
+    argv = sys.argv
+    sys.argv = ["make_lpips_ckpt.py", str(out)]
+    try:
+        runpy.run_path(str(HERE / "tools" / "make_lpips_ckpt.py"), run_name="__main__")
+    finally:
+        sys.argv = argv
+
+
+LPIPS_TOL = 1e-4
+
+
+def phase_lpips(cli, argv1: list, ckpt_dir: str, run1: dict) -> None:
+    """--eval-only --trainer.require_lpips true from run 1's checkpoint with
+    seeded official-layout LPIPS checkpoints: lpips finite and the other
+    metrics run 1's; one eval image's LPIPS on the card against the CPU in
+    f32; the device ms of one LPIPS call (seeded weights: a path check, not a
+    perceptual score)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.utils.lpips import load_lpips
+
+    lp = Path(tempfile.mkdtemp(prefix="nkt_lpips_"))
+    write_lpips_checkpoints(lp)
+    os.environ["NKT_LPIPS_DIR"] = str(lp)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["nerfacto-tpu"] + argv1 + ["--eval-only", "true", "--trainer.load_dir",
+                                            ckpt_dir, "--trainer.require_lpips", "true"])
+        call_s = time.perf_counter() - t0
+        last = json.loads((Path(ckpt_dir) / "metrics.jsonl").read_text().splitlines()[-1])
+        final = {k[len("eval_all_"):]: v for k, v in last.items() if k.startswith("eval_all_")}
+        check(np.isfinite(final.get("lpips", np.nan)), f"--eval-only with LPIPS: {final}")
+        check({k: v for k, v in final.items() if k != "lpips"} == run1["eval_all"],
+              f"LPIPS changed the other metrics: {final}")
+        spec = cli.apply_overrides(cli.method_registry["nerfacto-tpu"](),
+                                   {"trainer.load_dir": ckpt_dir, **_pairs(argv1)})
+        trainer = cli.build_trainer(spec)
+        pred = torch.as_tensor(trainer.render_camera(0)["rgb"], device=trainer.device)
+        gt = torch.as_tensor(np.asarray(trainer.dm.eval_image(0)["image"], np.float32),
+                             device=trainer.device)
+        card_model, cpu_model = load_lpips(trainer.device), load_lpips(device="cpu")
+        card = float(card_model(pred, gt))
+        cpu = float(cpu_model(pred.cpu(), gt.cpu()))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        card_model(pred, gt)
+        start.record()
+        for _ in range(5):
+            card_model(pred, gt)
+        end.record()
+        torch.cuda.synchronize()
+        rec = {"phase": "cli_lpips", "weights": "seeded official layout (not perceptual)",
+               "eval_all_lpips": final["lpips"], "eval_only_s": call_s,
+               "image": list(SCENE_HW), "lpips_card": card, "lpips_cpu": cpu,
+               "rel_diff": abs(card - cpu) / abs(cpu), "tol": LPIPS_TOL,
+               "lpips_call_ms": start.elapsed_time(end) / 5}
+        emit(rec)
+        check(rec["rel_diff"] <= LPIPS_TOL, f"LPIPS card vs CPU: {card} vs {cpu}")
+    finally:
+        del os.environ["NKT_LPIPS_DIR"]
+
+
+def phase_render_overrides(cli, ff, argv1: list, ckpt_dir: str) -> None:
+    """--render-only from run 1's checkpoint with --render-focal-mult 2
+    --render-pos-shift 0.1,0,0 --render-frame-range 0,1: the two eval cameras
+    give 8 interpolated frames and the last camera's, each 376x1241, whose
+    launch counts are 15 chunks' of A and B a frame."""
+    import math
+
+    from nerf_kbs_tpu_torch.utils import images
+
+    out = Path(tempfile.mkdtemp(prefix="nkt_overrides_"))
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["nerfacto-tpu"] + argv1 + ["--render-only", "true", "--render-dir", str(out),
+                                        "--trainer.load_dir", ckpt_dir,
+                                        "--render-focal-mult", "2", "--render-pos-shift",
+                                        "0.1,0,0", "--render-frame-range", "0,1"])
+    seconds = time.perf_counter() - t0
+    frames = sorted(out.glob("rgb_*.png"))
+    shapes = {images.decode_png(p.read_bytes()).shape for p in frames}
+    chunks = len(frames) * math.ceil(SCENE_HW[0] * SCENE_HW[1] / (1 << 15))
+    launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    emit({"phase": "cli_render_overrides", "frames": len(frames), "shapes": sorted(shapes),
+          "seconds": seconds, "launches": launches})
+    check(len(frames) == 9 and shapes == {(*SCENE_HW, 3)},
+          f"override frames {len(frames)} {shapes}")
+    check(launches == {"fourier_mlp_wgmma": 2 * chunks, "fourier_field_mlp_wgmma": chunks},
+          f"override launches {launches}")
+
+
 # reduced widths for the f32 steps on the CPU, 256 rays a step
 REDUCED = ["--model.hidden_dim", "32", "--model.num_proposal_samples_per_ray", "32,16",
            "--model.num_nerf_samples_per_ray", "16", "--datamanager.train_num_rays_per_batch",
@@ -1613,37 +2027,67 @@ REDUCED_HASH = REDUCED + ["--model.num_levels", "8", "--model.log2_hashmap_size"
 # the hash cells, whose position derivatives jump at every edge, so the
 # rounding-level parameter differences of two updates (the card's table
 # gradient sums with atomics) move the third step's tangent gradient by
-# 0.7% on an H100; and Adam (eps 1e-8) turns a gradient component
+# 0.7% on an H100 (the CPU's own f32 run moves it 0.72% from the f64 run,
+# tools/cpu_drift_study.py); and Adam (eps 1e-8) turns a gradient component
 # near eps into an update of lr g / (|g| + eps), so a tangent moves by a
 # visible share of lr where its gradient does
 TANGENT_GRAD_TOL = 2e-3
 
 
+def to_f64(trainer) -> None:
+    """Every parameter, optimizer moment and camera of a CPU ``trainer`` in
+    float64, which the plain path carries through (the f64 reference of
+    the narrowed checks, and of tools/cpu_drift_study.py)."""
+    import dataclasses
+
+    import torch
+
+    from nerf_kbs_tpu_torch.cameras.cameras import Cameras
+    from nerf_kbs_tpu_torch.engine.optimizers import tree_leaves, tree_map
+
+    with torch.no_grad():
+        for p in tree_leaves(trainer.params):
+            p.data = p.data.double()
+    for st in trainer.optimizer.state.values():
+        st["mu"] = tree_map(lambda t: t.double(), st["mu"])
+        st["nu"] = tree_map(lambda t: t.double(), st["nu"])
+
+    def cams(c):
+        return Cameras(**{f.name: v.double() if v is not None and v.is_floating_point() else v
+                          for f in dataclasses.fields(c) for v in [getattr(c, f.name)]})
+
+    trainer.train_cameras = cams(trainer.train_cameras)
+    trainer.eval_cameras = cams(trainer.eval_cameras)
+
+
 def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 3,
-                 tangents: bool = False) -> None:
+                 tangents: bool = False, f64: bool = False) -> None:
     """3 f32 steps of ``method`` on the card against the same 3 steps on the
     CPU plain path: same seeds, batches and jitter (drawn on the CPU in
     both); the losses of the first ``checked_steps`` must agree to 2e-3 (the
     others are recorded); with ``tangents`` the camera optimizer's
-    tangents are compared too (see TANGENT_GRAD_TOL)."""
+    tangents are compared too (see TANGENT_GRAD_TOL). With ``f64`` the CPU
+    runs the 3 steps once more in float64, and each f32 run's distance from
+    it is recorded per step (losses, and tangent gradients)."""
     import dataclasses
 
     spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
-    runs, tang = {}, {}
-    for where in ("cuda", "cpu"):
+    runs, tang, grads = {}, {}, {}
+    for where in ("cuda", "cpu") + (("f64",) if f64 else ()):
         t = cli.build_trainer(dataclasses.replace(
             spec, trainer=dataclasses.replace(spec.trainer, experiment_name=f"f32_{where}")),
-            device=where)
+            device="cpu" if where == "f64" else where)
         check(t.model_config.compute_dtype == "float32", "f32 steps")
-        runs[where] = []
+        if where == "f64":
+            to_f64(t)
+        runs[where], grads[where] = [], []
         for s in range(3):
             runs[where].append(float(t.train_step(t._to_device(t.dm.next_train(s)))["total_loss"]))
-            if tangents and s == 0:
-                first = t.params["camera_opt"].grad.cpu()
+            if tangents:
+                grads[where].append(t.params["camera_opt"].grad.cpu().double())
         if tangents:
-            tang[where] = (t.params["camera_opt"].detach().cpu(), first,
-                           t.params["camera_opt"].grad.cpu(),
-                           t.optimizer.learning_rate("camera_opt"))
+            tang[where] = (t.params["camera_opt"].detach().cpu(), grads[where][0].float(),
+                           grads[where][-1].float(), t.optimizer.learning_rate("camera_opt"))
     rels = [abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"])]
     rel = max(rels[:checked_steps])
     rec = {"phase": phase, "method": method, "rays": 256, "losses_card": runs["cuda"],
@@ -1658,6 +2102,16 @@ def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 
                     / float(last_cpu.abs().max()),
                     "tangent_max_abs": float(t_cpu.abs().max()),
                     "tangent_max_diff_in_lr": float((t_gpu - t_cpu).abs().max()) / lr})
+    if f64:
+        rec["losses_f64"] = runs["f64"]
+        for where in ("cuda", "cpu"):
+            label = "card" if where == "cuda" else "cpu"
+            rec[f"rel_diff_{label}_vs_f64"] = [abs(a - b) / abs(b)
+                                               for a, b in zip(runs[where], runs["f64"])]
+            if tangents:
+                rec[f"tangent_grad_rel_{label}_vs_f64"] = [
+                    float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(grads[where], grads["f64"])]
     emit(rec)
     check(rel <= 2e-3, f"{phase}: card vs CPU f32 steps: {runs}")
     check(not tangents or (scale > 0 and rec["tangent_grad_rel_diff"] <= TANGENT_GRAD_TOL),
@@ -1933,11 +2387,60 @@ def phase_registry(scene: str, vkitti: str) -> None:
     # the three in f32 at reduced widths, card against CPU
     ff.reset_launches()
     _card_vs_cpu(cli, "vanilla-nerf", argv4 + REDUCED_VANILLA, "cli_run4_vs_cpu")
+    # at 10 position frequencies the third step is ill-conditioned at f32
+    # rounding: the CPU's own f32 run ends it 6.6e-3 from the f64 run
+    # (tools/cpu_drift_study.py), so steps 1 and 2 are held
     _card_vs_cpu(cli, "vanilla-nerf", argv4 + REDUCED_VANILLA + ["--model.pos_frequencies", "10"],
-                 "cli_run4_vs_cpu_10_frequencies", checked_steps=1)
+                 "cli_run4_vs_cpu_10_frequencies", checked_steps=2, f64=True)
+    _vanilla_frame_vs_cpu(cli, ff, argv4)
     _card_vs_cpu(cli, "test-nerfacto", argv5 + REDUCED_HASH, "cli_run5_vs_cpu")
     _card_vs_cpu(cli, "semantic-nerfw", argv6 + REDUCED_HASH, "cli_run6_vs_cpu")
     check(not any(ff.LAUNCHES.values()), f"runs 4-6 f32 steps launched {ff.LAUNCHES}")
+
+
+def _vanilla_frame_vs_cpu(cli, ff, argv4: list) -> None:
+    """One --render-only frame of run 4's configuration at a reduced width
+    (REDUCED_VANILLA), card against CPU: render_trajectory over the first
+    eval camera (--render-frame-range 0,0) at a quarter of its size, f32,
+    the same seeded parameters with the temporal distortion's last layer
+    (zero at init) given seeded values on both, so the cameras' times move
+    the frame; the decoded frames within one level of 255, and the card's
+    frame must change without the times."""
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.engine.render import render_trajectory
+    from nerf_kbs_tpu_torch.utils import images
+
+    spec = cli.apply_overrides(cli.method_registry["vanilla-nerf"](),
+                               _pairs(argv4 + REDUCED_VANILLA))
+    frames, out = {}, Path(tempfile.mkdtemp(prefix="nkt_vanilla_frame_"))
+    ff.reset_launches()
+    for where in ("cuda", "cpu"):
+        t = cli.build_trainer(spec, device=where)
+        check(t.model_config.enable_temporal_distortion and t.eval_cameras.times is not None,
+              "run 4's frame needs the temporal distortion and the cameras' times")
+        w = t.params["temporal_distortion"]["w"][-1]
+        with torch.no_grad():
+            w.copy_(0.2 * torch.randn(w.shape, generator=torch.Generator().manual_seed(3)))
+        t0 = time.perf_counter()
+        (path,) = render_trajectory(t, str(out / where), frame_range=(0, 0), downscale=4)
+        frames[where] = (images.decode_png(Path(path).read_bytes()).astype(int),
+                         time.perf_counter() - t0)
+        if where == "cuda":
+            t.eval_cameras.times = None
+            (untimed,) = render_trajectory(t, str(out / "untimed"), frame_range=(0, 0),
+                                           downscale=4)
+            moved = images.decode_png(Path(untimed).read_bytes()).astype(int)
+    levels = int(np.abs(frames["cuda"][0] - frames["cpu"][0]).max())
+    rec = {"phase": "cli_run4_render_frame_vs_cpu", "frame": list(frames["cuda"][0].shape),
+           "max_level_diff": levels, "tol_levels": 1, "card_s": frames["cuda"][1],
+           "cpu_s": frames["cpu"][1],
+           "levels_moved_without_times": int(np.abs(moved - frames["cuda"][0]).max())}
+    emit(rec)
+    check(levels <= 1, f"run 4 frame card vs CPU: {rec}")
+    check(rec["levels_moved_without_times"] > 1, f"the times do not reach the frame: {rec}")
+    check(not any(ff.LAUNCHES.values()), f"run 4's frame launched {ff.LAUNCHES}")
 
 
 def _dx_spy(ff):
@@ -2101,7 +2604,7 @@ def phase_camera_opt(records, scene: str) -> None:
     ff.reset_launches()
     _card_vs_cpu(cli, "semantic-nerfw",
                  _run_argv(scene, out) + _run2_data(scene) + CAMERA_OPT + REDUCED_HASH,
-                 "cli_run7b_vs_cpu", tangents=True)
+                 "cli_run7b_vs_cpu", tangents=True, f64=True)
     check(not any(ff.LAUNCHES.values()), f"run 7b launched {ff.LAUNCHES}")
 
 
@@ -2800,6 +3303,156 @@ def phase_preprocess_vs_cpu(scene: str, motion: str, out_dir: str) -> None:
     check(max(shares.values()) <= MASK_SHARE_TOL, f"driver masks card vs CPU: {shares}")
 
 
+# card against CPU, two f32 steps of each trainer (``_train_vs_cpu``):
+# relative differences of the first and second losses, and relative L2
+# distances of the first step's gradients (RAFT's after the clip) and of the
+# parameters' change over both steps, that change also over the entries
+# whose first gradient is above 1e-3 of its tensor's largest ("steady"; the
+# first Adam step is ~lr x sign(g), so a gradient within rounding of zero
+# may flip its entry, and the second step starts from parameters that
+# differ there). Each tolerance is about 8x the largest reading of the three
+# trainers on the H100 (1.7e-7, 6.3e-5, 8.4e-6, 1.4e-2, 5.8e-3; PERF.md)
+TRAIN_VS_CPU_TOL = {"loss_1": 2e-6, "grad_1": 5e-4, "loss_2": 1e-4, "update_2": 0.12,
+                    "update_2_steady": 0.05}
+RAFT_TRAIN_ITERS = 12
+
+
+def _instance_map(h: int, w: int):
+    """Three box instances, two of them touching, on an (h, w) map."""
+    import numpy as np
+
+    lbl = np.zeros((h, w), np.int32)
+    lbl[h // 8:h // 2, w // 10:w // 4] = 1
+    lbl[h // 3:3 * h // 4, w // 4:w // 2] = 2
+    lbl[h // 2:7 * h // 8, 3 * w // 5:4 * w // 5] = 3
+    return lbl
+
+
+def _rel_l2(got: list, want: list) -> float:
+    """||got - want|| / ||want|| over all the tensors together, in f64."""
+    import torch
+
+    num = sum(float(torch.sum((g.double().cpu() - w.double()) ** 2)) for g, w in zip(got, want))
+    den = sum(float(torch.sum(w.double() ** 2)) for w in want)
+    return (num / den) ** 0.5
+
+
+def _train_vs_cpu(make) -> dict:
+    """Two steps of one trainer on the card and on the CPU from the same
+    weights (``make(device)`` -> (module, step), step() -> the loss before
+    its update); then a third card step timed with its peak memory. The
+    first Adam step moves each parameter by about lr in its gradient's
+    sign, so the gradients and the second step (whose moments carry the
+    gradients' size) are compared as well as the losses."""
+    import torch
+
+    from nerf_kbs_tpu_torch.device import resolve_device
+
+    card_model, card_step = make(resolve_device(None))
+    t0 = time.perf_counter()
+    cpu_model, cpu_step = make(torch.device("cpu"))
+    params = list(zip(card_model.parameters(), cpu_model.parameters()))
+    start = [q.detach().clone() for _, q in params]
+    same_start = all(torch.equal(p.detach().cpu(), q) for (p, _), q in zip(params, start))
+    loss_1 = (float(card_step()), float(cpu_step()))
+    trained = [(i, p.grad.detach().cpu(), q.grad) for i, (p, q) in enumerate(params)
+               if q.grad is not None]
+    grad_1 = _rel_l2([g for _, g, _ in trained], [h for _, _, h in trained])
+    steady = {i: h.abs() > 1e-3 * h.abs().max() for i, _, h in trained}
+    loss_2 = (float(card_step()), float(cpu_step()))
+    cpu_s = time.perf_counter() - t0
+    moved = [(p.detach().cpu() - q0, q.detach() - q0) for (p, q), q0 in zip(params, start)]
+    update_2 = _rel_l2([a for a, _ in moved], [b for _, b in moved])
+    update_2_steady = _rel_l2([moved[i][0][m] for i, m in steady.items()],
+                              [moved[i][1][m] for i, m in steady.items()])
+    steady_share = (sum(int(m.sum()) for m in steady.values())
+                    / sum(q.numel() for _, q in params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    peak = _peak_mib(card_step)
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"same_start": same_start, "loss_card": loss_1[0], "loss_cpu": loss_1[1],
+            "loss_2_card": loss_2[0], "loss_2_cpu": loss_2[1],
+            "rel": {"loss_1": abs(loss_1[0] - loss_1[1]) / abs(loss_1[1]), "grad_1": grad_1,
+                    "loss_2": abs(loss_2[0] - loss_2[1]) / abs(loss_2[1]),
+                    "update_2": update_2, "update_2_steady": update_2_steady},
+            "steady_share": steady_share,
+            "tol": TRAIN_VS_CPU_TOL, "card_step_ms": ms, "peak_mib": peak,
+            "cpu_two_steps_s": cpu_s,
+            "finite": all(math.isfinite(x) for x in loss_1 + loss_2)}
+
+
+def phase_preprocess_train() -> None:
+    """Each preprocessing trainer in f32 on the card against the CPU, on
+    the same seeded weights and inputs (the masks passed in), two steps
+    (``_train_vs_cpu``): RAFT at 640x192, 12 iterations, batch 1 (the
+    sequence loss under AdamW with the one-cycle rate and the global-norm
+    clip); the segmenter at 640x192 (Adam, boundary-weighted targets of an
+    instance map); the inpainter at 432x240, T = 10 (Adam, random stroke
+    masks). On the card the ms of a third step and its peak memory; and the
+    memory counters of ``utils/profiling.device_memory_stats`` under the
+    JAX package's keys."""
+    import torch
+
+    from nerf_kbs_tpu_torch.process_data import inpaint as inp
+    from nerf_kbs_tpu_torch.process_data import raft_driver as rd
+    from nerf_kbs_tpu_torch.process_data.networks import init_weights
+    from nerf_kbs_tpu_torch.process_data.networks import segmenter as seg
+    from nerf_kbs_tpu_torch.utils import profiling
+
+    g = torch.Generator().manual_seed(5)
+    h, w = PRE_HW
+    img1 = torch.rand(1, 3, h, w, generator=g)
+    raft_batch = {"img1": img1, "img2": torch.roll(img1, 3, dims=3),
+                  "flow": 3.0 * torch.randn(1, 2, h, w, generator=g),
+                  "valid": (torch.rand(1, h, w, generator=g) > 0.1).float()}
+    lbl = _instance_map(h, w)
+    fg, off, valid = seg.make_targets(lbl)
+    seg_batch = {"x": torch.rand(1, 6, h, w, generator=g), "fg": torch.from_numpy(fg[None]),
+                 "off": torch.from_numpy(off[None]).permute(0, 3, 1, 2),
+                 "valid": torch.from_numpy(valid[None]),
+                 "w": torch.from_numpy(seg.boundary_weight(lbl)[None])}
+    ih, iw = INPAINT_HW
+    frames = torch.rand(1, INPAINT_WINDOW, 3, ih, iw, generator=g)
+    masks = inp.random_stroke_masks(torch.Generator().manual_seed(6), INPAINT_WINDOW, ih, iw)[None]
+
+    def raft_step(dev):
+        cfg = rd.RaftTrainConfig(iters=RAFT_TRAIN_ITERS)
+        raft, tx = rd.make_raft_train_state(cfg, device=dev)
+        step = rd.make_raft_train_step(raft, tx, cfg)
+        batch = {k: v.to(dev) for k, v in raft_batch.items()}
+        return raft, lambda: step(batch)[0]
+
+    def segmenter_step(dev):
+        model = init_weights(seg.InstanceSegmenter(), torch.Generator().manual_seed(7)).to(dev)
+        step = seg.make_segmenter_train_step(model)
+        batch = {k: v.to(dev) for k, v in seg_batch.items()}
+        return model, lambda: step(batch)[0]
+
+    def inpaint_step(dev):
+        gen = inp.seeded_generator(0).to(dev).train()
+        step = inp.make_inpaint_train_step(gen)
+        f, m = frames.to(dev), masks.to(dev)
+        return gen, lambda: step(f, m)
+
+    rows = []
+    for name, make in (("raft", raft_step), ("segmenter", segmenter_step),
+                       ("inpaint", inpaint_step)):
+        rows.append({"trainer": name, **_train_vs_cpu(make)})
+    mem = profiling.device_memory_stats()
+    emit({"phase": "preprocess_train_vs_cpu", "raft_hw": list(PRE_HW),
+          "raft_iters": RAFT_TRAIN_ITERS, "inpaint_hw": list(INPAINT_HW),
+          "inpaint_window": INPAINT_WINDOW, "trainers": rows, "device_memory_stats": mem})
+    for r in rows:
+        check(r["finite"] and r["same_start"]
+              and all(r["rel"][k] <= TRAIN_VS_CPU_TOL[k] for k in TRAIN_VS_CPU_TOL),
+              f"{r['trainer']} train steps card vs CPU: {r}")
+    check(mem is not None and sorted(mem) == ["bytes_in_use", "bytes_limit", "peak_bytes_in_use"]
+          and 0 <= mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"]
+          and mem["peak_bytes_in_use"] > 0,
+          f"device_memory_stats on the card: {mem}")
+
+
 def phase_preprocess(scene: str, out_dir: str) -> None:
     """The preprocessing phases on the street scene; no fused kernel may
     launch in them."""
@@ -2813,6 +3466,7 @@ def phase_preprocess(scene: str, out_dir: str) -> None:
     phase_preprocess_metadata(scene, motion, flows, out_dir)
     phase_preprocess_exact_chain()
     phase_preprocess_vs_cpu(scene, motion, out_dir)
+    phase_preprocess_train()
     moved = {k: v for k, v in ff.LAUNCHES.items() if v}
     emit({"phase": "preprocess_fused_launches", "launches": moved})
     check(not moved, f"the preprocessing phases launched fused kernels: {moved}")

@@ -4,15 +4,20 @@
 
 the counterpart of the JAX package's ``engine/cli.py``. A method name maps to
 a MethodSpec factory (``methods.py`` registers the built-in ones,
-``register_method`` adds more). Every leaf field of the spec's nested
+``register_method`` adds more, and ``discover_methods`` imports the plugin
+modules named in ``NKT_TORCH_METHODS``). Every leaf field of the spec's nested
 dataclasses can be overridden by its dotted path (``--model.hidden_dim 64``)
 or by a suffix of the path that is unique (``--hidden_dim 64``); the paths
 are the JAX package's.
 
-Run modes: training (then ``eval_all_images`` and a checkpoint), and, from the
-checkpoint under ``--trainer.load_dir``, ``--eval-only``, ``--render-only``
-(``--render-dir``, ``--render-ring-view``) and ``--serve PORT`` (the HTTP
-viewer). ``--help`` lists the methods, or with a method its options.
+Run modes: training (then ``eval_all_images`` and a checkpoint), with the
+live viewer on a daemon thread when ``--viewer-port N`` is given or
+``--trainer.vis`` contains "viewer" (port 7007); and, from the checkpoint
+under ``--trainer.load_dir``, ``--eval-only``, ``--render-only``
+(``--render-dir``, ``--render-ring-view``, and the eval-camera overrides
+``--render-focal-mult F``, ``--render-pos-shift x,y,z`` and
+``--render-frame-range lo,hi``) and ``--serve PORT`` (the viewer).
+``--help`` lists the methods, or with a method its options.
 
 Runs on the CUDA card; ``main(argv, device="cpu")`` runs the plain path on
 the CPU, in bf16 never (``MethodSpec.model_config``: mixed precision applies
@@ -22,7 +27,9 @@ on the card only).
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
+import os
 import sys
 import types
 import typing
@@ -69,6 +76,16 @@ method_registry: dict[str, Callable[[], MethodSpec]] = {}
 
 def register_method(name: str, factory: Callable[[], MethodSpec]) -> None:
     method_registry[name] = factory
+
+
+def discover_methods() -> None:
+    """Import the plugin modules listed in ``NKT_TORCH_METHODS``
+    (comma-separated module names), each of which calls ``register_method``
+    when imported. It reads its own variable, not the JAX CLI's
+    ``NKT_METHODS``: a module listed there registers into the JAX package's
+    registry and imports jax."""
+    for mod in filter(None, os.environ.get("NKT_TORCH_METHODS", "").split(",")):
+        importlib.import_module(mod.strip())
 
 
 # ---------------------------------------------------------------------------
@@ -210,9 +227,17 @@ def build_trainer(spec: MethodSpec, device=None) -> Trainer:
 
 # run-mode flags and their defaults; both spellings (dash and underscore)
 _MODES = {"eval-only": "false", "render-only": "false", "render-dir": "renders",
-          "render-ring-view": "false", "serve": "0"}
-# the JAX CLI's flags that this one does not take yet
-_UNPORTED_FLAGS = ("render-focal-mult", "render-pos-shift", "render-frame-range", "viewer-port")
+          "render-ring-view": "false", "serve": "0", "viewer-port": "0",
+          "render-focal-mult": None, "render-pos-shift": None, "render-frame-range": None}
+
+
+def _resolve_viewer_port(viewer_port: int, vis: str) -> int:
+    """``vis`` containing "viewer" starts the live viewer on 7007 (the
+    reference's vis="viewer" and nerfstudio's port); an explicit
+    ``--viewer-port`` wins."""
+    if not viewer_port and "viewer" in vis:
+        return 7007
+    return viewer_port
 
 
 def _parse_argv(argv: list[str]) -> tuple[str, dict, dict]:
@@ -235,17 +260,21 @@ def _parse_argv(argv: list[str]) -> tuple[str, dict, dict]:
     modes = {}
     for name, default in _MODES.items():
         modes[name] = overrides.pop(name, overrides.pop(name.replace("-", "_"), default))
-    for name in _UNPORTED_FLAGS:
-        for spelling in (name, name.replace("-", "_")):
-            if spelling in overrides:
-                raise NotImplementedError(f"--{name} is not ported")
     return method, overrides, modes
 
 
-def main(argv: Optional[list[str]] = None, device=None) -> None:
+def main(argv: Optional[list[str]] = None, device=None):
+    """Runs one mode (see the module docstring). Returns the live viewer,
+    still serving, when training started one (the caller's ``shutdown``
+    stops it; the process's exit ends its daemon thread otherwise), else
+    None."""
     argv = list(sys.argv[1:] if argv is None else argv)
+    from nerf_kbs_tpu_torch.utils.profiling import install_faulthandler
+
+    install_faulthandler()
     import nerf_kbs_tpu_torch.methods  # noqa: F401  (registers the built-in methods)
 
+    discover_methods()
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m nerf_kbs_tpu_torch.engine.cli <method> [--field value ...]\n\n"
               "methods:")
@@ -267,28 +296,45 @@ def main(argv: Optional[list[str]] = None, device=None) -> None:
     def on(flag):
         return modes[flag].lower() in ("1", "true", "yes")
 
+    eval_dumps = str(trainer.out_dir / "eval_images")
     if int(modes["serve"]):
         from nerf_kbs_tpu_torch.engine.viewer import ViewerServer
 
-        ViewerServer(trainer._renderer(), port=int(modes["serve"])).serve_forever()
-        return
+        ViewerServer(trainer, eval_image_dir=eval_dumps, port=int(modes["serve"])).serve_forever()
+        return None
     if on("eval-only"):
         final = trainer.eval_all_images()
         trainer._log({"step": trainer.step, **{f"eval_all_{k}": v for k, v in final.items()}})
         print(json.dumps({"step": trainer.step, **final}), flush=True)
-        return
+        return None
     if on("render-only"):
         from nerf_kbs_tpu_torch.engine.render import render_trajectory
 
-        written = render_trajectory(trainer._renderer(), modes["render-dir"],
-                                    ring_view=on("render-ring-view"))
+        focal, shift, frames = (modes[k] for k in ("render-focal-mult", "render-pos-shift",
+                                                   "render-frame-range"))
+        written = render_trajectory(
+            trainer, modes["render-dir"], ring_view=on("render-ring-view"),
+            focal_mult=float(focal) if focal else None,
+            pos_shift=tuple(float(v) for v in shift.split(",")) if shift else None,
+            frame_range=tuple(int(v) for v in frames.split(",")) if frames else None)
         print(f"rendered {len(written)} frames to {modes['render-dir']}", flush=True)
-        return
+        return None
+    viewer = None
+    viewer_port = _resolve_viewer_port(int(modes["viewer-port"]), trainer.config.vis)
+    if viewer_port:
+        from nerf_kbs_tpu_torch.engine.viewer import ViewerServer
+
+        viewer = ViewerServer(trainer, eval_image_dir=eval_dumps, port=viewer_port,
+                              mode="training")
+        viewer.start_background()
+        print(f"live viewer on http://{viewer.host}:{viewer.port} "
+              "(/ /ws /status /render /orbit /latest)", flush=True)
     metrics = trainer.train()
     final = trainer.eval_all_images()
     trainer._log({"step": trainer.step, **{f"eval_all_{k}": v for k, v in final.items()}})
     trainer.save_checkpoint()
     print(f"done: {metrics} eval={final}", flush=True)
+    return viewer
 
 
 if __name__ == "__main__":

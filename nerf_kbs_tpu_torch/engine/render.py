@@ -7,6 +7,7 @@ forward of a model module (nerfacto unless given).
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -30,9 +31,10 @@ def _to_device(tree, dev):
 
 class Renderer:
     """Holds a trained (or seeded) model: its module (``model``, nerfacto
-    unless given), params, config, cameras, the training ``step`` (the
-    coarse-to-fine window renders as trained) and the chunk size. Params and
-    cameras are moved to ``device`` (CUDA unless ``device="cpu"``)."""
+    unless given), params, config, cameras (the eval set, which
+    ``render_camera`` indexes), the training ``step`` (the coarse-to-fine
+    window renders as trained) and the chunk size. Params and cameras are
+    moved to ``device`` (CUDA unless ``device="cpu"``)."""
 
     def __init__(self, params: dict, config: nerfacto.NerfactoConfig, cameras: Cameras,
                  step: float = 0, eval_num_rays_per_chunk: int = 1 << 15, device=None,
@@ -76,6 +78,10 @@ class Renderer:
             k: torch.cat(v, dim=0)[:total].reshape(h, w, -1).cpu().numpy()
             for k, v in outs.items()
         }
+
+    @property
+    def eval_cameras(self) -> Cameras:
+        return self.cameras
 
 
 # ---------------------------------------------------------------------------
@@ -152,18 +158,53 @@ def ring_view_path(c2ws: np.ndarray, n: int = 60, radius_scale: float = 1.0,
     return np.stack(out)
 
 
-def render_trajectory(renderer: Renderer, output_dir: str, frames_per_segment: int = 8,
-                      downscale: int = 1, ring_view: bool = False,
+def apply_camera_overrides(cams: Cameras, focal_mult: float | None = None,
+                           pos_shift: tuple | None = None,
+                           frame_range: tuple | None = None) -> Cameras:
+    """The eval-camera overrides of the reference's eval loader: the focal
+    lengths times ``focal_mult``, every camera centre (``c2w[:, :3, 3]``)
+    moved by the world offset ``pos_shift``, and the inclusive camera range
+    ``frame_range`` = (lo, hi), which slices every per-camera field together
+    (distortion and times too). Returns new Cameras on the input's device."""
+    sl = slice(None) if frame_range is None else slice(int(frame_range[0]),
+                                                        int(frame_range[1]) + 1)
+
+    def cut(v):
+        return None if v is None else v[sl].clone()
+
+    out = Cameras(**{f.name: cut(getattr(cams, f.name)) for f in dataclasses.fields(cams)})
+    if focal_mult is not None:
+        out.fx = out.fx * focal_mult
+        out.fy = out.fy * focal_mult
+    if pos_shift is not None:
+        out.c2w[:, :3, 3] += torch.as_tensor(pos_shift, dtype=out.c2w.dtype,
+                                             device=out.c2w.device)
+    return out
+
+
+def render_trajectory(source, output_dir: str, frames_per_segment: int = 8,
+                      camera_source: str = "eval", downscale: int = 1,
+                      focal_mult: float | None = None, pos_shift: tuple | None = None,
+                      frame_range: tuple | None = None, ring_view: bool = False,
                       ring_frames: int = 60) -> list[str]:
-    """Render a path through the renderer's cameras (interpolated, or a ring
-    around them) with the intrinsics of camera 0; writes rgb_%05d.png and
-    depth_%05d.png and returns the rgb paths."""
-    cams = renderer.cameras
+    """Render a path through the ``camera_source`` ("eval" or "train")
+    cameras of ``source`` (a ``Renderer`` or a ``Trainer``: anything with
+    ``eval_cameras`` and ``render_camera``; "train" needs a ``Trainer``'s
+    ``train_cameras``), after ``apply_camera_overrides``: interpolated
+    between them, or a ring around them, with the intrinsics and the time of
+    the first; writes rgb_%05d.png and depth_%05d.png and returns the rgb
+    paths."""
+    if camera_source not in ("eval", "train"):
+        raise ValueError(f"camera_source {camera_source!r}: 'eval' or 'train'")
+    if camera_source == "train" and not hasattr(source, "train_cameras"):
+        raise ValueError(f"camera_source 'train' needs a Trainer; {type(source).__name__} "
+                         "holds only the eval cameras")
+    cams = source.train_cameras if camera_source == "train" else source.eval_cameras
+    cams = apply_camera_overrides(cams, focal_mult, pos_shift, frame_range)
     c2ws = cams.c2w.cpu().numpy()
     path = ring_view_path(c2ws, n=ring_frames) if ring_view else interpolate_camera_path(
         c2ws, frames_per_segment)
     n = len(path)
-    dev = renderer.device
 
     def tiled(v):
         return v[:1].expand((n,) + tuple(v.shape[1:])).clone()
@@ -171,15 +212,16 @@ def render_trajectory(renderer: Renderer, output_dir: str, frames_per_segment: i
     traj = Cameras(
         fx=tiled(cams.fx) / downscale, fy=tiled(cams.fy) / downscale,
         cx=tiled(cams.cx) / downscale, cy=tiled(cams.cy) / downscale,
-        c2w=torch.as_tensor(path, dtype=torch.float32, device=dev),
+        c2w=torch.as_tensor(path, dtype=torch.float32, device=cams.c2w.device),
         width=torch.div(tiled(cams.width), downscale, rounding_mode="floor"),
         height=torch.div(tiled(cams.height), downscale, rounding_mode="floor"),
+        times=None if cams.times is None else tiled(cams.times),
     )
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     written = []
     for i in range(n):
-        res = renderer.render_camera(i, cameras=traj)
+        res = source.render_camera(i, cameras=traj)
         p = out / f"rgb_{i:05d}.png"
         p.write_bytes(images.encode_png(res["rgb"]))
         depth = images.apply_depth_colormap(res["depth"], res["accumulation"])

@@ -18,19 +18,28 @@ tangents among them), optimizer state and step. Eval and rendering use the
 dataparser's cameras, without the pose deltas, as the JAX package does.
 
 ``eval_image`` scores one eval camera: PSNR, SSIM, the right half's PSNR,
-and where the ground truth has them the masked PSNR, the depth MSE after
-scale-and-shift alignment and the semantic accuracy. LPIPS is not computed:
-its VGG weights are not in the repository. With
+LPIPS where its VGG16 checkpoints are found (``utils.lpips.load_lpips``;
+``require_lpips`` makes their absence an error), and where the ground truth
+has them the masked PSNR, the depth MSE after scale-and-shift alignment and
+the semantic accuracy. With
 ``eval_fit_appearance_steps > 0`` and appearance embeddings in the model, it
 also runs the NeRF-W eval protocol (``fit_eval_appearance``): the image's
 embedding row is fitted on the image's left half, and the render with the
 fitted row scores 'fit_psnr' and, on the unseen right half, 'fit_psnr_right'.
+
+Live renders from another thread (the viewer's, ``engine.viewer``) go
+through ``render_camera``, which renders a copy of the parameters of one
+completed step (``snapshot``): ``train_step`` holds ``step_lock`` from the
+forward to the optimizer's update, and the copy is taken under it and
+enqueued on the same stream after the update, so a frame never mixes two
+versions and training never waits for a frame.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 import time
 from pathlib import Path
 from typing import Any, Optional
@@ -51,6 +60,8 @@ from nerf_kbs_tpu_torch.models import nerfacto
 from nerf_kbs_tpu_torch.ops import metrics as M
 from nerf_kbs_tpu_torch.ops.losses import normalized_depth_scale_and_shift
 from nerf_kbs_tpu_torch.utils import images
+from nerf_kbs_tpu_torch.utils.lpips import load_lpips
+from nerf_kbs_tpu_torch.utils.tboard import TensorboardWriter
 
 
 @dataclasses.dataclass
@@ -73,6 +84,13 @@ class TrainerConfig:
     log_every: int = 10
     load_dir: Optional[str] = None
     save_only_latest: bool = True
+    # metric writers besides metrics.jsonl and the console: "tensorboard"
+    # mirrors every float metric into out_dir/tensorboard
+    # (utils.tboard); "viewer" serves the live viewer (engine.cli, port
+    # 7007 unless --viewer-port); "viewer+tensorboard" both
+    vis: str = ""
+    # a missing LPIPS checkpoint is an error instead of an omitted metric
+    require_lpips: bool = False
     # the NeRF-W eval protocol: Adam steps (0: off) and their learning rate
     # for the eval image's appearance row, fitted on the image's left half
     eval_fit_appearance_steps: int = 0
@@ -85,8 +103,8 @@ def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
 
 
 # eval_all_images averages these where an image has them
-_EVAL_KEYS = ("psnr", "ssim", "depth_mse", "semantic_accuracy", "masked_psnr", "psnr_right",
-              "fit_psnr", "fit_psnr_right")
+_EVAL_KEYS = ("psnr", "ssim", "lpips", "depth_mse", "semantic_accuracy", "masked_psnr",
+              "psnr_right", "fit_psnr", "fit_psnr_right")
 
 
 def mark_trainable(params, name: str = "") -> None:
@@ -130,7 +148,10 @@ class Trainer:
         self.train_cameras = self.dm.train_outputs.cameras(self.device)
         self.eval_cameras = self.dm.eval_outputs.cameras(self.device)
         self._jitter = torch.Generator()  # on the CPU, see the module docstring
-        self._lpips_warned = False
+        self.step_lock = threading.Lock()
+        self._lpips = None
+        self._lpips_checked = False
+        self._tb_writer = None
         if config.load_dir is not None:
             self.load_checkpoint(config.load_dir)
 
@@ -142,16 +163,17 @@ class Trainer:
         """One update from a batch of device tensors; returns the metrics as
         tensors (no synchronisation). ``jitters`` replaces the generator's
         draws (see ``ops.samplers.proposal_sample``)."""
-        self._jitter.manual_seed((self.config.seed + 1) * 1_000_003 + self.step)
-        delta = getattr(self.model, "camera_deltas", lambda _p: None)(self.params)
-        rays = generate_rays(self.train_cameras, batch["ray_indices"], c2w_delta=delta)
-        out = self.model.forward(self.params, self.model_config, rays, step=self.step, train=True,
-                                 generator=self._jitter, jitters=jitters)
-        total, metrics = self.model.loss(self.model_config, out, batch, train=True)
-        self.optimizer.zero_grad()
-        total.backward()
-        self.optimizer.step()
-        self.step += 1
+        with self.step_lock:
+            self._jitter.manual_seed((self.config.seed + 1) * 1_000_003 + self.step)
+            delta = getattr(self.model, "camera_deltas", lambda _p: None)(self.params)
+            rays = generate_rays(self.train_cameras, batch["ray_indices"], c2w_delta=delta)
+            out = self.model.forward(self.params, self.model_config, rays, step=self.step,
+                                     train=True, generator=self._jitter, jitters=jitters)
+            total, metrics = self.model.loss(self.model_config, out, batch, train=True)
+            self.optimizer.zero_grad()
+            total.backward()
+            self.optimizer.step()
+            self.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
         return metrics
@@ -192,13 +214,28 @@ class Trainer:
         return last_metrics
 
     # ----------------------------------------------------------------- eval
-    def _renderer(self, params: dict | None = None, model_config=None) -> Renderer:
-        # shares the parameter tensors: it renders the current weights
+    def _renderer(self, params: dict | None = None, model_config=None,
+                  step: int | None = None) -> Renderer:
+        # without params it shares the parameter tensors: it renders the
+        # current weights, on the training thread
         return Renderer(self.params if params is None else params,
                         self.model_config if model_config is None else model_config,
-                        self.eval_cameras, step=self.step,
+                        self.eval_cameras, step=self.step if step is None else step,
                         eval_num_rays_per_chunk=self.config.eval_num_rays_per_chunk,
                         device=self.device, model=self.model)
+
+    def snapshot(self) -> tuple[dict, int]:
+        """(a copy of the parameters, the step) of the last completed step,
+        taken under ``step_lock``: one clone per leaf, enqueued after that
+        step's update on the same stream."""
+        with self.step_lock:
+            return tree_map(lambda t: t.detach().clone(), self.params), self.step
+
+    def render_camera(self, camera_idx: int, cameras=None) -> dict:
+        """Full image of eval camera ``camera_idx`` (or of ``cameras``) from
+        a ``snapshot``; safe to call from any thread while training runs."""
+        params, step = self.snapshot()
+        return self._renderer(params, step=step).render_camera(camera_idx, cameras)
 
     @staticmethod
     def _appearance_paths(params) -> list[tuple]:
@@ -301,13 +338,21 @@ class Trainer:
             fit = torch.as_tensor(self._renderer(*fitted).render_camera(idx)["rgb"], device=dev)
             metrics["fit_psnr"] = float(M.psnr(fit, gt_img))
             metrics["fit_psnr_right"] = float(M.psnr(fit[:, half:], gt_img[:, half:]))
-        if not self._lpips_warned:
-            print("WARNING: LPIPS checkpoints not found (no VGG weights in the repository): "
-                  "the 'lpips' eval metric will be omitted", flush=True)
-            self._lpips_warned = True
         if "mask" in gt:
             mask = torch.as_tensor(np.asarray(gt["mask"])[..., 0] > 0, device=dev)
             metrics["masked_psnr"] = float(M.masked_psnr(pred, gt_img, mask))
+        if not self._lpips_checked:
+            self._lpips = load_lpips(device=dev)
+            self._lpips_checked = True
+            if self._lpips is None:
+                msg = ("LPIPS checkpoints not found (set NKT_LPIPS_DIR or place "
+                       "vgg16_features.pth + lpips_vgg.pth under ~/.cache/nkt/lpips) — the "
+                       "'lpips' eval metric will be omitted")
+                if self.config.require_lpips:
+                    raise RuntimeError(msg)
+                print(f"WARNING: {msg}", flush=True)
+        if self._lpips is not None:
+            metrics["lpips"] = float(self._lpips(pred, gt_img))
         if "depth_image" in gt:
             gt_depth = torch.as_tensor(np.asarray(gt["depth_image"], np.float32).reshape(-1),
                                        device=dev)
@@ -380,6 +425,10 @@ class Trainer:
         metrics.setdefault("elapsed_s", round(time.monotonic() - self._t0, 1))
         with open(self._metrics_file, "a") as f:
             f.write(json.dumps(metrics) + "\n")
+        if "tensorboard" in self.config.vis:
+            if self._tb_writer is None:
+                self._tb_writer = TensorboardWriter(self.out_dir / "tensorboard")
+            self._tb_writer.add_scalars(int(metrics.get("step", self.step)), metrics)
         pieces = [f"step {metrics.get('step', self.step)}"]
         for k in ("total_loss", "rgb_loss", "psnr", "rays_per_sec", "eval_psnr",
                   "eval_all_psnr"):

@@ -21,7 +21,10 @@ spec says ``need_dx``.
 
 A wrapper given CUDA tensors launches its kernel (``csrc/``) or raises; given
 CPU tensors it runs the plain version. ``LAUNCHES`` counts kernel launches
-(a backward's passes over the points and its reduction belong to one launch).
+(a backward's passes over the points and its reduction belong to one launch);
+it and the cache of weight-image indices on the device are shared by every
+thread that launches (a live viewer renders while the trainer steps), so
+both change under a lock.
 Every kernel has a wgmma body for the flagship widths (``_wgmma_field``;
 ``_wgmma_mlp`` for the proposal fields), counted under the ``*_wgmma`` keys,
 and the WMMA body for every other shape. The two fused-MLP kernels have a
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -48,11 +52,18 @@ LAUNCHES = {**dict.fromkeys(KERNELS, 0), **{f"{k}_wgmma": 0 for k in KERNELS},
 # one run can time both bodies of a kernel on the same inputs while the
 # others keep their wgmma bodies
 FORCE_WMMA: frozenset = frozenset()
+_shared = threading.Lock()  # LAUNCHES and _image_index_on_device
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _shared:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(key: str) -> None:
+    with _shared:
+        LAUNCHES[key] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -422,9 +433,10 @@ _image_index_on_device: dict = {}
 def _index_on(device, build, *dims) -> torch.Tensor:
     """``build(*dims)``, a numpy index, as a tensor on ``device``; made once."""
     key = (build, dims, device)
-    if key not in _image_index_on_device:
-        _image_index_on_device[key] = torch.from_numpy(build(*dims)).to(device)
-    return _image_index_on_device[key]
+    with _shared:
+        if key not in _image_index_on_device:
+            _image_index_on_device[key] = torch.from_numpy(build(*dims)).to(device)
+        return _image_index_on_device[key]
 
 
 def _weight_image(base_wb: torch.Tensor, rgb_wb: torch.Tensor, base_dims, rgb_dims):
@@ -526,7 +538,7 @@ def _mlp_forward(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
         image.data_ptr() if body else None, 2 * image.numel() if body else 0,
         out.data_ptr(), _stream(x),
     )
-    LAUNCHES["fourier_mlp" + body] += 1
+    _count("fourier_mlp" + body)
     return out
 
 
@@ -564,7 +576,7 @@ def _mlp_backward(spec: FusedMLPSpec, x_t, B, ws, bs, g):
         2 * image.numel() if body else 0, scratch.data_ptr() if scratch is not None else None,
         scratch.numel() if scratch is not None else 0, _stream(x),
     )
-    LAUNCHES["fourier_mlp_bwd" + body] += 1
+    _count("fourier_mlp_bwd" + body)
     dws, dbs = _unpack(dwb, spec.layer_dims)
     return dx, dws, dbs
 
@@ -640,7 +652,7 @@ def _field_forward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_ws
         image.data_ptr() if wgmma else None, 2 * image.numel() if wgmma else 0,
         out.data_ptr(), _stream(x),
     )
-    LAUNCHES["fourier_field_mlp_wgmma" if wgmma else "fourier_field_mlp"] += 1
+    _count("fourier_field_mlp_wgmma" if wgmma else "fourier_field_mlp")
     return out
 
 
@@ -683,7 +695,7 @@ def _field_backward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_w
         image.data_ptr() if wgmma else None, 2 * image.numel() if wgmma else 0,
         scratch.data_ptr() if wgmma else None, scratch.numel() if wgmma else 0, _stream(x),
     )
-    LAUNCHES["fourier_field_mlp_bwd_wgmma" if wgmma else "fourier_field_mlp_bwd"] += 1
+    _count("fourier_field_mlp_bwd_wgmma" if wgmma else "fourier_field_mlp_bwd")
     d_base_ws, d_base_bs = _unpack(d_base, spec.base_dims)
     d_rgb_ws, d_rgb_bs = _unpack(d_rgb, spec.rgb_dims)
     return dx, dfeats, d_base_ws, d_base_bs, d_rgb_ws, d_rgb_bs

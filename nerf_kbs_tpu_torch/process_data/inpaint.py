@@ -1,6 +1,7 @@
 """The video-inpainting driver: sliding-window completion of the masked
 (dynamic) regions of a frame sequence (the JAX package's
-``process_data/inpaint.py``, inference; its trainer is not ported yet).
+``process_data/inpaint.py``), and its self-supervised trainer
+(``make_inpaint_train_step``, ``random_stroke_masks``).
 
 - masks are read with PIL's NEAREST rule, then dilated with a 10x10 cross 4
   times (OpenCV's pixels); frames with PIL's BICUBIC, at 432 x 240;
@@ -139,3 +140,45 @@ def run(cfg: InpaintDriverConfig, generator=None, device=None) -> list[str]:
         p.write_bytes(encode_jpeg((img * 255).astype(np.uint8), quality=95))
         written.append(str(p))
     return written
+
+
+# ---------------------------------------------------------------------------
+# self-supervised training
+# ---------------------------------------------------------------------------
+
+
+def make_inpaint_train_step(generator, lr: float = 1e-4):
+    """The generator's self-supervised trainer: random holes over complete
+    clips, the L1 reconstruction error weighted 4x inside the hole, Adam
+    (optax's defaults: b1 0.9, b2 0.999, eps 1e-8). Returns step(frames,
+    masks) -> loss, one update of ``generator`` in place; frames (B, T, 3,
+    H, W) in [0, 1], masks (B, T, H, W) (1 = hole), on its device."""
+    opt = torch.optim.Adam([p for p in generator.parameters() if p.requires_grad], lr=lr,
+                           betas=(0.9, 0.999), eps=1e-8)
+
+    def step(frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        pred = generator(frames, masks)
+        loss = torch.mean(torch.abs(pred - frames) * (1.0 + 3.0 * masks[:, :, None]))
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def random_stroke_masks(generator: torch.Generator, t: int, h: int, w: int,
+                        num_rects: int = 3) -> torch.Tensor:
+    """(t, h, w) float32 hole masks on the generator's device: the union of
+    ``num_rects`` rectangles a frame, corners in [0, h - 8) x [0, w - 8),
+    heights in [4, h // 3), widths in [4, w // 3) (the ranges of the JAX
+    package's PRNG draws, whose values differ)."""
+    dev = generator.device
+    ys, xs, hs, ws = (torch.randint(lo, hi, (t, num_rects), generator=generator, device=dev)
+                      for lo, hi in ((0, max(h - 8, 1)), (0, max(w - 8, 1)),
+                                     (4, max(h // 3, 5)), (4, max(w // 3, 5))))
+    yy = torch.arange(h, device=dev)[None, :, None, None]
+    xx = torch.arange(w, device=dev)[None, None, :, None]
+    inside = ((yy >= ys[:, None, None]) & (yy < (ys + hs)[:, None, None])
+              & (xx >= xs[:, None, None]) & (xx < (xs + ws)[:, None, None]))
+    return inside.any(dim=-1).to(torch.float32)

@@ -230,3 +230,26 @@ class RAFT(nn.Module):
             if all_iters or it == iters - 1:
                 ups.append(convex_upsample((coords - coords0).flip(1), mask))
         return torch.stack(ups) if all_iters else ups[-1]
+
+
+def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.Tensor,
+                  gamma: float = 0.8, max_flow: float = 400.0):
+    """RAFT's training loss: the L1 error of every iteration's upsampled
+    flow, weighted gamma^(T - 1 - t), over the valid pixels (valid > 0.5 and
+    a ground-truth flow shorter than ``max_flow``), and the last iteration's
+    end-point error metrics ('epe', '1px', '3px', '5px'). flow_preds (T, B,
+    2, H, W) as ``compute_flow(all_iters=True)`` gives them, flow_gt (B, 2,
+    H, W), valid (B, H, W) -> (loss, metrics), scalar tensors."""
+    v = (valid > 0.5) & (torch.linalg.vector_norm(flow_gt, dim=1) < max_flow)
+    vf = v.to(flow_preds.dtype)
+    n = flow_preds.shape[0]
+    weights = gamma ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
+                                    device=flow_preds.device)
+    denom = torch.clamp_min(vf.sum(), 1.0)
+    l1 = torch.sum(torch.abs(flow_preds - flow_gt[None]), dim=2)  # (T, B, H, W)
+    loss = torch.sum(weights * torch.sum(l1 * vf[None], dim=(1, 2, 3)) / denom)
+    epe = torch.where(v, torch.linalg.vector_norm(flow_preds[-1] - flow_gt, dim=1), 0.0)
+    metrics = {"epe": epe.sum() / denom}
+    for px in (1, 3, 5):
+        metrics[f"{px}px"] = ((epe < px) & v).sum() / denom
+    return loss, metrics

@@ -1,11 +1,15 @@
-"""The instance segmenter of the motion-mask pipeline, inference part (the
-JAX package's ``process_data/networks/segmenter.py``): a U-Net over rgb,
-moving probability and optical flow (6 channels) -> a foreground logit and
-each pixel's offset to its instance's centroid; centroid votes are
-clustered on a coarse grid into instance labels (``extract_instances``,
-NumPy). ``load_segmenter`` reads the JAX package's ``.npz`` checkpoints
-(``outputs/segmenter{2,3}/segmenter.npz``, keys such as
-``['params']['down_0']['c0']['kernel']``) with NumPy alone."""
+"""The instance segmenter of the motion-mask pipeline (the JAX package's
+``process_data/networks/segmenter.py``): a U-Net over rgb, moving
+probability and optical flow (6 channels) -> a foreground logit and each
+pixel's offset to its instance's centroid; centroid votes are clustered on a
+coarse grid into instance labels (``extract_instances``, NumPy).
+
+Training: ``make_targets`` and ``boundary_weight`` (NumPy) give the targets
+of an instance map, ``segmenter_loss`` the loss, ``make_segmenter_train_step``
+an Adam step. ``load_segmenter`` / ``save_segmenter`` read and write the JAX
+package's ``.npz`` checkpoints (``outputs/segmenter{2,3}/segmenter.npz``,
+flax ``keystr`` keys such as ``['params']['down_0']['c0']['kernel']``) with
+NumPy alone: either package reads the other's files."""
 
 from __future__ import annotations
 
@@ -156,6 +160,93 @@ def extract_instances(fg_prob: np.ndarray, offsets: np.ndarray, fg_threshold: fl
             out[m] = nxt
             nxt += 1
     return out
+
+
+def make_targets(instance_labels: np.ndarray, offset_scale: float = 64.0):
+    """(fg (H, W), offsets (H, W, 2), valid (H, W)) float32 from an int
+    instance map (0 = background): each instance pixel's offset to its
+    instance's centroid, (dy, dx) in units of ``offset_scale`` pixels."""
+    lbl = np.asarray(instance_labels)
+    h, w = lbl.shape
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    fg = (lbl > 0).astype(np.float32)
+    off = np.zeros((h, w, 2), np.float32)
+    for n in np.unique(lbl):
+        if n <= 0:
+            continue
+        m = lbl == n
+        cy, cx = ys[m].mean(), xs[m].mean()
+        off[m, 0] = (cy - ys[m]) / offset_scale
+        off[m, 1] = (cx - xs[m]) / offset_scale
+    return fg, off, fg.copy()
+
+
+def boundary_weight(instance_labels: np.ndarray, radius: int = 2, gain: float = 4.0) -> np.ndarray:
+    """Per-pixel loss weight: 1 + ``gain`` within ``radius`` pixels (4-
+    neighbour steps) of a label change (object and background, or two
+    touching objects, where the centroid votes split), else 1."""
+    lbl = np.asarray(instance_labels)
+    b = np.zeros(lbl.shape, bool)
+    b[:-1] |= lbl[:-1] != lbl[1:]
+    b[1:] |= lbl[1:] != lbl[:-1]
+    b[:, :-1] |= lbl[:, :-1] != lbl[:, 1:]
+    b[:, 1:] |= lbl[:, 1:] != lbl[:, :-1]
+    for _ in range(radius):
+        d = b.copy()
+        d[:-1] |= b[1:]
+        d[1:] |= b[:-1]
+        d[:, :-1] |= b[:, 1:]
+        d[:, 1:] |= b[:, :-1]
+        b = d
+    return (1.0 + gain * b).astype(np.float32)
+
+
+def segmenter_loss(model: InstanceSegmenter, batch: dict):
+    """batch: x (B, 6, H, W), fg (B, H, W), off (B, 2, H, W), valid (B, H,
+    W), and optionally the per-pixel weight w (B, H, W) of
+    ``boundary_weight``. -> (loss, {"bce", "offset_l1", "fg_acc"}): the
+    (weighted) logistic loss of the foreground logit plus the (weighted) L1
+    of the offsets over the valid pixels."""
+    out = model(batch["x"])
+    logit, off = out[:, 0], out[:, 1:]
+    fg = batch["fg"]
+    w = batch.get("w")
+    bce_px = torch.clamp_min(logit, 0.0) - logit * fg + torch.log1p(torch.exp(-logit.abs()))
+    bce = bce_px.mean() if w is None else torch.sum(w * bce_px) / torch.clamp_min(w.sum(), 1.0)
+    v = batch["valid"][:, None]
+    if w is not None:
+        v = v * w[:, None]
+    l1 = torch.sum(v * torch.abs(off - batch["off"])) / torch.clamp_min(v.sum(), 1.0)
+    acc = torch.mean(((logit > 0) == (fg > 0.5)).to(torch.float32))
+    return bce + l1, {"bce": bce, "offset_l1": l1, "fg_acc": acc}
+
+
+def make_segmenter_train_step(model: InstanceSegmenter, lr: float = 3e-4):
+    """step(batch) -> (loss, metrics): one Adam update (optax's defaults)
+    of ``segmenter_loss``, ``model`` changed in place."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def step(batch: dict):
+        loss, metrics = segmenter_loss(model, batch)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def save_segmenter(path: str, model: InstanceSegmenter) -> None:
+    """The weights as a JAX-package ``.npz``: flax ``keystr`` keys
+    (``['params']['down_0']['c0']['kernel']``), kernels HWIO."""
+    arrs = {}
+    for name, t in model.state_dict().items():
+        *mods, leaf = name.split(".")
+        v = t.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf, v = "kernel", v.transpose(2, 3, 1, 0)
+        arrs["['params']" + "".join(f"['{m}']" for m in mods) + f"['{leaf}']"] = v
+    np.savez(path, **arrs)
 
 
 def load_segmenter(path: str, cfg: SegmenterConfig = SegmenterConfig(),

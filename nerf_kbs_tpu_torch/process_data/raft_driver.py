@@ -1,16 +1,21 @@
-"""RAFT flow extraction over a frame sequence (the JAX package's
-``process_data/raft_driver.py``, ``extract_flows``; its training side is
-not ported yet). Writes flow_fwd/<stem_i>.npy (i -> i + 1), flow_bwd/
-<stem_i+1>.npy (i + 1 -> i) as (H, W, 2) float32 (dx, dy), and a colour
-coding of each forward flow in flow_viz/, the asset layout ``metadata.json``
-points at. Frames are resized to the working size and not padded: its
-width and height must be multiples of 8 (640 x 192 by default)."""
+"""RAFT drivers (the JAX package's ``process_data/raft_driver.py``).
+
+- ``extract_flows``: flow over a frame sequence. Writes flow_fwd/<stem_i>.npy
+  (i -> i + 1), flow_bwd/<stem_i+1>.npy (i + 1 -> i) as (H, W, 2) float32
+  (dx, dy), and a colour coding of each forward flow in flow_viz/, the asset
+  layout ``metadata.json`` points at. Frames are resized to the working size
+  and not padded: its width and height must be multiples of 8 (640 x 192 by
+  default).
+- Fine-tuning: ``make_raft_train_state`` and ``make_raft_train_step``, the
+  sequence loss over every iteration's flow under AdamW (optax's
+  semantics) with a linear one-cycle learning rate, behind a global-norm
+  clip. Data parallel training is not ported."""
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -65,3 +70,102 @@ def extract_flows(cfg: FlowExtractConfig, max_frames: Optional[int] = None, devi
 
 def _frame(path, cfg: FlowExtractConfig, dev) -> torch.Tensor:
     return torch.as_tensor(load_frame(path, cfg.width, cfg.height), device=dev).permute(2, 0, 1)[None]
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RaftTrainConfig:
+    lr: float = 4e-4
+    weight_decay: float = 1e-4
+    epsilon: float = 1e-8
+    clip: float = 1.0
+    num_steps: int = 100_000
+    iters: int = 12
+    gamma: float = 0.8
+    seed: int = 0
+
+
+def linear_onecycle_schedule(transition_steps: int, peak_value: float, pct_start: float = 0.3,
+                             pct_final: float = 0.85, div_factor: float = 25.0,
+                             final_div_factor: float = 1e4) -> Callable[[int], float]:
+    """optax's ``linear_onecycle_schedule``: from peak / div_factor up to
+    peak at ``pct_start`` of the steps, down to peak / div_factor at
+    ``pct_final``, then down to peak / div_factor / final_div_factor at
+    ``transition_steps``, linearly; constant after."""
+    if transition_steps <= 0:
+        raise ValueError("a linear onecycle schedule needs transition_steps > 0")
+    bounds = (0, int(pct_start * transition_steps), int(pct_final * transition_steps),
+              transition_steps)
+    values = np.cumprod([peak_value / div_factor, div_factor, 1.0 / div_factor,
+                         1.0 / final_div_factor])
+
+    def schedule(count: int) -> float:
+        for lo, hi, a, b in zip(bounds[:-1], bounds[1:], values[:-1], values[1:]):
+            if lo <= count < hi:
+                return float(a + (count - lo) / (hi - lo) * (b - a))
+        return float(values[-1])
+
+    return schedule
+
+
+class ClippedAdamW:
+    """optax's ``chain(clip_by_global_norm(clip), adamw(schedule, eps,
+    weight_decay))`` on a module's parameters: the gradients are scaled by
+    clip / norm when their global norm reaches ``clip``, then AdamW (b1 0.9,
+    b2 0.999, decoupled weight decay on every parameter) steps with the
+    schedule's rate at the update's count (0 for the first)."""
+
+    def __init__(self, params, schedule: Callable[[int], float], clip: float, eps: float,
+                 weight_decay: float):
+        self.params = [p for p in params if p.requires_grad]
+        self.schedule = schedule
+        self.clip = clip
+        self.count = 0
+        self.optimizer = torch.optim.AdamW(self.params, lr=schedule(0), betas=(0.9, 0.999),
+                                           eps=eps, weight_decay=weight_decay)
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad()
+
+    def step(self) -> None:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
+        for g in grads:
+            g.mul_(scale)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.optimizer.step()
+        self.count += 1
+
+
+def make_raft_train_state(cfg: RaftTrainConfig, restore_ckpt: Optional[str] = None,
+                          device=None):
+    """(raft, tx): a ``RAFT`` of ``cfg.iters`` iterations on ``device``
+    (CUDA unless "cpu") with a public checkpoint's weights, else seeded ones
+    (``cfg.seed``), and its ``ClippedAdamW`` with the one-cycle schedule
+    over ``num_steps + 100`` steps peaking at ``lr`` after 5%."""
+    raft = make_raft(cfg.iters, restore_ckpt, cfg.seed).to(resolve_device(device)).train()
+    sched = linear_onecycle_schedule(cfg.num_steps + 100, cfg.lr, pct_start=0.05)
+    return raft, ClippedAdamW(raft.parameters(), sched, cfg.clip, cfg.epsilon, cfg.weight_decay)
+
+
+def make_raft_train_step(raft, tx: ClippedAdamW, cfg: RaftTrainConfig):
+    """step(batch) -> (loss, metrics): one update of ``raft`` in place.
+    batch: img1, img2 (B, 3, H, W) in [0, 1], flow (B, 2, H, W), valid (B,
+    H, W), on the network's device."""
+    from nerf_kbs_tpu_torch.process_data.networks.raft import sequence_loss
+
+    def step(batch: dict):
+        flows = raft.compute_flow(batch["img1"], batch["img2"], iters=cfg.iters, all_iters=True)
+        loss, metrics = sequence_loss(flows, batch["flow"], batch["valid"], cfg.gamma)
+        tx.zero_grad()
+        loss.backward()
+        tx.step()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    return step

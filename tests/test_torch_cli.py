@@ -395,8 +395,11 @@ def test_cli_modes_help_and_render_only(scene, tmp_path, capsys):
                       str(tmp_path / "exp" / "nerfacto-tpu"), "--dataparser.last_frame", "3",
                       "--dataparser.train_split_fraction", "0.5"], device="cpu")
     assert (renders / "rgb_00000.png").read_bytes()[:4] == b"\x89PNG"
-    with pytest.raises(NotImplementedError, match="render-focal-mult"):
-        tcli.main(argv + ["--render-focal-mult", "2"], device="cpu")
+    zoomed = tmp_path / "zoomed"
+    tcli.main(argv + ["--render-only", "true", "--render-dir", str(zoomed), "--trainer.load_dir",
+                      str(tmp_path / "exp" / "nerfacto-tpu"), "--render-focal-mult", "2",
+                      "--render-frame-range", "0,0"], device="cpu")
+    assert [p.name for p in sorted(zoomed.glob("rgb_*.png"))] == ["rgb_00000.png"]
     with pytest.raises(SystemExit, match="unknown method"):
         tcli.main(["nerfacto-tpu-slow"], device="cpu")
 

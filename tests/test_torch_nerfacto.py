@@ -150,7 +150,8 @@ def _small_renderer():
 
 
 def test_viewer_serves_pngs():
-    viewer = ViewerServer(_small_renderer(), port=0).start()
+    viewer = ViewerServer(_small_renderer(), port=0)
+    viewer.start_background()
     base = f"http://127.0.0.1:{viewer.port}"
     try:
         for path in ("/render?cam=1", "/render?cam=0&kind=depth", "/orbit?theta=0.5&size=8"):
@@ -158,13 +159,13 @@ def test_viewer_serves_pngs():
                 assert resp.headers["Content-Type"] == "image/png"
                 assert resp.read()[:8] == b"\x89PNG\r\n\x1a\n"
         with urllib.request.urlopen(base + "/status", timeout=60) as resp:
-            assert json.loads(resp.read())["num_cameras"] == 2
+            assert json.loads(resp.read())["num_eval_images"] == 2
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(base + "/render?cam=7", timeout=60)
         assert e.value.code == 400
         e.value.close()
     finally:
-        viewer.close()
+        viewer.shutdown()
 
 
 def test_render_trajectory_writes_frames(tmp_path):
