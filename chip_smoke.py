@@ -85,7 +85,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    checkpoints (one image's LPIPS card against CPU, the device ms of a
    call), and --render-only with --render-focal-mult 2 --render-pos-shift
    0.1,0,0 --render-frame-range 0,1 (9 frames of 376x1241);
-8. run 3, semantic-nerfw as registered (the hash field, 16 levels of a 2^19
+8. data parallel training (phase parallel): run 1's configuration through
+   engine.cli.build_trainer, 5 steps without a process group and at world
+   size 1 on NCCL in this process (the losses bit for bit, launches 2 / 1 /
+   2 / 1 and 2 all-reduces a step); then two ranks on the one card over
+   gloo, subprocesses of this script (``--dp-rank``), each drawing half of
+   the 4,096 rays a step with its own seed: nerfacto-tpu 5 steps and the
+   rank-strided eval_all_images, semantic-nerfw with run 2's model fields,
+   depth, semantics and masks 3 steps. The ranks' losses and parameters must
+   be equal bit for bit and their launches a step run 1's (run 2's); their
+   collectives a step, the gloo gradient and metrics all-reduces alone and
+   one profiled step are printed; one process on the concatenated batches
+   must match them within DP_LOSS_RTOL and DP_EVAL_ATOL; kernels A to D
+   are held against their plain versions at one rank's point counts;
+9. the host sampler (phase native_sampler): sample_ray_batch on the street
+   scene's train assets (6 x 376 x 1241 with depth and masks, 4,096 rays):
+   the gathered pixels, the same draws again for a seed and others for
+   another, and its host ms against the NumPy draw;
+10. run 3, semantic-nerfw as registered (the hash field, 16 levels of a 2^19
    table from 16 to 2048, proposals 5 levels of 2^17, (256, 96) -> 48
    samples, appearance embedding 32, bf16) with depth, semantics and masks,
    through cli.main on the same scene and window: 30 steps of 4,096 rays,
@@ -94,18 +111,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the peak memory of a step and of an eval chunk, and a profile of one step
    by device kernel and by op (the gathers, the table scatter-adds, the MLP
    products, the glue);
-9. the other hash presets as registered at full width (nerfacto and
+11. the other hash presets as registered at full width (nerfacto and
    nerfacto-big on the scene, synthetic-nerfacto on the sphere scene): 3
    steps each, finite losses, no fused kernel launched, step times and peak
    memory;
-10. 3 f32 steps on the card against the CPU plain path, at reduced widths, of
+12. 3 f32 steps on the card against the CPU plain path, at reduced widths, of
    semantic-nerfw as registered and of nerfacto-tpu with predicted normals
    and the scene contraction disabled (the second-order backward of the
    normals on the card);
-11. the vKITTI scene: the port's writer makes an 8-frame 375x1242 Virtual
+13. the vKITTI scene: the port's writer makes an 8-frame 375x1242 Virtual
    KITTI 2 scene (quality-97 JPEG frames, 16-bit PNG depth), timed, and the
    vKITTI parser and the datamanager load it, timed (the NumPy JPEG decoder);
-12. the last three registry paths through cli.main at full width, 30 steps
+14. the last three registry paths through cli.main at full width, 30 steps
    of 4,096 rays each, eval_all_images and a checkpoint, none of them
    launching a fused kernel: run 4, vanilla-nerf as registered (temporal
    distortion, aabb collider, 64 + 128 samples, 8 x 256 MLP with a skip at
@@ -122,7 +139,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    frequencies also each f32 run's distance from an f64 CPU run); one
    --render-only frame of run 4's configuration at a reduced width card
    against CPU, its temporal distortion reading the cameras' times;
-13. run 7, nerfacto-tpu with --model.camera_optimizer SO3xR3 through
+15. run 7, nerfacto-tpu with --model.camera_optimizer SO3xR3 through
    cli.main on the street scene (30 steps of 4,096 rays, bf16, eval of the
    split): launch counts A 2 / B 1 / C 2 / D 1 a step with every C and D
    launch on dx, the regularizer in every step, the tangents moved after 30
@@ -132,7 +149,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the camera optimizer (the base MLP's C launch on its dx branch); run 7b,
    semantic-nerfw as registered (hash field) with the camera optimizer, 3
    f32 steps card against CPU, with each run's distance from an f64 CPU run;
-14. run 8, the SUDS stream: sky masks from the scene's semantic colours and
+16. run 8, the SUDS stream: sky masks from the scene's semantic colours and
    a metadata.json over its frames (2 held out), SudsMetadataConfig ->
    ChunkedStreamDataManager (random-subset chunks of 65,536 rows, flow and
    sky rows) -> Trainer with nerfacto-tpu at full width in bf16,
@@ -141,7 +158,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    chunk build's host time against the steps it overlapped, the eval of the
    held-out frames, a profile of one step, and 3 f32 steps card against CPU
    on the same stream batches;
-15. the preprocessing pipeline (process_data/) on the street scene,
+17. the preprocessing pipeline (process_data/) on the street scene,
    f32 with TF32 off, no fused kernel launched (checked): the motion-mask
    driver at 640x192 (seeded monodepth2 and RAFT at 20 iterations, the
    trained segmenter of outputs/segmenter3), its seconds a frame pair, host
@@ -158,9 +175,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    step of each preprocessing trainer (RAFT at 640x192 with 12 iterations,
    the segmenter, the inpainter at 432x240 with T = 10) card against CPU,
    its ms and peak memory;
-16. a {"kernels": [...]} line, each record's "launches" counted per
+18. a {"kernels": [...]} line, each record's "launches" counted per
    "launches_per" (a frame, a bench step, a run-2 or a run-7 step, a run-2
-   step with the camera optimizer), then the last line
+   step with the camera optimizer; A to D also with
+   "parallel_launches_per_rank_step" and "per_rank_n_max_err"), then the
+   last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or run from a directory without the port, it exits non-zero
@@ -1617,6 +1636,437 @@ def phase_cli(records, scene: str) -> None:
     # run 2's configuration at a reduced width in f32: 3 steps on the card
     # (the kernels' f32 bodies) against the same 3 steps on the CPU plain path
     _card_vs_cpu(cli, "semantic-nerfw", argv2 + REDUCED_FOURIER, "cli_semantic_nerfw_vs_cpu")
+
+
+# ---------------------------------------------------------------------------
+# data parallel training (phase parallel) and the host sampler (phase
+# native_sampler)
+# ---------------------------------------------------------------------------
+
+# run 1's launches per train step: A and C at the proposal widths, B and D at
+# the field's, all on their wgmma bodies
+RUN1_STEP = {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1, "fourier_mlp_bwd_wgmma": 2,
+             "fourier_field_mlp_bwd_wgmma": 1}
+DP_STEPS = {"nerfacto-tpu": 5, "semantic-nerfw": 3}
+DP_WORLD = 2
+# world 2 against one process on the concatenated batch, in bf16 (PERF.md's
+# prediction, written before the first run): each rank's kernels sum the
+# weight gradients over half the points and gloo adds the halves, so the f32
+# sums round in another order; an Adam step moves a weight by lr * sign(g) at
+# first, and a gradient within rounding of zero can take the other sign
+DP_LOSS_RTOL = 1e-3
+DP_EVAL_ATOL = {"psnr": 0.05, "psnr_right": 0.05, "ssim": 2e-3}
+
+
+def _dp_argv(scene: str, out: str, method: str) -> list:
+    argv = _run_argv(scene, out)
+    return argv + RUN2_MODEL + _run2_data(scene) if method == "semantic-nerfw" else argv
+
+
+class _Collectives:
+    """Counts the calls of torch.distributed's collectives while installed."""
+
+    NAMES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter", "reduce_scatter_tensor", "all_to_all", "barrier")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.count, self.real = dist, {}, {n: getattr(dist, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(dist, n, self._wrap(n))
+
+    def _wrap(self, name):
+        def call(*a, **k):
+            self.count[name] = self.count.get(name, 0) + 1
+            return self.real[name](*a, **k)
+        return call
+
+    def take(self) -> dict:
+        out, self.count = self.count, {}
+        return out
+
+    def remove(self) -> None:
+        for n, fn in self.real.items():
+            setattr(self.dist, n, fn)
+
+
+def _dp_steps(trainer, steps: int, batches=None, collectives=None) -> dict:
+    """``steps`` train steps (the datamanager's batches unless given), each
+    synchronised: per step the loss terms, wall ms, launches and
+    collectives."""
+    import torch
+
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    rec = {"losses": [], "step_ms": [], "launches": [], "collectives": [], "batch_sums": []}
+    for step in range(steps):
+        batch = trainer.dm.next_train(step) if batches is None else batches[step]
+        rec["batch_sums"].append(int(batch["ray_indices"].astype("int64").sum()))
+        if collectives is not None:
+            collectives.take()
+        ff.reset_launches()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["launches"].append({k: v for k, v in ff.LAUNCHES.items() if v})
+        rec["collectives"].append(collectives.take() if collectives is not None else {})
+        rec["losses"].append({k: float(v) for k, v in m.items()})
+    rec["median_step_ms"] = sorted(rec["step_ms"][1:])[len(rec["step_ms"][1:]) // 2]
+    return rec
+
+
+def _params_digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in _leaf_values(params):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_worker(rank: int, port: str, scene: str, out: str) -> int:
+    """One rank of the two-process run (``chip_smoke.py --dp-rank``): joins
+    the gloo group at localhost:port on the one card, trains nerfacto-tpu
+    (DP_STEPS, then eval_all_images) and semantic-nerfw with depth,
+    semantics and masks on its share of the batch, times the gradient
+    all-reduce, and writes its results to ``out``."""
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    import nerf_kbs_tpu_torch  # noqa: F401
+    import nerf_kbs_tpu_torch.methods  # noqa: F401
+    from nerf_kbs_tpu_torch.engine import cli
+    from nerf_kbs_tpu_torch.parallel import mesh as M
+    from nerf_kbs_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    info = multihost.initialize(f"localhost:{port}", DP_WORLD, rank)
+    coll = _Collectives()
+    res = {"rank": rank, "init": info, "init_s": time.perf_counter() - t0,
+           "backend": torch.distributed.get_backend()}
+    for method, steps in DP_STEPS.items():
+        spec = cli.apply_overrides(cli.method_registry[method](),
+                                   _pairs(_dp_argv(scene, f"{out}/{method}", method)))
+        trainer = cli.build_trainer(spec)
+        rec = _dp_steps(trainer, steps, collectives=coll)
+        rec.update({"device": str(trainer.device), "world": trainer.mesh.world,
+                    "rays_per_rank": trainer.dm.config.train_num_rays_per_batch,
+                    "params": _params_digest(trainer.params)})
+        if method == "nerfacto-tpu":
+            t1 = time.perf_counter()
+            rec["eval_all"] = trainer.eval_all_images()
+            rec["eval_all_s"] = time.perf_counter() - t1
+            rec["eval_collectives"] = coll.take()
+            # the gradient all-reduce alone (the last step's gradients)
+            leaves = [p for p in _leaf_values(trainer.params) if p.requires_grad]
+            rec["grad_allreduce_ms"] = time_ms(lambda: M.all_reduce_grads(trainer.mesh,
+                                                                          trainer.params), 10)
+            rec["grad_allreduce_bytes"] = 4 * (sum(p.numel() for p in leaves) + len(leaves))
+            metrics = rec["losses"][-1]
+            rec["metrics_allreduce_ms"] = time_ms(lambda: M.mean_over_ranks(trainer.mesh, {
+                k: torch.tensor(v, device=trainer.device) for k, v in metrics.items()}), 10)
+            # one step under the profiler: the card's busy share of a rank's step
+            wall_us, events = device_events(lambda: trainer.train_step(trainer.dm.next_train(99)))
+            busy = sum(us for _, us, _ in events)
+            rec["profiled_step"] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                                    "device_idle_share": max(0.0, 1.0 - busy / wall_us)}
+            coll.take()
+        res[method] = rec
+        del trainer
+        torch.cuda.empty_cache()
+    coll.remove()
+    res["foreign_modules"] = [m for m in sys.modules if m.split(".")[0] in
+                              ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu")]
+    torch.distributed.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def _rank_batches(dm, step: int, world: int) -> dict:
+    """The global batch of ``step`` that ``world`` ranks draw (rank r with
+    the seed seed + 7919 r and 1 / world of the rays, as
+    engine.cli.build_trainer gives them), concatenated in rank order."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dm.config
+    parts = []
+    try:
+        for r in range(world):
+            dm.config = dataclasses.replace(
+                cfg, train_num_rays_per_batch=cfg.train_num_rays_per_batch // world,
+                seed=cfg.seed + 7919 * r)
+            parts.append(dm.next_train(step))
+    finally:
+        dm.config = cfg
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _kernels_at_rank_n(records, rays: int) -> dict:
+    """Kernels A to D against their plain versions at the point counts of
+    one rank's step (``rays`` rays of nerfacto-tpu; tri basis, bf16, no
+    position gradient, as the path runs them), on seeded weights."""
+    import torch
+
+    from nerf_kbs_tpu_torch.methods import nerfacto_tpu_method
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+    from nerf_kbs_tpu_torch.ops.encoding import fourier_encoding_init, sh_encoding
+
+    dev = torch.device("cuda")
+    cfg = nerfacto_tpu_method().model_config()
+    gen = torch.Generator().manual_seed(7)
+    pcfg, fcfg = cfg.proposal_field(0), cfg.field
+    pB, (pws, pbs) = fourier_encoding_init(pcfg.fourier, gen, dev), _weights(pcfg.mlp, gen, dev)
+    fB = fourier_encoding_init(fcfg.fourier, gen, dev)
+    (bws, bbs), (rws, rbs) = _weights(fcfg.base_mlp, gen, dev), _weights(fcfg.rgb_mlp, gen, dev)
+    mspec = ff.FusedMLPSpec(h_freqs=pB.shape[1], layer_dims=pcfg.mlp.dims, bf16=True,
+                            basis="tri")
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+
+    def outliers(got, want):
+        tol = BWD_TOLERANCE[("tri", True)]
+        return float(((got - want).abs() > tol * want.abs().max()).float().mean())
+
+    found = {}
+    for n in sorted({rays * s for s in cfg.num_proposal_samples_per_ray}):
+        x = torch.rand(3, n, generator=gen).to(dev)
+        err = float((ff.fourier_mlp(mspec, x, pB, pws, pbs)
+                     - ff.fourier_mlp_reference(x, pB, pws, pbs, "tri", True)).abs().max())
+        check(err <= TOLERANCE[("tri", True)], f"fourier_mlp_fwd at n={n}: err {err}")
+        found.setdefault("fourier_mlp_fwd", {})[n] = err
+        g = torch.randn(1, n, generator=gen).to(dev)
+        _, dws, dbs = ff._mlp_backward(mspec, x, pB, pws, pbs, g)
+        _, rws_, rbs_ = ff.fourier_mlp_backward_reference(x, pB, pws, pbs, g, "tri", True, False)
+        err = max(rel(a, b) for a, b in zip([*dws, *dbs], [*rws_, *rbs_]))
+        check(err <= SUM_TOLERANCE, f"fourier_mlp_bwd at n={n}: rel err {err}")
+        found.setdefault("fourier_mlp_bwd", {})[n] = err
+    n = rays * cfg.num_nerf_samples_per_ray
+    x = torch.rand(3, n, generator=gen).to(dev)
+    d = torch.randn(n, 3, generator=gen)
+    fe = sh_encoding(d / d.norm(dim=-1, keepdim=True)).T.contiguous().to(dev)
+    fspec = ff.FusedFieldSpec(h_freqs=fB.shape[1], feat_dim=fe.shape[0],
+                              base_dims=fcfg.base_mlp.dims, rgb_dims=fcfg.rgb_mlp.dims,
+                              bf16=True, basis="tri")
+    err = float((ff.fourier_field_mlp(fspec, x, fe, fB, bws, bbs, rws, rbs)
+                 - ff.fourier_field_reference(x, fe, fB, bws, bbs, rws, rbs, "tri",
+                                              True)).abs().max())
+    check(err <= TOLERANCE[("tri", True)], f"fourier_field_fwd at n={n}: err {err}")
+    found["fourier_field_fwd"] = {n: err}
+    g = torch.randn(4, n, generator=gen).to(dev)
+    got = ff._field_backward(fspec, x, fe, fB, bws, bbs, rws, rbs, g)[1:]
+    want = ff.fourier_field_backward_reference(x, fe, fB, bws, bbs, rws, rbs, g, "tri", True,
+                                               False)[1:]
+    err = max(rel(a, b) for a, b in zip(_leaf_values(list(got[1:])),
+                                         _leaf_values(list(want[1:]))))
+    out = outliers(got[0], want[0])
+    check(err <= SUM_TOLERANCE and out <= PER_POINT_OUTLIERS,
+          f"fourier_field_bwd at n={n}: rel err {err}, dfeats outliers {out}")
+    found["fourier_field_bwd"] = {n: err}
+    for rec in records:
+        if rec["name"] in found:
+            rec["per_rank_n_max_err"] = {str(k): v for k, v in found[rec["name"]].items()}
+    torch.cuda.empty_cache()
+    return found
+
+
+def phase_parallel(records, scene: str) -> None:
+    """Data parallel training through engine.cli.build_trainer: world size
+    1 on NCCL in this process against no process group (bit for bit), then
+    two ranks on the one card over gloo (subprocesses of this script,
+    ``--dp-rank``) against one process on the concatenated batch, and
+    kernels A to D at one rank's point counts."""
+    import torch
+    import torch.distributed as dist
+
+    import nerf_kbs_tpu_torch.methods  # noqa: F401
+    from nerf_kbs_tpu_torch.engine import cli
+    from nerf_kbs_tpu_torch.parallel import multihost
+
+    out = tempfile.mkdtemp(prefix="nkt_dp_")
+    method = "nerfacto-tpu"
+    steps = DP_STEPS[method]
+    spec = cli.apply_overrides(cli.method_registry[method](),
+                               _pairs(_dp_argv(scene, f"{out}/solo", method)))
+    solo = _dp_steps(cli.build_trainer(spec), steps)
+    backend = multihost.choose_backend(1)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    coll = _Collectives()
+    try:
+        trainer = cli.build_trainer(spec)
+        check(trainer.mesh.group is not None and trainer.mesh.world == 1, "world-1 mesh")
+        world1 = _dp_steps(trainer, steps, collectives=coll)
+        del trainer
+    finally:
+        coll.remove()
+        dist.destroy_process_group()
+    losses = [m["total_loss"] for m in solo["losses"]]
+    check([m["total_loss"] for m in world1["losses"]] == losses,
+          f"world 1 on {backend}: losses {world1['losses']} against {solo['losses']}")
+    check(all(ln == RUN1_STEP for ln in world1["launches"] + solo["launches"]),
+          f"launches {world1['launches']}")
+    check(world1["collectives"] == [{"all_reduce": 2}] * steps,
+          f"world-1 collectives {world1['collectives']}")
+    emit({"phase": "parallel_world1", "backend": backend, "method": method, "steps": steps,
+          "rays_per_batch": spec.datamanager.train_num_rays_per_batch,
+          "losses_bit_equal": True, "losses": losses, "launches_per_step": world1["launches"][0],
+          "collectives_per_step": world1["collectives"][0], "step_ms": world1["step_ms"],
+          "median_step_ms": world1["median_step_ms"], "no_group_step_ms": solo["step_ms"],
+          "no_group_median_step_ms": solo["median_step_ms"]})
+    torch.cuda.empty_cache()
+
+    # two ranks on the one card
+    port = str(free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), "--dp-rank", str(r),
+                               port, scene, out], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    ranks = [json.loads(Path(out, f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    check(all(r["backend"] == "gloo" and not r["foreign_modules"] for r in ranks),
+          f"ranks: {[(r['backend'], r['foreign_modules']) for r in ranks]}")
+    for r in ranks:
+        emit({"phase": "parallel_rank", "rank": r["rank"], "backend": r["backend"],
+              "init_s": r["init_s"], **{m: {k: v for k, v in r[m].items() if k != "params"}
+                                        for m in DP_STEPS}})
+
+    # one process on the concatenated batches
+    for method, steps in DP_STEPS.items():
+        spec = cli.apply_overrides(cli.method_registry[method](),
+                                   _pairs(_dp_argv(scene, f"{out}/ref", method)))
+        trainer = cli.build_trainer(spec)
+        batches = [_rank_batches(trainer.dm, s, DP_WORLD) for s in range(steps)]
+        ref = _dp_steps(trainer, steps, batches)
+        a, b = ranks[0][method], ranks[1][method]
+        check(a["losses"] == b["losses"] and a["params"] == b["params"],
+              f"{method}: the ranks differ: {a['losses']} / {b['losses']}")
+        check([x + y for x, y in zip(a["batch_sums"], b["batch_sums"])] == ref["batch_sums"],
+              f"{method}: the ranks drew other batches than the reference")
+        per_rank = RUN2_STEP if method == "semantic-nerfw" else RUN1_STEP
+        check(all(ln == per_rank for r in ranks for ln in r[method]["launches"]),
+              f"{method}: rank launches {[r[method]['launches'] for r in ranks]}")
+        rel = [abs(g["total_loss"] - w["total_loss"]) / abs(w["total_loss"])
+               for g, w in zip(a["losses"], ref["losses"])]
+        check(max(rel) <= DP_LOSS_RTOL, f"{method}: world 2 vs 1 loss rel {rel}")
+        rec = {"phase": "parallel_vs_one_process", "method": method, "steps": steps,
+               "world": DP_WORLD, "rays_per_rank": a["rays_per_rank"],
+               "loss_rel_err": rel, "loss_rtol": DP_LOSS_RTOL,
+               "world2_losses": [m["total_loss"] for m in a["losses"]],
+               "world1_losses": [m["total_loss"] for m in ref["losses"]],
+               "rank_median_step_ms": [r[method]["median_step_ms"] for r in ranks],
+               "one_process_median_step_ms": ref["median_step_ms"],
+               "collectives_per_step": a["collectives"][0],
+               "launches_per_rank_step": a["launches"][0]}
+        if method == "nerfacto-tpu":
+            want = trainer.eval_all_images()
+            diff = {k: abs(a["eval_all"][k] - want[k]) for k in DP_EVAL_ATOL if k in want}
+            check(a["eval_all"] == b["eval_all"] and a["eval_all"]["num_images"] == 2,
+                  f"eval: {a['eval_all']} / {b['eval_all']}")
+            check(all(diff[k] <= DP_EVAL_ATOL[k] for k in diff), f"eval world 2 vs 1: {diff}")
+            rec.update({"eval_world2": a["eval_all"], "eval_world1": want, "eval_diff": diff,
+                        "eval_atol": DP_EVAL_ATOL, "eval_collectives": a["eval_collectives"],
+                        "grad_allreduce_ms": [r[method]["grad_allreduce_ms"] for r in ranks],
+                        "grad_allreduce_bytes": a["grad_allreduce_bytes"],
+                        "no_group_median_step_ms": solo["median_step_ms"],
+                        "subprocess_wall_s": wall})
+            for k in records:
+                if k["name"] in COUNTER:
+                    k["parallel_launches_per_rank_step"] = a["launches"][0].get(
+                        COUNTER[k["name"]], 0)
+        emit(rec)
+        del trainer
+        torch.cuda.empty_cache()
+    found = _kernels_at_rank_n(records, ranks[0]["nerfacto-tpu"]["rays_per_rank"])
+    emit({"phase": "parallel_kernels_at_rank_n", "max_err": {
+        k: {str(n): e for n, e in v.items()} for k, v in found.items()}})
+
+
+def phase_native_sampler(scene: str) -> None:
+    """The host sampler on the street scene's train assets (6 frames of
+    376x1241 with depth and masks, 4,096 rays): the right pixels,
+    deterministic at this process's thread count, other draws for another
+    seed; host ms against the NumPy draw, on the card's host."""
+    import os
+
+    import numpy as np
+
+    import nerf_kbs_tpu_torch.methods  # noqa: F401
+    from nerf_kbs_tpu_torch import native
+    from nerf_kbs_tpu_torch.data.datamanager import InMemoryDataManager
+    from nerf_kbs_tpu_torch.engine import cli
+    from nerf_kbs_tpu_torch.native import lib
+
+    spec = cli.apply_overrides(cli.method_registry["semantic-nerfw"](),
+                               _pairs(_dp_argv(scene, tempfile.mkdtemp(), "semantic-nerfw")))
+    t0 = time.perf_counter()
+    dm = InMemoryDataManager(spec.dataparser.parse("train"), spec.dataparser.parse("val"),
+                             spec.datamanager)
+    load_s = time.perf_counter() - t0
+    a = dm.train_assets
+    imgs, depths, masks = a["images"], a["depths"], a["masks"]
+    t0 = time.perf_counter()
+    check(native.available(), "native sampler")
+    build_s = time.perf_counter() - t0
+    b = 4096
+    got = native.sample_ray_batch(imgs, b, seed=5, depths=depths, masks=masks)
+    cam, row, col = got["ray_indices"].T.astype(np.int64)
+    check(got["ray_indices"].shape == (b, 3) and cam.max() < imgs.shape[0]
+          and row.max() < imgs.shape[1] and col.max() < imgs.shape[2], "indices out of range")
+    # the library scales by the f32 reciprocal of 255
+    inv255 = np.float32(1.0) / np.float32(255.0)
+    check(np.array_equal(got["image"], imgs[cam, row, col].astype(np.float32) * inv255)
+          and np.array_equal(got["depth_image"][:, 0], depths[cam, row, col])
+          and np.array_equal(got["mask"][:, 0], (masks[cam, row, col] != 0).astype(np.float32)),
+          "the sampler gathered other pixels")
+    again = native.sample_ray_batch(imgs, b, seed=5, depths=depths, masks=masks)
+    other = native.sample_ray_batch(imgs, b, seed=6, depths=depths, masks=masks)
+    check(all(np.array_equal(got[k], again[k]) for k in got), "not deterministic")
+    check(not np.array_equal(got["ray_indices"], other["ray_indices"]), "seed ignored")
+
+    def median_ms(fn, reps=21):
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return sorted(ts)[reps // 2]
+
+    calls = {"datamanager_call": lambda: native.sample_ray_batch(imgs, b, 1, depths=depths),
+             "with_mask_rejection": lambda: native.sample_ray_batch(imgs, b, 1, depths=depths,
+                                                                    masks=masks)}
+    native_ms = {k: median_ms(fn) for k, fn in calls.items()}
+    next_train_ms = median_ms(lambda: dm.next_train(3))
+    saved = lib._lib
+    lib._lib = False
+    try:
+        numpy_ms = {k: median_ms(fn) for k, fn in calls.items()}
+        numpy_next_train_ms = median_ms(lambda: dm.next_train(3))
+    finally:
+        lib._lib = saved
+    emit({"phase": "native_sampler", "clock": "host (the card's machine), not the device",
+          "frames": list(imgs.shape), "rays": b, "os_cpu_count": os.cpu_count(),
+          "omp_num_threads": os.environ.get("OMP_NUM_THREADS"),
+          "assets_load_s": load_s, "build_or_load_s": build_s,
+          "mask_share_drawn": float(got["mask"].mean()),
+          "mask_share_of_pixels": float((masks != 0).mean()),
+          "native_ms": native_ms, "numpy_ms": numpy_ms,
+          "next_train_ms": {"native": next_train_ms, "numpy": numpy_next_train_ms}})
 
 
 # ---------------------------------------------------------------------------
@@ -3508,6 +3958,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="nkt_scene_") as tmp:
         scene = phase_scene(tmp)
         phase_cli(records, scene)
+        phase_parallel(records, scene)
+        phase_native_sampler(scene)
         phase_hash(scene)
         phase_registry(scene, phase_vkitti_scene(tmp))
         phase_camera_opt(records, scene)
@@ -3523,4 +3975,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_worker(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

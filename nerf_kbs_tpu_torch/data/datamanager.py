@@ -1,5 +1,6 @@
 """InMemoryDataManager: every frame of a train and an eval split decoded into
-host memory up front, and uniform random pixel batches from them (NumPy).
+host memory up front, and uniform random pixel batches from them (the host
+sampler, ``native``).
 
 A train batch is a dict of NumPy arrays: 'ray_indices' int32 (B, 3) (camera,
 row, col), 'image' f32 (B, 3) and, where the split has them, 'depth_image'
@@ -16,6 +17,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from nerf_kbs_tpu_torch import native
 from nerf_kbs_tpu_torch.data.outputs import DataparserOutputs
 from nerf_kbs_tpu_torch.utils.images import decode_png, read_image
 
@@ -101,20 +103,18 @@ class InMemoryDataManager:
         return d.argmin(1).astype(np.int32).reshape(sem_img.shape[:2])
 
     def next_train(self, step: int) -> dict:
-        """The batch of ``step``: uniform (camera, row, col) draws from
-        default_rng(seed * 1_000_003 + step), camera first. Mask values ride
-        along as supervision weights; masked pixels are not rejected."""
+        """The batch of ``step``: uniform (camera, row, col) draws from the
+        host sampler (``native.sample_ray_batch``, seed ``seed * 1_000_003 +
+        step``; the NumPy draw of ``default_rng`` of that seed with
+        ``native.lib._lib = False``), as the JAX package's datamanager draws
+        them. Mask values ride along as supervision weights; masked pixels
+        are not rejected. Depth comes from the sampler, masks and semantic
+        labels are gathered at the drawn pixels."""
         a = self.train_assets
-        n, h, w = a["images"].shape[:3]
-        b = self.config.train_num_rays_per_batch
-        rng = np.random.default_rng(self.config.seed * 1_000_003 + step)
-        cam = rng.integers(0, n, b)
-        row = rng.integers(0, h, b)
-        col = rng.integers(0, w, b)
-        batch = {"ray_indices": np.stack([cam, row, col], -1).astype(np.int32),
-                 "image": a["images"][cam, row, col].astype(np.float32) / 255.0}
-        if "depths" in a:
-            batch["depth_image"] = a["depths"][cam, row, col].astype(np.float32)[:, None]
+        batch = native.sample_ray_batch(a["images"], self.config.train_num_rays_per_batch,
+                                        seed=self.config.seed * 1_000_003 + step,
+                                        depths=a.get("depths"))
+        cam, row, col = batch["ray_indices"].T
         if "masks" in a:
             batch["mask"] = a["masks"][cam, row, col][:, None].astype(np.float32)
         if "semantic_labels" in a:

@@ -37,6 +37,7 @@ import numpy as np
 from nerf_kbs_tpu_torch.cameras.poses import invert_se3, to_homogeneous
 from nerf_kbs_tpu_torch.data.image_metadata import ImageMetadata, cameras_np
 from nerf_kbs_tpu_torch.data.outputs import DataparserOutputs
+from nerf_kbs_tpu_torch.parallel.multihost import host_shard_info
 
 
 @dataclasses.dataclass
@@ -221,8 +222,9 @@ class ChunkedStreamDataManager:
                                  end_frame: Optional[int] = None,
                                  focal_mult: Optional[float] = None,
                                  pos_shift: Optional[np.ndarray] = None,
-                                 rank: int = 0, world: int = 1):
-        """The eval cameras of rank ``rank`` of ``world``: a video-id filter,
+                                 rank: Optional[int] = None, world: Optional[int] = None):
+        """The eval cameras of rank ``rank`` of ``world`` (by default this
+        process's, ``parallel.multihost.host_shard_info``): a video-id filter,
         a per-video frame range (groups of 7 cameras for ring views), the
         rank-strided assignment of images, and focal_mult / pos_shift
         overrides. Returns (eval item positions, DataparserOutputs of every
@@ -242,6 +244,8 @@ class ChunkedStreamDataManager:
                         and (end_frame is None or end_frame * chunk > vidx)):
                     filtered.append(pos)
             positions = filtered
+        if rank is None or world is None:
+            rank, world = host_shard_info()
         strided = []
         for i in range(rank * chunk, len(positions) - chunk + 1, chunk * world):
             strided.extend(positions[i:i + chunk])

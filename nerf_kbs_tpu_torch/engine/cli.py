@@ -21,7 +21,9 @@ under ``--trainer.load_dir``, ``--eval-only``, ``--render-only``
 
 Runs on the CUDA card; ``main(argv, device="cpu")`` runs the plain path on
 the CPU, in bf16 never (``MethodSpec.model_config``: mixed precision applies
-on the card only).
+on the card only). With ``NKT_NUM_PROCESSES`` (or torchrun's ``WORLD_SIZE``)
+above 1 every process runs the same command and they train data parallel
+(``build_trainer``); rank 0 serves the live viewer.
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ from typing import Any, Callable, Optional
 import torch
 
 from nerf_kbs_tpu_torch.data.datamanager import DataManagerConfig, InMemoryDataManager
-from nerf_kbs_tpu_torch.device import resolve_device
 from nerf_kbs_tpu_torch.engine.optimizers import OptimizerConfig
 from nerf_kbs_tpu_torch.engine.trainer import Trainer, TrainerConfig
+from nerf_kbs_tpu_torch.parallel import multihost
+from nerf_kbs_tpu_torch.parallel.mesh import make_mesh
 
 
 @dataclasses.dataclass
@@ -193,8 +196,24 @@ def build_trainer(spec: MethodSpec, device=None) -> Trainer:
     ``num_semantic_classes`` from the data (the semantic head switched off,
     with a warning, when the data has no labels); the compute dtype from
     ``spec.model_config``; with the camera optimizer, its 'camera_opt' Adam
-    group unless the spec has one."""
-    dev = resolve_device(device)
+    group unless the spec has one.
+
+    With more than one process (``parallel.multihost.initialize``:
+    ``NKT_NUM_PROCESSES`` or torchrun's ``WORLD_SIZE``) each process takes
+    ``train_num_rays_per_batch // world`` rays a step, drawn with the seed
+    ``seed + 7919 * rank``, on its own device (``multihost.rank_device``),
+    and the trainer runs data parallel over the process group."""
+    info = multihost.initialize(device=device)
+    world, rank = info["process_count"], info["process_index"]
+    if world > 1:
+        b = spec.datamanager.train_num_rays_per_batch
+        if b % world:
+            raise SystemExit(f"train_num_rays_per_batch {b} not divisible by {world} processes")
+        spec = dataclasses.replace(spec, datamanager=dataclasses.replace(
+            spec.datamanager, train_num_rays_per_batch=b // world,
+            seed=spec.datamanager.seed + 7919 * rank))
+    mesh = make_mesh(device)
+    dev = mesh.device
     module = _model_module(spec.model_name)
     if spec.dataparser is None:
         from nerf_kbs_tpu_torch.data.synthetic import SyntheticDataManager
@@ -222,7 +241,7 @@ def build_trainer(spec: MethodSpec, device=None) -> Trainer:
         # the late-training floor (a constant 6e-4 lets the poses drift)
         optimizers["camera_opt"] = OptimizerConfig(
             lr=6e-4, eps=1e-8, lr_final=6e-6, max_steps=spec.trainer.max_num_iterations)
-    return Trainer(spec.trainer, model_cfg, optimizers, dm, device=dev, model=module)
+    return Trainer(spec.trainer, model_cfg, optimizers, dm, model=module, mesh=mesh)
 
 
 # run-mode flags and their defaults; both spellings (dash and underscore)
@@ -321,7 +340,7 @@ def main(argv: Optional[list[str]] = None, device=None):
         return None
     viewer = None
     viewer_port = _resolve_viewer_port(int(modes["viewer-port"]), trainer.config.vis)
-    if viewer_port:
+    if viewer_port and trainer.mesh.rank == 0:  # one viewer for the ranks, on one port
         from nerf_kbs_tpu_torch.engine.viewer import ViewerServer
 
         viewer = ViewerServer(trainer, eval_image_dir=eval_dumps, port=viewer_port,

@@ -27,6 +27,16 @@ also runs the NeRF-W eval protocol (``fit_eval_appearance``): the image's
 embedding row is fitted on the image's left half, and the render with the
 fitted row scores 'fit_psnr' and, on the unseen right half, 'fit_psnr_right'.
 
+Data parallel over processes (``parallel.mesh``, a ``mesh`` of more than
+one rank): the parameters and optimizer state are replicated from rank 0,
+each rank trains on its datamanager's share of the global batch with its
+rows of the global batch's jitter, the loss is the global batch's, the
+gradients are averaged before the update and the step's metrics are the
+mean over the ranks. ``eval_all_images`` scores every world-th image on
+each rank and sums the scores over the ranks; ``render_camera`` and the eval
+fit stay on the rank. Rank 0 alone writes checkpoints, metrics.jsonl and
+TensorBoard events; every rank prints.
+
 Live renders from another thread (the viewer's, ``engine.viewer``) go
 through ``render_camera``, which renders a copy of the parameters of one
 completed step (``snapshot``): ``train_step`` holds ``step_lock`` from the
@@ -48,7 +58,6 @@ import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.cameras.cameras import generate_rays
-from nerf_kbs_tpu_torch.device import resolve_device
 from nerf_kbs_tpu_torch.engine.optimizers import (
     OptimizerConfig,
     build_optimizer,
@@ -59,6 +68,15 @@ from nerf_kbs_tpu_torch.engine.render import Renderer
 from nerf_kbs_tpu_torch.models import nerfacto
 from nerf_kbs_tpu_torch.ops import metrics as M
 from nerf_kbs_tpu_torch.ops.losses import normalized_depth_scale_and_shift
+from nerf_kbs_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    global_batch,
+    make_mesh,
+    mean_over_ranks,
+    replicate,
+    shard_batch,
+)
+from nerf_kbs_tpu_torch.parallel.multihost import all_sum_host_values
 from nerf_kbs_tpu_torch.utils import images
 from nerf_kbs_tpu_torch.utils.lpips import load_lpips
 from nerf_kbs_tpu_torch.utils.tboard import TensorboardWriter
@@ -125,16 +143,19 @@ class Trainer:
     batches (NumPy 'ray_indices' (B, 3), 'image' (B, 3) and any supervision
     the model reads), ``train_outputs`` / ``eval_outputs`` camera arrays,
     ``num_eval_images()`` and ``eval_image(idx)``. Runs on CUDA unless
-    ``device="cpu"``."""
+    ``device="cpu"``, data parallel over the ranks of ``mesh`` (None:
+    ``parallel.mesh.make_mesh(device)``, the process group's when there is
+    one), on the mesh's device."""
 
     def __init__(self, config: TrainerConfig, model_config: nerfacto.NerfactoConfig,
                  optimizers: dict[str, OptimizerConfig], datamanager: Any, device=None,
-                 model: Any = nerfacto):
+                 model: Any = nerfacto, mesh=None):
         self.config = config
         self.model = model
         self.model_config = model_config
         self.dm = datamanager
-        self.device = resolve_device(device)
+        self.mesh = make_mesh(device) if mesh is None else mesh
+        self.device = self.mesh.device
         self.out_dir = Path(config.output_dir) / config.experiment_name / config.method_name
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self._metrics_file = self.out_dir / "metrics.jsonl"
@@ -144,6 +165,7 @@ class Trainer:
         mark_trainable(self.params)
         self.optimizer = build_optimizer(optimizers, model.param_groups(self.params),
                                          device=self.device)
+        replicate(self.mesh, (self.params, self.optimizer.state_dict()))
         self.step = 0
         self.train_cameras = self.dm.train_outputs.cameras(self.device)
         self.eval_cameras = self.dm.eval_outputs.cameras(self.device)
@@ -160,23 +182,28 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
 
     def train_step(self, batch: dict, jitters=None) -> dict:
-        """One update from a batch of device tensors; returns the metrics as
-        tensors (no synchronisation). ``jitters`` replaces the generator's
-        draws (see ``ops.samplers.proposal_sample``)."""
+        """One update from this rank's rows of the global batch (NumPy
+        arrays or tensors); returns the metrics, averaged over the ranks, as
+        tensors (no synchronisation with one process). ``jitters`` (this
+        rank's rows) replaces the generator's draws (see
+        ``ops.samplers.proposal_sample``)."""
+        batch = shard_batch(self.mesh, batch)
         with self.step_lock:
             self._jitter.manual_seed((self.config.seed + 1) * 1_000_003 + self.step)
-            delta = getattr(self.model, "camera_deltas", lambda _p: None)(self.params)
-            rays = generate_rays(self.train_cameras, batch["ray_indices"], c2w_delta=delta)
-            out = self.model.forward(self.params, self.model_config, rays, step=self.step,
-                                     train=True, generator=self._jitter, jitters=jitters)
-            total, metrics = self.model.loss(self.model_config, out, batch, train=True)
+            with global_batch(self.mesh):
+                delta = getattr(self.model, "camera_deltas", lambda _p: None)(self.params)
+                rays = generate_rays(self.train_cameras, batch["ray_indices"], c2w_delta=delta)
+                out = self.model.forward(self.params, self.model_config, rays, step=self.step,
+                                         train=True, generator=self._jitter, jitters=jitters)
+                total, metrics = self.model.loss(self.model_config, out, batch, train=True)
             self.optimizer.zero_grad()
             total.backward()
+            all_reduce_grads(self.mesh, self.params)
             self.optimizer.step()
             self.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
-        return metrics
+        return mean_over_ranks(self.mesh, metrics)
 
     def train(self, num_iterations: Optional[int] = None) -> dict:
         cfg = self.config
@@ -185,9 +212,9 @@ class Trainer:
         rays_done = 0
         last_metrics: dict = {}
         while self.step < end:
-            batch = self._to_device(self.dm.next_train(self.step))
+            batch = self.dm.next_train(self.step)
             metrics = self.train_step(batch)
-            rays_done += batch["ray_indices"].shape[0]
+            rays_done += batch["ray_indices"].shape[0] * self.mesh.world
 
             if self.step % cfg.log_every == 0 or self.step == end:
                 metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
@@ -388,16 +415,28 @@ class Trainer:
 
     def eval_all_images(self) -> dict:
         """Every eval image scored, each metric averaged over the images
-        that have it; 'num_images'."""
-        ms = [self.eval_image(i, write_images=False) for i in range(self.dm.num_eval_images())]
-        out = {k: float(np.mean([m[k] for m in ms if k in m]))
-               for k in _EVAL_KEYS if any(k in m for m in ms)}
-        out["num_images"] = len(ms)
+        that have it; 'num_images'. Rank r of the mesh scores images r, r +
+        world, ...; the sums and counts of every key in ``_EVAL_KEYS`` (a
+        fixed order, so every rank adds vectors of one shape) are summed
+        over the ranks."""
+        mine = range(self.mesh.rank, self.dm.num_eval_images(), self.mesh.world)
+        ms = [self.eval_image(i, write_images=False) for i in mine]
+        sums = np.array([sum(m[k] for m in ms if k in m) for k in _EVAL_KEYS], np.float64)
+        counts = np.array([sum(1.0 for m in ms if k in m) for k in _EVAL_KEYS], np.float64)
+        n_imgs = np.array([float(len(ms))], np.float64)
+        if self.mesh.world > 1:
+            sums, counts, n_imgs = all_sum_host_values(sums, counts, n_imgs)
+        out = {k: float(s / c) for k, s, c in zip(_EVAL_KEYS, sums, counts) if c > 0}
+        out["num_images"] = int(n_imgs[0])
         return out
 
     # ----------------------------------------------------------- checkpoint
     def save_checkpoint(self) -> str:
+        """Writes the checkpoint of this step (rank 0 alone: the ranks hold
+        one state); returns its path."""
         path = self.out_dir / f"ckpt_{self.step:09d}.pt"
+        if self.mesh.rank != 0:
+            return str(path)
 
         def host(t):
             return t.detach().cpu()
@@ -418,17 +457,19 @@ class Trainer:
         saved = torch.load(ckpts[-1], map_location="cpu", weights_only=True)
         tree_copy_(self.params, saved["params"])
         self.optimizer.load_state_dict(saved["opt_state"])
+        replicate(self.mesh, (self.params, self.optimizer.state_dict()))
         self.step = int(saved["step"])
 
     # ------------------------------------------------------------------ log
     def _log(self, metrics: dict) -> None:
         metrics.setdefault("elapsed_s", round(time.monotonic() - self._t0, 1))
-        with open(self._metrics_file, "a") as f:
-            f.write(json.dumps(metrics) + "\n")
-        if "tensorboard" in self.config.vis:
-            if self._tb_writer is None:
-                self._tb_writer = TensorboardWriter(self.out_dir / "tensorboard")
-            self._tb_writer.add_scalars(int(metrics.get("step", self.step)), metrics)
+        if self.mesh.rank == 0:
+            with open(self._metrics_file, "a") as f:
+                f.write(json.dumps(metrics) + "\n")
+            if "tensorboard" in self.config.vis:
+                if self._tb_writer is None:
+                    self._tb_writer = TensorboardWriter(self.out_dir / "tensorboard")
+                self._tb_writer.add_scalars(int(metrics.get("step", self.step)), metrics)
         pieces = [f"step {metrics.get('step', self.step)}"]
         for k in ("total_loss", "rgb_loss", "psnr", "rays_per_sec", "eval_psnr",
                   "eval_all_psnr"):

@@ -49,6 +49,7 @@ from nerf_kbs_tpu_torch.ops.encoding import (
 )
 from nerf_kbs_tpu_torch.ops.metrics import masked_psnr
 from nerf_kbs_tpu_torch.ops.samplers import RaySamples, anneal_schedule, proposal_sample
+from nerf_kbs_tpu_torch.parallel.mesh import global_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,22 +392,31 @@ def _first_rays(samples: RaySamples, n: int) -> RaySamples:
                          for f in dataclasses.fields(samples)})
 
 
-def _first_ray_args(outputs: dict, n_rays: int, fraction: float):
-    """The interlevel loss's inputs, on the first ``fraction`` of the rays
-    (rays are i.i.d. pixel draws, so a prefix is an unbiased subsample)."""
+def interlevel_term(outputs: dict, n_rays: int, fraction: float) -> torch.Tensor:
+    """The interlevel loss on the first ``fraction`` of the step's global
+    batch (rays are i.i.d. pixel draws, so a prefix is an unbiased
+    subsample). In a data-parallel step a rank holds rows [first, first +
+    n_rays) of it: it scores its rows inside the prefix, weighted by their
+    share of the prefix times the world size (see ``parallel.mesh``); a rank
+    with no row in the prefix scores one row with weight 0, so that its
+    backward runs the same kernels."""
     samples, weights = outputs["ray_samples"], outputs["weights"]
     history = outputs["proposal_history"]
-    if fraction < 1.0:
-        n = max(1, int(n_rays * fraction))
-        samples, weights = _first_rays(samples, n), weights[:n]
-        history = [(_first_rays(ps, n), pw[:n]) for ps, pw in history]
-    return samples, weights, history
+    if fraction >= 1.0:
+        return L.interlevel_loss(samples, weights, history)
+    first, total = global_rows(n_rays)
+    n = max(1, int(total * fraction))
+    mine = min(max(n - first, 0), n_rays)
+    keep = max(mine, 1)
+    term = L.interlevel_loss(_first_rays(samples, keep), weights[:keep],
+                             [(_first_rays(ps, keep), pw[:keep]) for ps, pw in history])
+    return term if total == n_rays else term * (mine * (total // n_rays) / n)
 
 
 def masked_rgb_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The per-element mean over supervised pixels (mask (R, 1) weights)."""
-    m = mask.to(pred.dtype)
-    return torch.sum(m * (pred - gt) ** 2) / torch.clamp_min(torch.sum(m) * 3.0, 1.0)
+    """The per-element mean over supervised pixels (mask (R, 1) weights) of
+    the step's global batch."""
+    return L.masked_mean((pred - gt) ** 2, mask.to(pred.dtype), per_row=3)
 
 
 def depth_loss(cfg: NerfactoConfig, outputs: dict, batch: dict) -> torch.Tensor:
@@ -454,8 +464,8 @@ def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
     losses = {"rgb_loss": rgb_loss}
     if train:
         if cfg.interlevel_loss_mult > 0:
-            losses["interlevel_loss"] = cfg.interlevel_loss_mult * L.interlevel_loss(
-                *_first_ray_args(outputs, gt.shape[0], cfg.interlevel_ray_fraction))
+            losses["interlevel_loss"] = cfg.interlevel_loss_mult * interlevel_term(
+                outputs, gt.shape[0], cfg.interlevel_ray_fraction)
         if cfg.distortion_loss_mult > 0:
             losses["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
                 outputs["ray_samples"], outputs["weights"])
@@ -479,10 +489,8 @@ def loss(cfg: NerfactoConfig, outputs: dict, batch: dict, train: bool = True):
         if cfg.use_depth and "depth_image" in batch:
             losses["depth_loss"] = depth_loss(cfg, outputs, batch)
         if cfg.sky_loss_mult > 0.0 and "sky" in batch:
-            sky = batch["sky"].to(pred.dtype)
-            acc = outputs["accumulation"]
-            losses["sky_loss"] = cfg.sky_loss_mult * (
-                torch.sum(sky * acc**2) / torch.clamp_min(torch.sum(sky), 1.0))
+            losses["sky_loss"] = cfg.sky_loss_mult * L.masked_mean(
+                outputs["accumulation"] ** 2, batch["sky"].to(pred.dtype))
     total = sum(losses.values())
     if masked:
         psnr = masked_psnr(pred.detach(), gt, batch["mask"][..., 0])

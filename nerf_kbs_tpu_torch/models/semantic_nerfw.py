@@ -119,8 +119,8 @@ def loss(cfg: SemanticNerfWConfig, outputs: dict, batch: dict, train: bool = Tru
     gt, pred = batch["image"], outputs["rgb"]
     losses = {}
     if train:
-        losses["interlevel_loss"] = cfg.interlevel_loss_mult * L.interlevel_loss(
-            *_nerfacto._first_ray_args(outputs, gt.shape[0], cfg.interlevel_ray_fraction))
+        losses["interlevel_loss"] = cfg.interlevel_loss_mult * _nerfacto.interlevel_term(
+            outputs, gt.shape[0], cfg.interlevel_ray_fraction)
         losses["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
             outputs["ray_samples"], outputs["weights"])
         losses.update(_nerfacto.camera_opt_regularizer(cfg, outputs))

@@ -2,11 +2,17 @@
 distortion loss in the samplers' spacing domain, the orientation and
 predicted-normal losses, the monocular and euclidean depth losses, the
 semantic cross-entropy, and the flow loss on the flow that the rendered
-depth induces."""
+depth induces.
+
+The depth alignment's solve and the masked means sum over the step's global
+batch (``parallel.mesh.batch_sum``): in a data-parallel step every rank gets
+the term of the whole batch; elsewhere the sums are local."""
 
 from __future__ import annotations
 
 import torch
+
+from nerf_kbs_tpu_torch.parallel.mesh import batch_sum
 
 
 def mse_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -108,12 +114,11 @@ def pred_normal_loss(weights: torch.Tensor, normals: torch.Tensor,
 
 def normalized_depth_scale_and_shift(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor):
     """Closed-form least-squares (scale, shift) that align pred to gt over
-    the mask, per leading row; (0, 0) where the system is singular."""
-    a00 = torch.sum(mask * pred * pred, dim=-1)
-    a01 = torch.sum(mask * pred, dim=-1)
-    a11 = torch.sum(mask, dim=-1)
-    b0 = torch.sum(mask * pred * gt, dim=-1)
-    b1 = torch.sum(mask * gt, dim=-1)
+    the mask, per leading row, with the sums taken over the step's global
+    batch; (0, 0) where the system is singular."""
+    a00, a01, a11, b0, b1 = batch_sum(torch.stack([
+        torch.sum(x, dim=-1)
+        for x in (mask * pred * pred, mask * pred, mask, mask * pred * gt, mask * gt)])).unbind()
     det = a00 * a11 - a01 * a01
     valid = det > 1e-9
     safe = torch.where(valid, det, torch.ones_like(det))
@@ -132,7 +137,15 @@ def monodepth_loss(termination_depth: torch.Tensor, gt_depth: torch.Tensor,
     m = torch.ones_like(gt) if mask is None else mask.reshape(1, -1).to(gt.dtype)
     scale, shift = normalized_depth_scale_and_shift(pred, gt, m)
     aligned = scale[:, None] * pred + shift[:, None]
-    return torch.sum(m * (aligned - gt) ** 2) / torch.clamp_min(torch.sum(m), 1.0)
+    return masked_mean((aligned - gt) ** 2, m)
+
+
+def masked_mean(values: torch.Tensor, weights: torch.Tensor, per_row: int = 1) -> torch.Tensor:
+    """sum(weights * values) / max(sum(weights) * per_row, 1) over the
+    global batch; ``weights`` broadcasts against ``values``, and ``per_row``
+    counts the values that each weight covers."""
+    s = batch_sum(torch.stack([torch.sum(weights * values), torch.sum(weights)]))
+    return s[0] / torch.clamp_min(s[1] * per_row, 1.0)
 
 
 def euclidean_depth_loss(termination_depth: torch.Tensor, gt_depth: torch.Tensor,
@@ -141,8 +154,7 @@ def euclidean_depth_loss(termination_depth: torch.Tensor, gt_depth: torch.Tensor
     err = (termination_depth - gt_depth) ** 2
     if mask is None:
         return torch.mean(err)
-    m = mask.to(err.dtype)
-    return torch.sum(m * err) / torch.clamp_min(torch.sum(m), 1.0)
+    return masked_mean(err, mask.to(err.dtype))
 
 
 def colors_to_labels(pixel_colors: torch.Tensor, class_colors: torch.Tensor) -> torch.Tensor:
@@ -184,5 +196,4 @@ def flow_loss(pred_flow: torch.Tensor, gt_flow: torch.Tensor,
     err = torch.sum(torch.abs(pred_flow - gt_flow), dim=-1)
     if valid is None:
         return torch.mean(err)
-    v = valid.to(err.dtype).reshape(err.shape)
-    return torch.sum(err * v) / torch.clamp_min(torch.sum(v), 1.0)
+    return masked_mean(err, valid.to(err.dtype).reshape(err.shape))

@@ -4,7 +4,9 @@ the proposal chain, at eval (evenly spaced, no jitter) and in training
 
 Jitter comes from an explicit ``torch.Generator`` (drawn on the generator's
 device and moved) or is handed in as tensors, so that two implementations can
-be fed the same numbers.
+be fed the same numbers. In a data-parallel step (``parallel.mesh
+.global_batch``) the generator draws for the global batch and each rank keeps
+its rows, so the ranks jitter as one process on the whole batch does.
 
 Sampling works in a normalised spacing domain s in [0, 1] with a fixed warp
 to euclidean distance t ('uniform', 'lindisp', or 'piecewise': linear over
@@ -19,6 +21,7 @@ from typing import Callable
 import torch
 
 from nerf_kbs_tpu_torch.ops.rendering import render_weights
+from nerf_kbs_tpu_torch.parallel.mesh import global_rows
 
 
 @dataclasses.dataclass
@@ -77,7 +80,9 @@ def _samples(rays, s_edges: torch.Tensor, spacing: str) -> RaySamples:
 
 
 def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+    first, total = global_rows(shape[0])
+    u = torch.rand((total, *shape[1:]), generator=generator, device=generator.device)
+    return u[first:first + shape[0]].to(device)
 
 
 def uniform_sampler(rays, num_samples: int, spacing: str = "piecewise", generator=None,

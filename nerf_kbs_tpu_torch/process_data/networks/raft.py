@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nerf_kbs_tpu_torch.parallel.mesh import batch_sum
 from nerf_kbs_tpu_torch.process_data.warp import grid_sample_bilinear
 
 
@@ -236,20 +237,27 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.
                   gamma: float = 0.8, max_flow: float = 400.0):
     """RAFT's training loss: the L1 error of every iteration's upsampled
     flow, weighted gamma^(T - 1 - t), over the valid pixels (valid > 0.5 and
-    a ground-truth flow shorter than ``max_flow``), and the last iteration's
-    end-point error metrics ('epe', '1px', '3px', '5px'). flow_preds (T, B,
-    2, H, W) as ``compute_flow(all_iters=True)`` gives them, flow_gt (B, 2,
-    H, W), valid (B, H, W) -> (loss, metrics), scalar tensors."""
+    a ground-truth flow shorter than ``max_flow``) of the step's global
+    batch, and the last iteration's end-point error metrics ('epe', '1px',
+    '3px', '5px'). flow_preds (T, B, 2, H, W) as
+    ``compute_flow(all_iters=True)`` gives them, flow_gt (B, 2, H, W), valid
+    (B, H, W) -> (loss, metrics), scalar tensors."""
     v = (valid > 0.5) & (torch.linalg.vector_norm(flow_gt, dim=1) < max_flow)
     vf = v.to(flow_preds.dtype)
     n = flow_preds.shape[0]
     weights = gamma ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
                                     device=flow_preds.device)
-    denom = torch.clamp_min(vf.sum(), 1.0)
     l1 = torch.sum(torch.abs(flow_preds - flow_gt[None]), dim=2)  # (T, B, H, W)
-    loss = torch.sum(weights * torch.sum(l1 * vf[None], dim=(1, 2, 3)) / denom)
     epe = torch.where(v, torch.linalg.vector_norm(flow_preds[-1] - flow_gt, dim=1), 0.0)
-    metrics = {"epe": epe.sum() / denom}
-    for px in (1, 3, 5):
-        metrics[f"{px}px"] = ((epe < px) & v).sum() / denom
+    # one sum over the step's global batch (parallel.mesh.batch_sum): the
+    # per-iteration errors, the valid count and the metrics' counts
+    sums = batch_sum(torch.cat([
+        torch.sum(l1 * vf[None], dim=(1, 2, 3)),
+        torch.stack([vf.sum(), epe.sum().detach()]
+                    + [((epe < px) & v).sum().to(vf.dtype) for px in (1, 3, 5)])]))
+    denom = torch.clamp_min(sums[n], 1.0)
+    loss = torch.sum(weights * sums[:n] / denom)
+    metrics = {"epe": sums[n + 1] / denom}
+    for i, px in enumerate((1, 3, 5)):
+        metrics[f"{px}px"] = sums[n + 2 + i] / denom
     return loss, metrics

@@ -9,7 +9,7 @@
 - Fine-tuning: ``make_raft_train_state`` and ``make_raft_train_step``, the
   sequence loss over every iteration's flow under AdamW (optax's
   semantics) with a linear one-cycle learning rate, behind a global-norm
-  clip. Data parallel training is not ported."""
+  clip; data parallel over processes with a ``parallel.mesh.Mesh``."""
 
 from __future__ import annotations
 
@@ -154,17 +154,28 @@ def make_raft_train_state(cfg: RaftTrainConfig, restore_ckpt: Optional[str] = No
     return raft, ClippedAdamW(raft.parameters(), sched, cfg.clip, cfg.epsilon, cfg.weight_decay)
 
 
-def make_raft_train_step(raft, tx: ClippedAdamW, cfg: RaftTrainConfig):
+def make_raft_train_step(raft, tx: ClippedAdamW, cfg: RaftTrainConfig, mesh=None):
     """step(batch) -> (loss, metrics): one update of ``raft`` in place.
     batch: img1, img2 (B, 3, H, W) in [0, 1], flow (B, 2, H, W), valid (B,
-    H, W), on the network's device."""
+    H, W), on the network's device. With a ``mesh`` (``parallel.mesh``) the
+    batch is this rank's rows of the global batch: the loss and metrics are
+    the global batch's, and the gradients are averaged over the ranks
+    before the global-norm clip, as the gradient of the global loss is
+    clipped in one process."""
+    from nerf_kbs_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, global_batch
     from nerf_kbs_tpu_torch.process_data.networks.raft import sequence_loss
 
+    if mesh is None:  # one process: no collective
+        mesh = Mesh(0, 1, next(raft.parameters()).device, None)
+
     def step(batch: dict):
-        flows = raft.compute_flow(batch["img1"], batch["img2"], iters=cfg.iters, all_iters=True)
-        loss, metrics = sequence_loss(flows, batch["flow"], batch["valid"], cfg.gamma)
+        with global_batch(mesh):
+            flows = raft.compute_flow(batch["img1"], batch["img2"], iters=cfg.iters,
+                                      all_iters=True)
+            loss, metrics = sequence_loss(flows, batch["flow"], batch["valid"], cfg.gamma)
         tx.zero_grad()
         loss.backward()
+        all_reduce_grads(mesh, tx.params)
         tx.step()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 

@@ -203,6 +203,7 @@ def _steps_track_jax(method, argv, monkeypatch, prepare=None, both=False):
     NumPy tree) before both start from them. Returns the port's trainer, or
     with ``both`` (JAX's, the port's)."""
     monkeypatch.setattr(jnative, "_lib", False)  # the JAX datamanager's NumPy draws
+    monkeypatch.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     monkeypatch.setattr(jtrainer_mod, "make_mesh", lambda *a: make_mesh(jax.devices()[:1]))
     ov = _overrides(argv)
     jt = jcli.build_trainer(jcli.apply_overrides(jcli.method_registry[method](), ov))

@@ -228,6 +228,7 @@ def test_datamanager_batches_match_jax(scenes, monkeypatch, supervised):
     native sampler), and the eval images and eval batches; masks ride along
     as weights."""
     monkeypatch.setattr(jnative, "_lib", False)
+    monkeypatch.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     root = scenes[1]  # the port's files: the JAX loader reads them with PIL
     kw = dict(use_depth=True, depth_unit_scale_factor=1.0, semantics_dir=str(root / "sem"),
               mask_dir=str(root / "mask")) if supervised else {}

@@ -479,6 +479,7 @@ def test_render_trajectory_of_vanilla_nerf_carries_times_as_jax(vkitti_scene, tm
     without the cameras' times, which the port dropped before."""
     Image = pytest.importorskip("PIL.Image")
     monkeypatch.setattr(jnative, "_lib", False)
+    monkeypatch.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     monkeypatch.setattr(jtrainer_mod, "make_mesh", lambda *a: make_mesh(jax.devices()[:1]))
     argv = TINY_VANILLA + ["--dataparser.data_dir", str(vkitti_scene),
                            "--trainer.output_dir", str(tmp_path)]

@@ -213,6 +213,7 @@ def test_vkitti_datamanager_matches_jax(vkitti_scenes, monkeypatch):
     """Both datamanagers on the JAX-written scene (PIL's JPEGs, 16-bit PNG
     depth in centimetres): every train batch and eval image bit for bit."""
     monkeypatch.setattr(jnative, "_lib", False)
+    monkeypatch.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     scene = vkitti_scenes[1]
     kw = dict(data_dir=str(scene), train_split_fraction=0.75, use_depth=True)
     tm = TDM(tvk.VKittiDataParserConfig(**kw).parse("train"),

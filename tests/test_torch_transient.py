@@ -193,6 +193,7 @@ def trainers(scene, tmp_path_factory):
     same parameters."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jnative, "_lib", False)
+    mp.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     mp.setattr(jtrainer_mod, "make_mesh", lambda *a: make_mesh(jax.devices()[:1]))
     argv = _argv(scene, tmp_path_factory.mktemp("out"))
     ov = dict(zip([a[2:] for a in argv[::2]], argv[1::2]))
