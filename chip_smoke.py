@@ -1649,12 +1649,25 @@ RUN1_STEP = {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1, "fourier_mlp_
              "fourier_field_mlp_bwd_wgmma": 1}
 DP_STEPS = {"nerfacto-tpu": 5, "semantic-nerfw": 3}
 DP_WORLD = 2
-# world 2 against one process on the concatenated batch, in bf16 (PERF.md's
-# prediction, written before the first run): each rank's kernels sum the
-# weight gradients over half the points and gloo adds the halves, so the f32
-# sums round in another order; an Adam step moves a weight by lr * sign(g) at
-# first, and a gradient within rounding of zero can take the other sign
-DP_LOSS_RTOL = 1e-3
+# world 2 against one process on the concatenated batch, in bf16: each rank's
+# kernels sum the weight gradients over half the points and gloo adds the
+# halves, so the f32 sums round in another order. The losses' relative
+# distance read 8.4e-8 to 1.7e-6 over 5 steps (H100, PERF.md). The first
+# step's reduced gradients are held to one process's: their largest
+# elementwise distance relative to the step's largest gradient element, and
+# the ratio of their norms. Adam's update ignores a uniform scale of the
+# gradient, so the losses alone would not show a wrong division by the
+# world. nerfacto-tpu's per-point gradients are the same bits in both runs
+# (its losses are means over equal local batches: the scales are powers of
+# 2) and its weight gradients are f32 sums in the kernels; read 2.4e-7.
+# semantic-nerfw's split field runs the rgb and semantic heads as bf16
+# matrix products, whose weight gradients come out in bf16: each rank rounds
+# its half-batch sum to bf16 before gloo adds the halves, one process rounds
+# the whole sum once. Read 1.0e-3, at the rgb head's last weight, and norms
+# 8.7e-5 apart (H100, PERF.md).
+DP_LOSS_RTOL = 1e-5
+DP_GRAD_RTOL = {"nerfacto-tpu": 1e-5, "semantic-nerfw": 5e-3}
+DP_GRAD_NORM_RTOL = 1e-3
 DP_EVAL_ATOL = {"psnr": 0.05, "psnr_right": 0.05, "ssim": 2e-3}
 
 
@@ -1717,6 +1730,50 @@ def _dp_steps(trainer, steps: int, batches=None, collectives=None) -> dict:
     return rec
 
 
+class _FirstGradients:
+    """While installed, keeps the gradients that the trainer's first
+    ``all_reduce_grads`` call of each ``take`` leaves behind (the reduced
+    gradients, before the update), as host tensors (None where a leaf has
+    none)."""
+
+    def __init__(self):
+        from nerf_kbs_tpu_torch.engine import trainer as trainer_mod
+
+        self.module, self.real, self.grads = trainer_mod, trainer_mod.all_reduce_grads, None
+        trainer_mod.all_reduce_grads = self._call
+
+    def _call(self, mesh, params):
+        self.real(mesh, params)
+        if self.grads is None:
+            self.grads = [None if t.grad is None else t.grad.detach().float().cpu()
+                          for t in _leaf_values(params) if getattr(t, "requires_grad", False)]
+
+    def take(self) -> list:
+        out, self.grads = self.grads, None
+        return out
+
+    def remove(self) -> None:
+        self.module.all_reduce_grads = self.real
+
+
+def _grad_distance(got: list, want: list) -> dict:
+    """The largest elementwise distance of two gradient lists over the
+    largest element of ``want`` (and the leaf where it lies), and the ratio
+    of their norms."""
+    import torch
+
+    check([g is None for g in got] == [w is None for w in want], "other leaves have gradients")
+    pairs = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if w is not None]
+    scale = max(float(w.abs().max()) for _, _, w in pairs)
+    errs = [(float((g - w).abs().max()), i, w) for i, g, w in pairs]
+    err, leaf, w = max(errs, key=lambda e: e[0])
+    norm = (torch.sqrt(sum((g.double() ** 2).sum() for _, g, _ in pairs))
+            / torch.sqrt(sum((w.double() ** 2).sum() for _, _, w in pairs)))
+    return {"max_abs_err": err, "largest": scale, "rel": err / max(scale, 1e-30),
+            "norm_ratio": float(norm), "worst_leaf": {"index": leaf, "shape": list(w.shape),
+                                                      "largest": float(w.abs().max())}}
+
+
 def _params_digest(params) -> str:
     import hashlib
 
@@ -1744,13 +1801,16 @@ def dp_worker(rank: int, port: str, scene: str, out: str) -> int:
     t0 = time.perf_counter()
     info = multihost.initialize(f"localhost:{port}", DP_WORLD, rank)
     coll = _Collectives()
+    first = _FirstGradients()
     res = {"rank": rank, "init": info, "init_s": time.perf_counter() - t0,
            "backend": torch.distributed.get_backend()}
     for method, steps in DP_STEPS.items():
         spec = cli.apply_overrides(cli.method_registry[method](),
                                    _pairs(_dp_argv(scene, f"{out}/{method}", method)))
         trainer = cli.build_trainer(spec)
+        first.take()
         rec = _dp_steps(trainer, steps, collectives=coll)
+        torch.save(first.take(), Path(out, f"rank{rank}_{method}_grads.pt"))
         rec.update({"device": str(trainer.device), "world": trainer.mesh.world,
                     "rays_per_rank": trainer.dm.config.train_num_rays_per_batch,
                     "params": _params_digest(trainer.params)})
@@ -1763,7 +1823,7 @@ def dp_worker(rank: int, port: str, scene: str, out: str) -> int:
             leaves = [p for p in _leaf_values(trainer.params) if p.requires_grad]
             rec["grad_allreduce_ms"] = time_ms(lambda: M.all_reduce_grads(trainer.mesh,
                                                                           trainer.params), 10)
-            rec["grad_allreduce_bytes"] = 4 * (sum(p.numel() for p in leaves) + len(leaves))
+            rec["grad_allreduce_bytes"] = 4 * sum(p.numel() for p in leaves)
             metrics = rec["losses"][-1]
             rec["metrics_allreduce_ms"] = time_ms(lambda: M.mean_over_ranks(trainer.mesh, {
                 k: torch.tensor(v, device=trainer.device) for k, v in metrics.items()}), 10)
@@ -1777,6 +1837,7 @@ def dp_worker(rank: int, port: str, scene: str, out: str) -> int:
         del trainer
         torch.cuda.empty_cache()
     coll.remove()
+    first.remove()
     res["foreign_modules"] = [m for m in sys.modules if m.split(".")[0] in
                               ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu")]
     torch.distributed.destroy_process_group()
@@ -1805,25 +1866,20 @@ def _rank_batches(dm, step: int, world: int) -> dict:
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
-def _kernels_at_rank_n(records, rays: int) -> dict:
+def _kernels_at_rank_n(records, rank_n: dict) -> dict:
     """Kernels A to D against their plain versions at the point counts of
-    one rank's step (``rays`` rays of nerfacto-tpu; tri basis, bf16, no
-    position gradient, as the path runs them), on seeded weights."""
+    one rank's step of each two-process run (``rank_n``: method -> (its
+    spec, a rank's rays)), at the run's widths, on seeded weights (tri basis,
+    bf16, no position gradient, as the path runs them): A and C at every
+    proposal round's N; at the NeRF samples' N, B and D for nerfacto-tpu, A
+    and C at the base widths for semantic-nerfw's split field."""
     import torch
 
-    from nerf_kbs_tpu_torch.methods import nerfacto_tpu_method
     from nerf_kbs_tpu_torch.ops import fused_field as ff
     from nerf_kbs_tpu_torch.ops.encoding import fourier_encoding_init, sh_encoding
 
     dev = torch.device("cuda")
-    cfg = nerfacto_tpu_method().model_config()
     gen = torch.Generator().manual_seed(7)
-    pcfg, fcfg = cfg.proposal_field(0), cfg.field
-    pB, (pws, pbs) = fourier_encoding_init(pcfg.fourier, gen, dev), _weights(pcfg.mlp, gen, dev)
-    fB = fourier_encoding_init(fcfg.fourier, gen, dev)
-    (bws, bbs), (rws, rbs) = _weights(fcfg.base_mlp, gen, dev), _weights(fcfg.rgb_mlp, gen, dev)
-    mspec = ff.FusedMLPSpec(h_freqs=pB.shape[1], layer_dims=pcfg.mlp.dims, bf16=True,
-                            basis="tri")
 
     def rel(got, want):
         return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
@@ -1832,41 +1888,62 @@ def _kernels_at_rank_n(records, rays: int) -> dict:
         tol = BWD_TOLERANCE[("tri", True)]
         return float(((got - want).abs() > tol * want.abs().max()).float().mean())
 
-    found = {}
-    for n in sorted({rays * s for s in cfg.num_proposal_samples_per_ray}):
+    def mlp_pair(name, fcfg_fourier, mlp_cfg, n):
+        """A and C of one Fourier MLP at N = n: A's largest distance (abs),
+        C's weight gradients' (rel)."""
+        check(fcfg_fourier.basis == "tri", f"basis {fcfg_fourier.basis}: the check holds tri")
+        B = fourier_encoding_init(fcfg_fourier, gen, dev)
+        ws, bs = _weights(mlp_cfg, gen, dev)
+        spec = ff.FusedMLPSpec(h_freqs=B.shape[1], layer_dims=mlp_cfg.dims, bf16=True,
+                               basis="tri")
         x = torch.rand(3, n, generator=gen).to(dev)
-        err = float((ff.fourier_mlp(mspec, x, pB, pws, pbs)
-                     - ff.fourier_mlp_reference(x, pB, pws, pbs, "tri", True)).abs().max())
-        check(err <= TOLERANCE[("tri", True)], f"fourier_mlp_fwd at n={n}: err {err}")
-        found.setdefault("fourier_mlp_fwd", {})[n] = err
-        g = torch.randn(1, n, generator=gen).to(dev)
-        _, dws, dbs = ff._mlp_backward(mspec, x, pB, pws, pbs, g)
-        _, rws_, rbs_ = ff.fourier_mlp_backward_reference(x, pB, pws, pbs, g, "tri", True, False)
+        err = float((ff.fourier_mlp(spec, x, B, ws, bs)
+                     - ff.fourier_mlp_reference(x, B, ws, bs, "tri", True)).abs().max())
+        check(err <= TOLERANCE[("tri", True)], f"fourier_mlp_fwd{name} at n={n}: err {err}")
+        found.setdefault(f"fourier_mlp_fwd{name}", {})[n] = err
+        g = torch.randn(mlp_cfg.dims[-1], n, generator=gen).to(dev)
+        _, dws, dbs = ff._mlp_backward(spec, x, B, ws, bs, g)
+        _, rws_, rbs_ = ff.fourier_mlp_backward_reference(x, B, ws, bs, g, "tri", True, False)
         err = max(rel(a, b) for a, b in zip([*dws, *dbs], [*rws_, *rbs_]))
-        check(err <= SUM_TOLERANCE, f"fourier_mlp_bwd at n={n}: rel err {err}")
-        found.setdefault("fourier_mlp_bwd", {})[n] = err
-    n = rays * cfg.num_nerf_samples_per_ray
-    x = torch.rand(3, n, generator=gen).to(dev)
-    d = torch.randn(n, 3, generator=gen)
-    fe = sh_encoding(d / d.norm(dim=-1, keepdim=True)).T.contiguous().to(dev)
-    fspec = ff.FusedFieldSpec(h_freqs=fB.shape[1], feat_dim=fe.shape[0],
-                              base_dims=fcfg.base_mlp.dims, rgb_dims=fcfg.rgb_mlp.dims,
-                              bf16=True, basis="tri")
-    err = float((ff.fourier_field_mlp(fspec, x, fe, fB, bws, bbs, rws, rbs)
-                 - ff.fourier_field_reference(x, fe, fB, bws, bbs, rws, rbs, "tri",
-                                              True)).abs().max())
-    check(err <= TOLERANCE[("tri", True)], f"fourier_field_fwd at n={n}: err {err}")
-    found["fourier_field_fwd"] = {n: err}
-    g = torch.randn(4, n, generator=gen).to(dev)
-    got = ff._field_backward(fspec, x, fe, fB, bws, bbs, rws, rbs, g)[1:]
-    want = ff.fourier_field_backward_reference(x, fe, fB, bws, bbs, rws, rbs, g, "tri", True,
-                                               False)[1:]
-    err = max(rel(a, b) for a, b in zip(_leaf_values(list(got[1:])),
-                                         _leaf_values(list(want[1:]))))
-    out = outliers(got[0], want[0])
-    check(err <= SUM_TOLERANCE and out <= PER_POINT_OUTLIERS,
-          f"fourier_field_bwd at n={n}: rel err {err}, dfeats outliers {out}")
-    found["fourier_field_bwd"] = {n: err}
+        check(err <= SUM_TOLERANCE, f"fourier_mlp_bwd{name} at n={n}: rel err {err}")
+        found.setdefault(f"fourier_mlp_bwd{name}", {})[n] = err
+
+    found = {}
+    for spec, rays in rank_n.values():
+        cfg = spec.model_config()
+        for i, samples in enumerate(cfg.num_proposal_samples_per_ray):
+            pcfg = cfg.proposal_field(i)
+            mlp_pair("", pcfg.fourier, pcfg.mlp, rays * samples)
+        fcfg = cfg.field
+        n = rays * cfg.num_nerf_samples_per_ray
+        if fcfg.use_semantics:  # the split field: the base MLP alone in A and C
+            mlp_pair("_base", fcfg.fourier, fcfg.base_mlp, n)
+            continue
+        check(fcfg.fourier.basis == "tri", f"basis {fcfg.fourier.basis}: the check holds tri")
+        fB = fourier_encoding_init(fcfg.fourier, gen, dev)
+        (bws, bbs), (rws, rbs) = _weights(fcfg.base_mlp, gen, dev), _weights(fcfg.rgb_mlp, gen,
+                                                                             dev)
+        x = torch.rand(3, n, generator=gen).to(dev)
+        d = torch.randn(n, 3, generator=gen)
+        fe = sh_encoding(d / d.norm(dim=-1, keepdim=True)).T.contiguous().to(dev)
+        fspec = ff.FusedFieldSpec(h_freqs=fB.shape[1], feat_dim=fe.shape[0],
+                                  base_dims=fcfg.base_mlp.dims, rgb_dims=fcfg.rgb_mlp.dims,
+                                  bf16=True, basis="tri")
+        err = float((ff.fourier_field_mlp(fspec, x, fe, fB, bws, bbs, rws, rbs)
+                     - ff.fourier_field_reference(x, fe, fB, bws, bbs, rws, rbs, "tri",
+                                                  True)).abs().max())
+        check(err <= TOLERANCE[("tri", True)], f"fourier_field_fwd at n={n}: err {err}")
+        found.setdefault("fourier_field_fwd", {})[n] = err
+        g = torch.randn(4, n, generator=gen).to(dev)
+        got = ff._field_backward(fspec, x, fe, fB, bws, bbs, rws, rbs, g)[1:]
+        want = ff.fourier_field_backward_reference(x, fe, fB, bws, bbs, rws, rbs, g, "tri", True,
+                                                   False)[1:]
+        err = max(rel(a, b) for a, b in zip(_leaf_values(list(got[1:])),
+                                             _leaf_values(list(want[1:]))))
+        out = outliers(got[0], want[0])
+        check(err <= SUM_TOLERANCE and out <= PER_POINT_OUTLIERS,
+              f"fourier_field_bwd at n={n}: rel err {err}, dfeats outliers {out}")
+        found.setdefault("fourier_field_bwd", {})[n] = err
     for rec in records:
         if rec["name"] in found:
             rec["per_rank_n_max_err"] = {str(k): v for k, v in found[rec["name"]].items()}
@@ -1947,15 +2024,29 @@ def phase_parallel(records, scene: str) -> None:
                                         for m in DP_STEPS}})
 
     # one process on the concatenated batches
+    rank_n = {}
     for method, steps in DP_STEPS.items():
         spec = cli.apply_overrides(cli.method_registry[method](),
                                    _pairs(_dp_argv(scene, f"{out}/ref", method)))
         trainer = cli.build_trainer(spec)
         batches = [_rank_batches(trainer.dm, s, DP_WORLD) for s in range(steps)]
-        ref = _dp_steps(trainer, steps, batches)
+        first = _FirstGradients()
+        try:
+            ref = _dp_steps(trainer, steps, batches)
+            want_grads = first.take()
+        finally:
+            first.remove()
         a, b = ranks[0][method], ranks[1][method]
         check(a["losses"] == b["losses"] and a["params"] == b["params"],
               f"{method}: the ranks differ: {a['losses']} / {b['losses']}")
+        grads = [torch.load(Path(out, f"rank{r}_{method}_grads.pt")) for r in range(DP_WORLD)]
+        check(all((g is None and h is None) or torch.equal(g, h)
+                  for g, h in zip(grads[0], grads[1])), f"{method}: the ranks' gradients differ")
+        grad = _grad_distance(grads[0], want_grads)
+        check(grad["rel"] <= DP_GRAD_RTOL[method]
+              and abs(grad["norm_ratio"] - 1.0) <= DP_GRAD_NORM_RTOL,
+              f"{method}: world 2 vs 1 first gradients {grad}")
+        rank_n[method] = (spec, a["rays_per_rank"])
         check([x + y for x, y in zip(a["batch_sums"], b["batch_sums"])] == ref["batch_sums"],
               f"{method}: the ranks drew other batches than the reference")
         per_rank = RUN2_STEP if method == "semantic-nerfw" else RUN1_STEP
@@ -1967,6 +2058,8 @@ def phase_parallel(records, scene: str) -> None:
         rec = {"phase": "parallel_vs_one_process", "method": method, "steps": steps,
                "world": DP_WORLD, "rays_per_rank": a["rays_per_rank"],
                "loss_rel_err": rel, "loss_rtol": DP_LOSS_RTOL,
+               "first_grad_vs_one_process": grad, "grad_rtol": DP_GRAD_RTOL[method],
+               "grad_norm_rtol": DP_GRAD_NORM_RTOL,
                "world2_losses": [m["total_loss"] for m in a["losses"]],
                "world1_losses": [m["total_loss"] for m in ref["losses"]],
                "rank_median_step_ms": [r[method]["median_step_ms"] for r in ranks],
@@ -1992,16 +2085,32 @@ def phase_parallel(records, scene: str) -> None:
         emit(rec)
         del trainer
         torch.cuda.empty_cache()
-    found = _kernels_at_rank_n(records, ranks[0]["nerfacto-tpu"]["rays_per_rank"])
+    found = _kernels_at_rank_n(records, rank_n)
     emit({"phase": "parallel_kernels_at_rank_n", "max_err": {
         k: {str(n): e for n, e in v.items()} for k, v in found.items()}})
 
 
+def numpy_draw(images, batch: int, seed: int, depths=None) -> dict:
+    """The plain version of the host sampler's draw: uniform (camera, row,
+    column) from a NumPy generator, the pixels' rgb in [0, 1] and depth. Its
+    random streams differ from the sampler's; it is timed beside it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, h, w, _ = images.shape
+    cam, row, col = rng.integers(0, n, batch), rng.integers(0, h, batch), rng.integers(0, w, batch)
+    out = {"ray_indices": np.stack([cam, row, col], -1).astype(np.int32),
+           "image": images[cam, row, col].astype(np.float32) / 255.0}
+    if depths is not None:
+        out["depth_image"] = depths[cam, row, col].astype(np.float32)[:, None]
+    return out
+
+
 def phase_native_sampler(scene: str) -> None:
     """The host sampler on the street scene's train assets (6 frames of
-    376x1241 with depth and masks, 4,096 rays): the right pixels,
-    deterministic at this process's thread count, other draws for another
-    seed; host ms against the NumPy draw, on the card's host."""
+    376x1241 with depth, 4,096 rays, as the datamanager calls it): the right
+    pixels, deterministic at this process's thread count, other draws for
+    another seed; host ms against ``numpy_draw``, on the card's host."""
     import os
 
     import numpy as np
@@ -2010,7 +2119,6 @@ def phase_native_sampler(scene: str) -> None:
     from nerf_kbs_tpu_torch import native
     from nerf_kbs_tpu_torch.data.datamanager import InMemoryDataManager
     from nerf_kbs_tpu_torch.engine import cli
-    from nerf_kbs_tpu_torch.native import lib
 
     spec = cli.apply_overrides(cli.method_registry["semantic-nerfw"](),
                                _pairs(_dp_argv(scene, tempfile.mkdtemp(), "semantic-nerfw")))
@@ -2019,25 +2127,27 @@ def phase_native_sampler(scene: str) -> None:
                              spec.datamanager)
     load_s = time.perf_counter() - t0
     a = dm.train_assets
-    imgs, depths, masks = a["images"], a["depths"], a["masks"]
+    imgs, depths = a["images"], a["depths"]
     t0 = time.perf_counter()
     check(native.available(), "native sampler")
     build_s = time.perf_counter() - t0
     b = 4096
-    got = native.sample_ray_batch(imgs, b, seed=5, depths=depths, masks=masks)
+    got = native.sample_ray_batch(imgs, b, seed=5, depths=depths)
     cam, row, col = got["ray_indices"].T.astype(np.int64)
     check(got["ray_indices"].shape == (b, 3) and cam.max() < imgs.shape[0]
           and row.max() < imgs.shape[1] and col.max() < imgs.shape[2], "indices out of range")
     # the library scales by the f32 reciprocal of 255
     inv255 = np.float32(1.0) / np.float32(255.0)
     check(np.array_equal(got["image"], imgs[cam, row, col].astype(np.float32) * inv255)
-          and np.array_equal(got["depth_image"][:, 0], depths[cam, row, col])
-          and np.array_equal(got["mask"][:, 0], (masks[cam, row, col] != 0).astype(np.float32)),
+          and np.array_equal(got["depth_image"][:, 0], depths[cam, row, col]),
           "the sampler gathered other pixels")
-    again = native.sample_ray_batch(imgs, b, seed=5, depths=depths, masks=masks)
-    other = native.sample_ray_batch(imgs, b, seed=6, depths=depths, masks=masks)
+    again = native.sample_ray_batch(imgs, b, seed=5, depths=depths)
+    other = native.sample_ray_batch(imgs, b, seed=6, depths=depths)
     check(all(np.array_equal(got[k], again[k]) for k in got), "not deterministic")
     check(not np.array_equal(got["ray_indices"], other["ray_indices"]), "seed ignored")
+    plain = numpy_draw(imgs, b, 5, depths)
+    check(set(plain) == set(got) and all(plain[k].shape == got[k].shape for k in got),
+          "the plain draw's layout")
 
     def median_ms(fn, reps=21):
         ts = []
@@ -2047,26 +2157,13 @@ def phase_native_sampler(scene: str) -> None:
             ts.append((time.perf_counter() - t) * 1e3)
         return sorted(ts)[reps // 2]
 
-    calls = {"datamanager_call": lambda: native.sample_ray_batch(imgs, b, 1, depths=depths),
-             "with_mask_rejection": lambda: native.sample_ray_batch(imgs, b, 1, depths=depths,
-                                                                    masks=masks)}
-    native_ms = {k: median_ms(fn) for k, fn in calls.items()}
-    next_train_ms = median_ms(lambda: dm.next_train(3))
-    saved = lib._lib
-    lib._lib = False
-    try:
-        numpy_ms = {k: median_ms(fn) for k, fn in calls.items()}
-        numpy_next_train_ms = median_ms(lambda: dm.next_train(3))
-    finally:
-        lib._lib = saved
     emit({"phase": "native_sampler", "clock": "host (the card's machine), not the device",
           "frames": list(imgs.shape), "rays": b, "os_cpu_count": os.cpu_count(),
           "omp_num_threads": os.environ.get("OMP_NUM_THREADS"),
           "assets_load_s": load_s, "build_or_load_s": build_s,
-          "mask_share_drawn": float(got["mask"].mean()),
-          "mask_share_of_pixels": float((masks != 0).mean()),
-          "native_ms": native_ms, "numpy_ms": numpy_ms,
-          "next_train_ms": {"native": next_train_ms, "numpy": numpy_next_train_ms}})
+          "native_ms": median_ms(lambda: native.sample_ray_batch(imgs, b, 1, depths=depths)),
+          "numpy_ms": median_ms(lambda: numpy_draw(imgs, b, 1, depths)),
+          "next_train_ms": median_ms(lambda: dm.next_train(3))})
 
 
 # ---------------------------------------------------------------------------

@@ -105,11 +105,10 @@ class InMemoryDataManager:
     def next_train(self, step: int) -> dict:
         """The batch of ``step``: uniform (camera, row, col) draws from the
         host sampler (``native.sample_ray_batch``, seed ``seed * 1_000_003 +
-        step``; the NumPy draw of ``default_rng`` of that seed with
-        ``native.lib._lib = False``), as the JAX package's datamanager draws
-        them. Mask values ride along as supervision weights; masked pixels
-        are not rejected. Depth comes from the sampler, masks and semantic
-        labels are gathered at the drawn pixels."""
+        step``), as the JAX package's datamanager draws them. Mask values
+        ride along as supervision weights; masked pixels are not rejected.
+        Depth comes from the sampler, masks and semantic labels are gathered
+        at the drawn pixels."""
         a = self.train_assets
         batch = native.sample_ray_batch(a["images"], self.config.train_num_rays_per_batch,
                                         seed=self.config.seed * 1_000_003 + step,

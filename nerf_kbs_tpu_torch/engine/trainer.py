@@ -179,7 +179,7 @@ class Trainer:
 
     # ----------------------------------------------------------------- step
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+        return shard_batch(self.mesh, batch)
 
     def train_step(self, batch: dict, jitters=None) -> dict:
         """One update from this rank's rows of the global batch (NumPy

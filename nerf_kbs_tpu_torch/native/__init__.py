@@ -1,8 +1,8 @@
-"""The host sampler: uniform pixel batches, index shuffles and row gathers
-in C++ with OpenMP, loaded with ctypes (``lib.py``) and built with g++ at
-first use (``build.py``). ``data.datamanager`` draws every training batch
-with ``sample_ray_batch``, as the JAX package's datamanager does."""
+"""The host sampler: uniform pixel batches in C++ with OpenMP, loaded with
+ctypes (``lib.py``) and built with g++ at first use (``build.py``).
+``data.datamanager`` draws every training batch with ``sample_ray_batch``,
+as the JAX package's datamanager does."""
 
-from nerf_kbs_tpu_torch.native.lib import available, gather_rows, sample_ray_batch, shuffle_indices
+from nerf_kbs_tpu_torch.native.lib import available, sample_ray_batch
 
-__all__ = ["available", "gather_rows", "sample_ray_batch", "shuffle_indices"]
+__all__ = ["available", "sample_ray_batch"]

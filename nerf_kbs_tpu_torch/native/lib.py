@@ -1,12 +1,11 @@
 """ctypes bindings of the host sampler (``ray_sampler.cpp``), the
 counterpart of the JAX package's ``native/lib.py``.
 
-The library is built at first use (``build.py``); a failed build raises.
-``_lib`` holds the loaded library; setting it to ``False`` selects the NumPy
-draw instead, which has the same semantics (uniform camera, row, column;
-64-try rejection of masked pixels) but other random streams. The JAX
-package's NumPy draw is the same code, so two datamanagers with ``_lib =
-False`` on both sides draw equal batches.
+The library is built at first use (``build.py``); a failed build raises,
+and nothing falls back to another draw. Only what the datamanager calls is
+ported: ``sample_ray_batch`` with optional depths. The JAX package's
+``shuffle_indices``, ``gather_rows`` and masked-pixel rejection have no
+caller there and are not ported (``ROADMAP.md``, "Not to port").
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+ABI_VERSION = 2
 
 
 def _load():
@@ -29,25 +29,21 @@ def _load():
     from nerf_kbs_tpu_torch.native.build import build
 
     lib = ctypes.CDLL(str(build()))
-    lib.sample_ray_batch.argtypes = [_P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_uint64,
-                                     _P, _P, _P, _P]
+    lib.sample_ray_batch.argtypes = [_P, _P, _I64, _I64, _I64, _I64, ctypes.c_uint64, _P, _P, _P]
     lib.sample_ray_batch.restype = None
-    lib.shuffle_indices.argtypes = [_P, _I64, ctypes.c_uint64]
-    lib.shuffle_indices.restype = None
-    lib.gather_rows_f32.argtypes = [_P, _P, _I64, _I64, _P]
-    lib.gather_rows_f32.restype = None
     lib.nkt_native_abi_version.argtypes = []
     lib.nkt_native_abi_version.restype = ctypes.c_int
-    if lib.nkt_native_abi_version() != 1:
-        raise RuntimeError(f"native sampler ABI {lib.nkt_native_abi_version()}, expected 1")
+    if lib.nkt_native_abi_version() != ABI_VERSION:
+        raise RuntimeError(f"native sampler ABI {lib.nkt_native_abi_version()}, "
+                           f"expected {ABI_VERSION}")
     _lib = lib
     return _lib
 
 
 def available() -> bool:
-    """Whether the native library is in use (built and loaded, not switched
-    off with ``_lib = False``)."""
-    return bool(_load())
+    """Whether the library is built and loaded (it is built here when
+    missing; a failed build raises)."""
+    return _load() is not None
 
 
 def _ptr(a: Optional[np.ndarray]):
@@ -55,86 +51,27 @@ def _ptr(a: Optional[np.ndarray]):
 
 
 def sample_ray_batch(images: np.ndarray, batch: int, seed: int,
-                     depths: Optional[np.ndarray] = None,
-                     masks: Optional[np.ndarray] = None) -> dict:
-    """``batch`` random pixels of an (N, H, W, 3) uint8 image stack:
-    {'ray_indices' (B, 3) int32 (camera, row, col), 'image' (B, 3) f32 in
-    [0, 1], with depths (N, H, W) also 'depth_image' (B, 1), with masks (N,
-    H, W) also 'mask' (B, 1) in {0, 1}}. Masked-out pixels are drawn again,
-    up to 64 times. Deterministic in ``seed`` at a fixed OpenMP thread
-    count."""
+                     depths: Optional[np.ndarray] = None) -> dict:
+    """``batch`` uniform random pixels (camera, row, column) of an (N, H, W,
+    3) uint8 image stack: {'ray_indices' (B, 3) int32, 'image' (B, 3) f32 in
+    [0, 1], with depths (N, H, W) also 'depth_image' (B, 1) f32}.
+    Deterministic in ``seed`` at a fixed OpenMP thread count; the JAX
+    package's native sampler draws the same pixels at the same count."""
     lib = _load()
     n, h, w, _ = images.shape
-    if lib:
-        if not (images.flags.c_contiguous and images.dtype == np.uint8):
-            raise ValueError("images must be a C-contiguous uint8 (N, H, W, 3) array")
-        # the C ABI reads raw row-major buffers: coerce dtype and layout here
-        if depths is not None:
-            depths = np.ascontiguousarray(depths, dtype=np.float32)
-            if depths.shape != (n, h, w):
-                raise ValueError(f"depths {depths.shape}, expected {(n, h, w)}")
-        if masks is not None:
-            masks = np.ascontiguousarray(np.asarray(masks) != 0, dtype=np.uint8)
-            if masks.shape != (n, h, w):
-                raise ValueError(f"masks {masks.shape}, expected {(n, h, w)}")
-        ray_indices = np.empty((batch, 3), np.int32)
-        rgb = np.empty((batch, 3), np.float32)
-        depth = np.empty((batch,), np.float32)
-        mask = np.empty((batch,), np.float32)
-        lib.sample_ray_batch(_ptr(images), _ptr(depths), _ptr(masks), n, h, w, batch,
-                             ctypes.c_uint64(seed), _ptr(ray_indices), _ptr(rgb), _ptr(depth),
-                             _ptr(mask))
-    else:
-        rng = np.random.default_rng(seed)
-        cam = rng.integers(0, n, batch)
-        row = rng.integers(0, h, batch)
-        col = rng.integers(0, w, batch)
-        if masks is not None:
-            mb = np.asarray(masks) != 0
-            bad = ~mb[cam, row, col]
-            for _ in range(64):
-                k = int(bad.sum())
-                if k == 0:
-                    break
-                cam[bad] = rng.integers(0, n, k)
-                row[bad] = rng.integers(0, h, k)
-                col[bad] = rng.integers(0, w, k)
-                bad = ~mb[cam, row, col]
-            mask = mb[cam, row, col].astype(np.float32)
-        else:
-            mask = np.ones(batch, np.float32)
-        ray_indices = np.stack([cam, row, col], -1).astype(np.int32)
-        rgb = images[cam, row, col].astype(np.float32) / 255.0
-        depth = (depths[cam, row, col].astype(np.float32) if depths is not None
-                 else np.zeros(batch, np.float32))
+    if not (images.flags.c_contiguous and images.dtype == np.uint8):
+        raise ValueError("images must be a C-contiguous uint8 (N, H, W, 3) array")
+    # the C ABI reads raw row-major buffers: coerce dtype and layout here
+    if depths is not None:
+        depths = np.ascontiguousarray(depths, dtype=np.float32)
+        if depths.shape != (n, h, w):
+            raise ValueError(f"depths {depths.shape}, expected {(n, h, w)}")
+    ray_indices = np.empty((batch, 3), np.int32)
+    rgb = np.empty((batch, 3), np.float32)
+    depth = np.empty((batch, 1), np.float32) if depths is not None else None
+    lib.sample_ray_batch(_ptr(images), _ptr(depths), n, h, w, batch, ctypes.c_uint64(seed),
+                         _ptr(ray_indices), _ptr(rgb), _ptr(depth))
     out = {"ray_indices": ray_indices, "image": rgb}
     if depths is not None:
-        out["depth_image"] = depth[:, None]
-    if masks is not None:
-        out["mask"] = mask[:, None]
+        out["depth_image"] = depth
     return out
-
-
-def shuffle_indices(count: int, seed: int) -> np.ndarray:
-    """A permutation of range(count) (int64), Fisher-Yates on one
-    xorshift128+ stream."""
-    lib = _load()
-    idx = np.arange(count, dtype=np.int64)
-    if lib:
-        lib.shuffle_indices(_ptr(idx), count, ctypes.c_uint64(seed))
-        return idx
-    return np.random.default_rng(seed).permutation(count)
-
-
-def gather_rows(src: np.ndarray, perm: np.ndarray) -> np.ndarray:
-    """src[perm]; rows of a C-contiguous float32 matrix are copied by the
-    library, in parallel."""
-    lib = _load()
-    if lib and src.dtype == np.float32 and src.flags.c_contiguous and src.ndim == 2:
-        perm = np.ascontiguousarray(perm, dtype=np.int64)
-        if len(perm) and (perm.min() < 0 or perm.max() >= src.shape[0]):
-            raise IndexError(f"row index out of range for {src.shape[0]} rows")
-        out = np.empty((len(perm), src.shape[1]), np.float32)
-        lib.gather_rows_f32(_ptr(src), _ptr(perm), len(perm), src.shape[1], _ptr(out))
-        return out
-    return src[perm]

@@ -2,17 +2,17 @@
 // lib.py next to this file.
 //
 // It assembles the (camera, row, col) index triples of a training batch and
-// gathers their supervision pixels (rgb, depth, mask) on the host, in
-// parallel and outside the interpreter lock. It keeps the C ABI and the
-// arithmetic of the JAX package's native sampler, so both draw the same
-// batches at the same OpenMP thread count: each thread seeds its own
-// xorshift128+ with seed * 0x100000001b3 + thread id and takes a static
-// share of the batch, so the draws depend on the thread count.
+// gathers their supervision pixels (rgb, depth) on the host, in parallel and
+// outside the interpreter lock. It keeps the arithmetic of the JAX package's
+// native sampler without masks, so both draw the same batches at the same
+// OpenMP thread count: each thread seeds its own xorshift128+ with
+// seed * 0x100000001b3 + thread id and takes a static share of the batch, so
+// the draws depend on the thread count. The JAX sampler's masked-pixel
+// rejection, index shuffle and row gather have no caller and are not here.
 //
 // Build: build.py (g++ -O3 -march=native -fopenmp -shared -fPIC -std=c++17).
 
 #include <cstdint>
-#include <cstring>
 
 #if defined(_OPENMP)
 #include <omp.h>
@@ -52,20 +52,16 @@ struct XorShift128 {
 
 extern "C" {
 
-// Sample `batch` random pixels from an image stack.
+// Sample `batch` uniform random pixels from an image stack.
 //   images:  (n, h, w, 3) uint8
 //   depths:  (n, h, w) float32 or nullptr
-//   masks:   (n, h, w) uint8 (1 = usable) or nullptr; masked-out pixels are
-//            rejected and resampled (up to 64 tries, then accepted anyway)
 // Outputs (preallocated by the caller):
-//   ray_indices: (batch, 3) int32
+//   ray_indices: (batch, 3) int32 (camera, row, col)
 //   rgb:         (batch, 3) float32 in [0, 1]
-//   depth_out:   (batch,) float32 (0 when depths == nullptr)
-//   mask_out:    (batch,) float32
-void sample_ray_batch(const uint8_t* images, const float* depths,
-                      const uint8_t* masks, int64_t n, int64_t h, int64_t w,
-                      int64_t batch, uint64_t seed, int32_t* ray_indices,
-                      float* rgb, float* depth_out, float* mask_out) {
+//   depth_out:   (batch,) float32, or nullptr when depths == nullptr
+void sample_ray_batch(const uint8_t* images, const float* depths, int64_t n,
+                      int64_t h, int64_t w, int64_t batch, uint64_t seed,
+                      int32_t* ray_indices, float* rgb, float* depth_out) {
   const int64_t hw = h * w;
 #pragma omp parallel
   {
@@ -77,52 +73,22 @@ void sample_ray_batch(const uint8_t* images, const float* depths,
     XorShift128 prng(seed * 0x100000001b3ULL + static_cast<uint64_t>(tid));
 #pragma omp for schedule(static)
     for (int64_t i = 0; i < batch; ++i) {
-      int64_t cam = 0, row = 0, col = 0;
-      float mval = 1.0f;
-      for (int attempt = 0; attempt < 64; ++attempt) {
-        cam = prng.below(static_cast<uint32_t>(n));
-        row = prng.below(static_cast<uint32_t>(h));
-        col = prng.below(static_cast<uint32_t>(w));
-        if (!masks) break;
-        if (masks[cam * hw + row * w + col]) break;
-        mval = 0.0f;
-      }
-      if (masks) mval = masks[cam * hw + row * w + col] ? 1.0f : 0.0f;
+      const int64_t cam = prng.below(static_cast<uint32_t>(n));
+      const int64_t row = prng.below(static_cast<uint32_t>(h));
+      const int64_t col = prng.below(static_cast<uint32_t>(w));
+      const int64_t pix = cam * hw + row * w + col;
       ray_indices[i * 3 + 0] = static_cast<int32_t>(cam);
       ray_indices[i * 3 + 1] = static_cast<int32_t>(row);
       ray_indices[i * 3 + 2] = static_cast<int32_t>(col);
-      const uint8_t* px = images + (cam * hw + row * w + col) * 3;
+      const uint8_t* px = images + pix * 3;
       rgb[i * 3 + 0] = px[0] * (1.0f / 255.0f);
       rgb[i * 3 + 1] = px[1] * (1.0f / 255.0f);
       rgb[i * 3 + 2] = px[2] * (1.0f / 255.0f);
-      depth_out[i] = depths ? depths[cam * hw + row * w + col] : 0.0f;
-      mask_out[i] = mval;
+      if (depths) depth_out[i] = depths[pix];
     }
   }
 }
 
-// Fisher-Yates shuffle of an int64 permutation buffer (chunk reshuffling,
-// the analog of dataset_z.py:158-160's randperm per pass).
-void shuffle_indices(int64_t* indices, int64_t count, uint64_t seed) {
-  XorShift128 prng(seed);
-  for (int64_t i = count - 1; i > 0; --i) {
-    int64_t j = static_cast<int64_t>(prng.next() % static_cast<uint64_t>(i + 1));
-    int64_t tmp = indices[i];
-    indices[i] = indices[j];
-    indices[j] = tmp;
-  }
-}
-
-// Gather rows from a float32 matrix: out[i] = src[perm[i]] (chunk assembly).
-void gather_rows_f32(const float* src, const int64_t* perm, int64_t count,
-                     int64_t row_width, float* out) {
-#pragma omp parallel for schedule(static)
-  for (int64_t i = 0; i < count; ++i) {
-    std::memcpy(out + i * row_width, src + perm[i] * row_width,
-                sizeof(float) * static_cast<size_t>(row_width));
-  }
-}
-
-int nkt_native_abi_version() { return 1; }
+int nkt_native_abi_version() { return 2; }
 
 }  // extern "C"

@@ -139,31 +139,19 @@ def replicate(mesh: Mesh, tree):
 
 @torch.no_grad()
 def all_reduce_grads(mesh: Mesh, params) -> None:
-    """Every trainable leaf's ``.grad`` replaced by the mean of the ranks'
-    gradients: one flat all-reduce (sum) per dtype, then / world. A leaf
-    without a gradient on a rank counts as zero there; a leaf without a
-    gradient on every rank keeps ``grad = None`` (the optimizers skip it), so
-    the step treats gradients as one process on the global batch does."""
+    """Every leaf's ``.grad`` replaced by the mean of the ranks' gradients:
+    one flat all-reduce (sum) per dtype, then / world. Every rank runs the
+    same graph on rows of one shape, so the leaves with a gradient are the
+    same on every rank; leaves without one (None) are left alone."""
     if mesh.group is None:
         return
-    leaves = [p for p in _leaves(params) if p.requires_grad]
+    leaves = [p for p in _leaves(params) if p.grad is not None]
     for group in _by_dtype(leaves).values():
-        dev, dtype = group[0].device, group[0].dtype
-        local = [p.grad is not None for p in group]
-        parts = [p.grad.reshape(-1) if p.grad is not None
-                 else torch.zeros(p.numel(), dtype=dtype, device=dev) for p in group]
-        # one presence flag per leaf (an exact small integer after the sum);
-        # read back on the host only when this rank lacks a gradient, so that
-        # the common step makes no host synchronisation
-        flags = (torch.ones(len(group), dtype=dtype, device=dev) if all(local)
-                 else torch.tensor(local, dtype=dtype).to(dev))
-        flat = _all_reduce_(mesh, torch.cat(parts + [flags]))
-        flat[:-len(group)].div_(mesh.world)
-        present = local if all(local) else (flat[-len(group):] > 0).tolist()
+        flat = _all_reduce_(mesh, torch.cat([p.grad.reshape(-1) for p in group]))
+        flat.div_(mesh.world)
         off = 0
-        for p, have in zip(group, present):
-            if have:
-                p.grad = flat[off:off + p.numel()].view_as(p)
+        for p in group:
+            p.grad = flat[off:off + p.numel()].view_as(p)
             off += p.numel()
 
 

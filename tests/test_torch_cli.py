@@ -21,7 +21,6 @@ import nerf_kbs_tpu.methods  # noqa: F401  (registers the JAX methods)
 from nerf_kbs_tpu.data import synthetic_kitti as jsk
 from nerf_kbs_tpu.engine import cli as jcli
 from nerf_kbs_tpu.engine import trainer as jtrainer_mod
-from nerf_kbs_tpu.native import lib as jnative
 from nerf_kbs_tpu.parallel.mesh import make_mesh, shard_batch
 from nerf_kbs_tpu_torch import methods as tmethods
 from nerf_kbs_tpu_torch.convert import params_from_jax
@@ -202,8 +201,6 @@ def _steps_track_jax(method, argv, monkeypatch, prepare=None, both=False):
     after the three steps. ``prepare`` may change the JAX parameters (a
     NumPy tree) before both start from them. Returns the port's trainer, or
     with ``both`` (JAX's, the port's)."""
-    monkeypatch.setattr(jnative, "_lib", False)  # the JAX datamanager's NumPy draws
-    monkeypatch.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     monkeypatch.setattr(jtrainer_mod, "make_mesh", lambda *a: make_mesh(jax.devices()[:1]))
     ov = _overrides(argv)
     jt = jcli.build_trainer(jcli.apply_overrides(jcli.method_registry[method](), ov))

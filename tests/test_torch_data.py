@@ -14,7 +14,6 @@ from nerf_kbs_tpu.cameras import poses as jposes
 from nerf_kbs_tpu.data import datamanager as jdm
 from nerf_kbs_tpu.data import synthetic_kitti as jsk
 from nerf_kbs_tpu.data.dataparsers import kitti as jkitti
-from nerf_kbs_tpu.native import lib as jnative
 from nerf_kbs_tpu_torch.cameras import poses as tposes
 from nerf_kbs_tpu_torch.data import datamanager as tdm
 from nerf_kbs_tpu_torch.data import synthetic_kitti as tsk
@@ -224,11 +223,9 @@ def test_kitti_parser_window_errors(scenes):
 
 @pytest.mark.parametrize("supervised", [False, True])
 def test_datamanager_batches_match_jax(scenes, monkeypatch, supervised):
-    """next_train(step) against the JAX datamanager on its NumPy path (no
-    native sampler), and the eval images and eval batches; masks ride along
+    """next_train(step) against the JAX datamanager, both on their native
+    draws, and the eval images and eval batches; masks ride along
     as weights."""
-    monkeypatch.setattr(jnative, "_lib", False)
-    monkeypatch.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     root = scenes[1]  # the port's files: the JAX loader reads them with PIL
     kw = dict(use_depth=True, depth_unit_scale_factor=1.0, semantics_dir=str(root / "sem"),
               mask_dir=str(root / "mask")) if supervised else {}

@@ -33,7 +33,6 @@ from nerf_kbs_tpu.engine import cli as jcli
 from nerf_kbs_tpu.engine import render as jrender
 from nerf_kbs_tpu.engine import trainer as jtrainer_mod
 from nerf_kbs_tpu.engine import viewer as jviewer
-from nerf_kbs_tpu.native import lib as jnative
 from nerf_kbs_tpu.parallel.mesh import make_mesh
 from nerf_kbs_tpu_torch.cameras.cameras import Cameras as TCameras
 from nerf_kbs_tpu_torch.data import synthetic_kitti as tsk
@@ -478,8 +477,6 @@ def test_render_trajectory_of_vanilla_nerf_carries_times_as_jax(vkitti_scene, tm
     of 255 of JAX's (PIL writes JAX's), and differ from the frames rendered
     without the cameras' times, which the port dropped before."""
     Image = pytest.importorskip("PIL.Image")
-    monkeypatch.setattr(jnative, "_lib", False)
-    monkeypatch.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     monkeypatch.setattr(jtrainer_mod, "make_mesh", lambda *a: make_mesh(jax.devices()[:1]))
     argv = TINY_VANILLA + ["--dataparser.data_dir", str(vkitti_scene),
                            "--trainer.output_dir", str(tmp_path)]

@@ -1,9 +1,8 @@
 """Port vs JAX package, the host sampler (``nerf_kbs_tpu_torch.native``):
-``sample_ray_batch`` (with and without depths and masks), ``shuffle_indices``
-and ``gather_rows`` bit for bit against ``nerf_kbs_tpu.native.lib`` at 1 and
-4 OpenMP threads (one subprocess per count: the runtime reads the count
-when it starts), the NumPy draw against JAX's, the datamanager's default
-batches against JAX's, and a failed build. About 10 s."""
+``sample_ray_batch`` with and without depths bit for bit against
+``nerf_kbs_tpu.native.lib`` at 1 and 4 OpenMP threads (one subprocess per
+count: the runtime reads the count when it starts), the datamanager's
+default batches against JAX's, and a failed build. About 6 s."""
 
 import os
 import subprocess
@@ -35,21 +34,17 @@ from nerf_kbs_tpu_torch.native import lib as tn
 rng = np.random.default_rng(0)
 imgs = rng.integers(0, 256, (3, 17, 23, 3), dtype=np.uint8)
 depths = rng.uniform(1, 5, (3, 17, 23))  # float64: both coerce to float32
-masks = (rng.uniform(size=(3, 17, 23)) < 0.3).astype(np.uint8) * 255
-src = rng.normal(size=(500, 7)).astype(np.float32)
 out = {}
 for name, lib in (("jax", jn), ("port", tn)):
     assert lib.available()
-    for case, kw in (("plain", {}), ("depth", {"depths": depths}),
-                     ("mask", {"masks": masks}), ("both", {"depths": depths, "masks": masks})):
+    for case, kw in (("plain", {}), ("depth", {"depths": depths})):
         for seed in (7, 2**63 + 5):
             got = lib.sample_ray_batch(imgs, 1000, seed, **kw)
+            if case == "plain":  # the JAX sampler writes zero depths without depths
+                got.pop("depth_image", None)
             for k, v in got.items():
                 out[f"{name}/{case}/{seed}/{k}"] = v
-    perm = lib.shuffle_indices(500, 11)
-    out[f"{name}/perm"] = perm
-    out[f"{name}/gather"] = lib.gather_rows(src, perm)
-np.savez(sys.argv[1], **out)
+np.savez(sys.argv[1], imgs=imgs, depths=depths, **out)
 """
 
 
@@ -78,17 +73,33 @@ def draws(tmp_path_factory):
 def test_native_matches_jax_bit_for_bit(draws, threads):
     d = draws[threads]
     keys = [k[len("jax/"):] for k in d if k.startswith("jax/")]
-    assert len(keys) == 2 + 4 * 2 * 2 + 2 * 2 * 2  # perm, gather, ids+rgb, depth, mask
+    assert len(keys) == 2 * 2 * 2 + 2  # ids and rgb of both cases and seeds, depths
     for k in keys:
         want, got = d[f"jax/{k}"], d[f"port/{k}"]
         assert got.dtype == want.dtype and got.shape == want.shape, k
         np.testing.assert_array_equal(got, want, err_msg=k)
-    ids = d["port/both/7/ray_indices"]
+    assert {k.split("/")[-1] for k in d if k.startswith("port/plain/")} == {"ray_indices",
+                                                                           "image"}
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_native_gathers_the_drawn_pixels(draws, threads):
+    """Every draw lies in the stack, and its rgb and depth are the drawn
+    pixel's (rgb times the f32 reciprocal of 255, as the library scales)."""
+    d = draws[threads]
+    imgs, depths = d["imgs"], d["depths"].astype(np.float32)
+    ids = d["port/depth/7/ray_indices"]
     assert ids.shape == (1000, 3) and ids.dtype == np.int32
-    assert set(np.unique(d["port/both/7/mask"])) <= {0.0, 1.0}
-    # masked pixels are drawn again: the masked draw keeps far more usable pixels
-    assert d["port/mask/7/mask"].mean() > 0.9
-    assert sorted(d["port/perm"]) == list(range(500))
+    cam, row, col = ids.T.astype(np.int64)
+    assert cam.min() >= 0 and row.min() >= 0 and col.min() >= 0
+    assert cam.max() < 3 and row.max() < 17 and col.max() < 23
+    inv255 = np.float32(1.0) / np.float32(255.0)
+    np.testing.assert_array_equal(d["port/depth/7/image"],
+                                  imgs[cam, row, col].astype(np.float32) * inv255)
+    np.testing.assert_array_equal(d["port/depth/7/depth_image"][:, 0], depths[cam, row, col])
+    # every camera, row and column is reached; the seed changes the draw
+    assert len(np.unique(cam)) == 3 and len(np.unique(col)) == 23
+    assert not np.array_equal(ids, d[f"port/depth/{2**63 + 5}/ray_indices"])
 
 
 def test_native_draws_depend_on_the_thread_count(draws):
@@ -100,24 +111,21 @@ def test_native_draws_depend_on_the_thread_count(draws):
     np.testing.assert_array_equal(one[:10], four[:10])
 
 
-@pytest.mark.parametrize("with_masks", [False, True])
-def test_numpy_draw_matches_jax(monkeypatch, with_masks):
-    monkeypatch.setattr(jnative, "_lib", False)
-    monkeypatch.setattr(tnative, "_lib", False)
-    rng = np.random.default_rng(1)
+def test_native_coerces_and_checks_inputs():
+    """Depths of another dtype or layout are coerced as the JAX package
+    coerces them; a non-uint8 stack or depths of another shape raise."""
+    rng = np.random.default_rng(2)
     imgs = rng.integers(0, 256, (2, 9, 13, 3), dtype=np.uint8)
-    kw = {"depths": rng.uniform(1, 3, (2, 9, 13)).astype(np.float32)}
-    if with_masks:
-        kw["masks"] = rng.uniform(size=(2, 9, 13)) < 0.5
-    want, got = jnative.sample_ray_batch(imgs, 300, 5, **kw), tnative.sample_ray_batch(
-        imgs, 300, 5, **kw)
+    depths = np.asfortranarray(rng.uniform(1, 3, (2, 9, 13)))
+    want = jnative.sample_ray_batch(imgs, 300, 5, depths=depths)
+    got = tnative.sample_ray_batch(imgs, 300, 5, depths=depths)
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    np.testing.assert_array_equal(tnative.shuffle_indices(50, 3), jnative.shuffle_indices(50, 3))
-    src = rng.normal(size=(50, 4)).astype(np.float32)
-    perm = tnative.shuffle_indices(50, 3)
-    np.testing.assert_array_equal(tnative.gather_rows(src, perm), jnative.gather_rows(src, perm))
+    with pytest.raises(ValueError, match="uint8"):
+        tnative.sample_ray_batch(imgs.astype(np.float32), 4, 1)
+    with pytest.raises(ValueError, match="depths"):
+        tnative.sample_ray_batch(imgs, 4, 1, depths=depths[:, :5])
 
 
 def test_datamanager_default_draws_match_jax(tmp_path):
@@ -147,7 +155,7 @@ def test_datamanager_default_draws_match_jax(tmp_path):
 
 def test_failed_build_raises(tmp_path, monkeypatch):
     """No compiler, or a source that does not compile: the build raises with
-    the reason and never falls back to the NumPy draw."""
+    the reason, and the sampler stays unloaded."""
     monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(tbuild, "CXX", "no-such-compiler-nkt")
     with pytest.raises(RuntimeError, match="no-such-compiler-nkt not found"):

@@ -7,8 +7,9 @@ versions) and of semantic-nerfw with depth, semantics and masks on explicit
 global batches and jitters, a rank-strided ``eval_all_images``, a RAFT step,
 and counts of the collectives. Both ranks must agree bit for bit, and match
 one process on the concatenated batch (loss rtol 1e-5, parameters atol 1e-5,
-f32), and the nerfacto loss matches JAX's on the global batch to the
-tolerance of ``tests/test_torch_cli.py``'s three-step parity. About 25 s."""
+the first step's reduced gradients 1e-5 of the largest, f32), and the
+nerfacto loss matches JAX's on the global batch to the tolerance of
+``tests/test_torch_cli.py``'s three-step parity. About 25 s."""
 
 import os
 import pickle
@@ -32,6 +33,7 @@ from nerf_kbs_tpu.parallel.mesh import shard_batch as jshard_batch
 from nerf_kbs_tpu_torch import methods as tmethods  # noqa: F401
 from nerf_kbs_tpu_torch.data import synthetic_kitti as tsk
 from nerf_kbs_tpu_torch.engine import cli as tcli
+from nerf_kbs_tpu_torch.engine import trainer as ttrainer_mod
 from nerf_kbs_tpu_torch.engine.optimizers import tree_copy_, tree_map
 from nerf_kbs_tpu_torch.parallel import mesh as tmesh
 from nerf_kbs_tpu_torch.parallel import multihost as tmultihost
@@ -91,7 +93,9 @@ import torch.distributed as dist
 from nerf_kbs_tpu_torch import methods  # noqa: F401
 from nerf_kbs_tpu_torch.engine import cli
 from nerf_kbs_tpu_torch.engine.optimizers import tree_copy_, tree_map
+from nerf_kbs_tpu_torch.engine import trainer as trainer_mod
 from nerf_kbs_tpu_torch.engine.trainer import Trainer
+from nerf_kbs_tpu_torch.parallel import mesh as mesh_mod
 from nerf_kbs_tpu_torch.parallel import multihost
 from nerf_kbs_tpu_torch.process_data import raft_driver
 
@@ -104,6 +108,19 @@ def numpy(tree):
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
 
 
+# every gradient as all_reduce_grads leaves it, before the optimizer's update
+# (and before RAFT's clip): one list of leaves per call
+grads = []
+real_reduce = mesh_mod.all_reduce_grads
+
+
+def recording_reduce(mesh, params):
+    real_reduce(mesh, params)
+    grads.append([None if t.grad is None else t.grad.detach().cpu().numpy().copy()
+                  for t in mesh_mod._leaves(params)])
+
+
+trainer_mod.all_reduce_grads = mesh_mod.all_reduce_grads = recording_reduce
 calls = {}
 
 
@@ -154,6 +171,7 @@ for name, case in cfg["cases"].items():
     if "eval_before" in case:
         res["eval"] = tr.eval_all_images()
     res["losses"], res["collectives"] = [], []
+    grads.clear()
     for step, (batch, jit) in enumerate(zip(case["batches"], case["jitters"])):
         calls.clear()
         m = tr.train_step({k: v[rows] for k, v in batch.items()},
@@ -161,6 +179,7 @@ for name, case in cfg["cases"].items():
         res["collectives"].append(dict(calls))
         res["losses"].append({k: float(v) for k, v in m.items()})
     res["params"] = numpy(tr.params)
+    res["grads0"] = grads[0]
     out[name] = res
 
 # 4. RAFT at world size 2: this rank's image pair of the global batch
@@ -168,9 +187,11 @@ rcfg = raft_driver.RaftTrainConfig(**cfg["raft"]["config"])
 raft, tx = raft_driver.make_raft_train_state(rcfg, device="cpu")
 raft.load_state_dict(cfg["raft"]["start"])
 step = raft_driver.make_raft_train_step(raft, tx, rcfg, mesh=trainer.mesh)
+grads.clear()
 loss, metrics = step({k: torch.from_numpy(v[rank:rank + 1]) for k, v in cfg["raft"]["batch"].items()})
 out["raft"] = {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
-               "params": {k: v.numpy().copy() for k, v in raft.state_dict().items()}}
+               "params": {k: v.numpy().copy() for k, v in raft.state_dict().items()},
+               "grads0": grads[0]}
 
 out["jax_imported"] = any(m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu")
                           for m in sys.modules)
@@ -270,26 +291,42 @@ def runs(tmp_path_factory):
                                str(tmp / f"out{r}.pkl")], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT) for r in range(2)]
 
-    # the one-process references, while the ranks run
-    for name, case in cases.items():
-        tr = tcli.build_trainer(tcli.apply_overrides(tcli.method_registry[case["method"]](),
-                                                     case["overrides"]), device="cpu")
-        tree_copy_(tr.params, case["start"])
-        res = {"eval": tr.eval_all_images()} if case.get("eval_before") else {}
-        res["losses"] = []
-        for batch, jit in zip(case["batches"], case["jitters"]):
-            m = tr.train_step(batch, jitters=jit and [torch.from_numpy(j) for j in jit])
-            res["losses"].append({k: float(v) for k, v in m.items()})
-        res["params"] = _numpy(tr.params)
-        res["start"] = case["start"]
-        ref[name] = res
-    rcfg = tdriver.RaftTrainConfig(**raft_cfg)
-    raft1, tx1 = tdriver.make_raft_train_state(rcfg, device="cpu")
-    raft1.load_state_dict(inputs["raft"]["start"])
-    step = tdriver.make_raft_train_step(raft1, tx1, rcfg)
-    loss, metrics = step({k: torch.from_numpy(v) for k, v in raft_batch.items()})
-    ref["raft"] = {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
-                   "params": {k: v.numpy().copy() for k, v in raft1.state_dict().items()}}
+    # the one-process references, while the ranks run (their all_reduce_grads
+    # is the identity; the recording gives the gradients of the global batch)
+    grads = []
+
+    def recording_reduce(mesh, params):
+        real_reduce(mesh, params)
+        grads.append([None if t.grad is None else t.grad.detach().cpu().numpy().copy()
+                      for t in tmesh._leaves(params)])
+
+    real_reduce = tmesh.all_reduce_grads
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttrainer_mod, "all_reduce_grads", recording_reduce)
+        mp.setattr(tmesh, "all_reduce_grads", recording_reduce)
+        for name, case in cases.items():
+            tr = tcli.build_trainer(tcli.apply_overrides(tcli.method_registry[case["method"]](),
+                                                         case["overrides"]), device="cpu")
+            tree_copy_(tr.params, case["start"])
+            res = {"eval": tr.eval_all_images()} if case.get("eval_before") else {}
+            res["losses"] = []
+            grads.clear()
+            for batch, jit in zip(case["batches"], case["jitters"]):
+                m = tr.train_step(batch, jitters=jit and [torch.from_numpy(j) for j in jit])
+                res["losses"].append({k: float(v) for k, v in m.items()})
+            res["params"] = _numpy(tr.params)
+            res["grads0"] = grads[0]
+            res["start"] = case["start"]
+            ref[name] = res
+        rcfg = tdriver.RaftTrainConfig(**raft_cfg)
+        raft1, tx1 = tdriver.make_raft_train_state(rcfg, device="cpu")
+        raft1.load_state_dict(inputs["raft"]["start"])
+        step = tdriver.make_raft_train_step(raft1, tx1, rcfg)
+        grads.clear()
+        loss, metrics = step({k: torch.from_numpy(v) for k, v in raft_batch.items()})
+        ref["raft"] = {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+                       "params": {k: v.numpy().copy() for k, v in raft1.state_dict().items()},
+                       "grads0": grads[0]}
 
     logs = []
     for p in procs:
@@ -404,6 +441,36 @@ def test_world_two_step_matches_one_process(runs, method):
     moved = max(float(np.abs(a - s).max())
                 for a, s in zip(_flat(ref[method]["params"]), _flat(ref[method]["start"])))
     assert moved > 1e-4  # the steps trained
+
+
+# the gradients that all_reduce_grads leaves (the world-2 sum / world) against
+# one process's on the concatenated batch, relative to the step's largest
+# gradient element: a leaf whose exact gradient is zero (a bias under an
+# instance norm) holds only rounding, which no relative bound of its own fits
+GRAD_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("method", ["nerfacto-tpu", "nerfacto-tpu/generator", "semantic-nerfw",
+                                    "raft"])
+def test_world_two_gradient_is_the_global_batch_gradient(runs, method):
+    """The first step's reduced gradients, before the update (and before
+    RAFT's global-norm clip): the ranks' are equal bit for bit and equal one
+    process's gradient of the global batch, not world times or 1 / world of
+    it. Adam's update and the clip hide a uniform scale of the gradient, so
+    the losses and parameters alone would not show one."""
+    outs, ref = runs
+    got, other, want = outs[0][method]["grads0"], outs[1][method]["grads0"], ref[method]["grads0"]
+    assert len(got) == len(want) == len(other)
+    assert [g is None for g in got] == [w is None for w in want] == [o is None for o in other]
+    pairs = [(i, g, o, w) for i, (g, o, w) in enumerate(zip(got, other, want)) if w is not None]
+    scale = max(float(np.abs(w).max()) for _, _, _, w in pairs)
+    assert scale > 0  # the step has a gradient
+    for i, g, o, w in pairs:
+        np.testing.assert_array_equal(g, o, err_msg=f"leaf {i}")
+        err = float(np.abs(g - w).max())
+        assert err <= GRAD_RTOL * scale, (
+            f"leaf {i} {w.shape}: max err {err}, the step's largest {scale}, ratio of norms "
+            f"{np.linalg.norm(g) / max(np.linalg.norm(w), 1e-30)}")
 
 
 def test_world_two_nerfacto_loss_matches_jax(runs):

@@ -18,7 +18,6 @@ from nerf_kbs_tpu.data.datamanager import DataManagerConfig as JDMConfig
 from nerf_kbs_tpu.data.datamanager import InMemoryDataManager as JDM
 from nerf_kbs_tpu.data.dataparsers import transforms_json as jtj
 from nerf_kbs_tpu.data.dataparsers import vkitti as jvk
-from nerf_kbs_tpu.native import lib as jnative
 from nerf_kbs_tpu_torch.data import synthetic_kitti as tsk
 from nerf_kbs_tpu_torch.data.datamanager import DataManagerConfig as TDMConfig
 from nerf_kbs_tpu_torch.data.datamanager import InMemoryDataManager as TDM
@@ -212,8 +211,6 @@ def test_write_vkitti_dataset_matches_jax(vkitti_scenes):
 def test_vkitti_datamanager_matches_jax(vkitti_scenes, monkeypatch):
     """Both datamanagers on the JAX-written scene (PIL's JPEGs, 16-bit PNG
     depth in centimetres): every train batch and eval image bit for bit."""
-    monkeypatch.setattr(jnative, "_lib", False)
-    monkeypatch.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     scene = vkitti_scenes[1]
     kw = dict(data_dir=str(scene), train_split_fraction=0.75, use_depth=True)
     tm = TDM(tvk.VKittiDataParserConfig(**kw).parse("train"),

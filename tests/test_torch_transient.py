@@ -20,7 +20,6 @@ from nerf_kbs_tpu.data import synthetic_kitti as jsk
 from nerf_kbs_tpu.engine import cli as jcli
 from nerf_kbs_tpu.engine import trainer as jtrainer_mod
 from nerf_kbs_tpu.models import semantic_nerfw as jsem
-from nerf_kbs_tpu.native import lib as jnative
 from nerf_kbs_tpu.parallel.mesh import make_mesh
 from nerf_kbs_tpu_torch.cameras import cameras as tcam
 from nerf_kbs_tpu_torch.convert import params_from_jax
@@ -192,8 +191,6 @@ def trainers(scene, tmp_path_factory):
     with the transient embedding and 3 fit steps, in both packages, from the
     same parameters."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(jnative, "_lib", False)
-    mp.setattr("nerf_kbs_tpu_torch.native.lib._lib", False)
     mp.setattr(jtrainer_mod, "make_mesh", lambda *a: make_mesh(jax.devices()[:1]))
     argv = _argv(scene, tmp_path_factory.mktemp("out"))
     ov = dict(zip([a[2:] for a in argv[::2]], argv[1::2]))
