@@ -45,7 +45,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    finite and falling, metrics.jsonl, eval_image, checkpoint save and load);
    a profiler pass over one step, once more with the proposal-field kernels'
    WMMA bodies; 3 steps in f32 on the card against the
-   same 3 steps on the CPU plain path;
+   same 3 steps on the CPU plain path; then (phase bench_torch) the port's
+   bench entry point, bench_torch.py, at a cut depth: bench_method("fourier",
+   16384, steps=3, inner=5) with A 2 / B 1 / C 2 / D 1 launches a step and
+   bench_render(65536, steps=2, inner=2) with A 2 / B 1 a chunk, both rays/s
+   printed with the card's name and power limit and beside the rays/s of
+   this phase's bench step and of the serving frame;
 5. kernels A and C at the nerfacto field's base widths (H = 128, (256, 128,
    128, 16)), which the semantics path runs through their base-width wgmma
    bodies: held against their plain versions in both bases and dtypes (C
@@ -138,7 +143,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    card against the CPU plain path (for vanilla-nerf at 10 position
    frequencies also each f32 run's distance from an f64 CPU run); one
    --render-only frame of run 4's configuration at a reduced width card
-   against CPU, its temporal distortion reading the cameras' times;
+   against CPU, its temporal distortion reading the cameras' times; then
+   (phase launchers_torch) the four root launchers train_torch.py,
+   train_nerf_torch.py, train_nerfacto_torch.py and train_z1_torch.py, each
+   a program of its own with no method argument (so semantic-nerfw,
+   vanilla-nerf, nerfacto and test-nerfacto as registered) on run 3's, run
+   4's, the hash presets' and run 5's scene, 2 steps each, all four started
+   together: exit code 0, 2 logged steps, the eval of the split;
 15. run 7, nerfacto-tpu with --model.camera_optimizer SO3xR3 through
    cli.main on the street scene (30 steps of 4,096 rays, bf16, eval of the
    split): launch counts A 2 / B 1 / C 2 / D 1 a step with every C and D
@@ -190,6 +201,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1112,7 +1124,9 @@ def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12,
     emit(rec)
 
 
-def phase_slice(records):
+def phase_slice(records) -> float:
+    """The serving slice (see the module docstring); returns the frame's
+    rays/s."""
     import dataclasses
 
     import numpy as np
@@ -1210,9 +1224,12 @@ def phase_slice(records):
               "seconds": time.perf_counter() - t0})
     finally:
         viewer.shutdown()
+    return h * w / med
 
 
-def phase_train(records):
+def phase_train(records) -> float:
+    """The training slice (see the module docstring); returns the bench
+    step's rays/s at its median step time."""
     import dataclasses
     import tempfile
 
@@ -1370,6 +1387,56 @@ def phase_train(records):
     emit({"phase": "train_vs_cpu", "rays": 256, "losses_card": runs["cuda"],
           "losses_cpu": runs["cpu"], "max_rel_diff": rel, "tol": 2e-3})
     check(rel <= 2e-3, f"card vs CPU f32 train steps: {runs}")
+    return batch_rays / (med * 1e-3)
+
+
+# bench_torch.py at a cut depth: its train bench (16,384 rays, rounds of 5
+# steps, 2 warm-up rounds and 3 timed ones) and its render bench (65,536-ray
+# chunks, rounds of 2 chunks, 1 warm-up round and 3 timed ones)
+BENCH_TRAIN = {"batch_size": 16384, "steps": 3, "inner": 5}
+BENCH_RENDER = {"batch_size": 65536, "steps": 2, "inner": 2}
+
+
+def phase_bench_torch(records, smoke_train_rays_per_s: float,
+                      smoke_frame_rays_per_s: float) -> None:
+    """bench_torch.py, the port's bench entry point, through bench_method
+    and bench_render on the card: the launch counts of each (A 2, B 1, C 2,
+    D 1 a step; A 2, B 1 a chunk), both rays/s beside the card's name and
+    power limit and beside the smoke's own bench step and serving frame."""
+    import bench_torch
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    runs = {}
+    for what, fn, kw, per_unit, warm in (
+            ("train", lambda **k: bench_torch.bench_method("fourier", **k), BENCH_TRAIN,
+             FUSED_STEP, 2),
+            ("render", bench_torch.bench_render, BENCH_RENDER, FUSED_CHUNK, 1)):
+        units = (warm + 3 * max(kw["steps"] // kw["inner"], 1)) * kw["inner"]
+        ff.reset_launches()
+        t0 = time.perf_counter()
+        rate = fn(**kw)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        check(launches == {k: units * v for k, v in per_unit.items()},
+              f"bench_torch {what}: launches {launches} for {units}")
+        runs[what] = {"rays_per_s": rate, "units": units, "launches": launches,
+                      "seconds": seconds, **kw}
+        for rec in records:  # per step or chunk: exact multiples (checked above)
+            if COUNTER.get(rec["name"]) in launches:
+                rec[f"bench_torch_{what}_launches"] = launches[COUNTER[rec["name"]]] // units
+                rec[f"bench_torch_{what}_launches_per"] = (
+                    "16,384-ray bench_torch step" if what == "train"
+                    else "65,536-ray bench_torch render chunk")
+    emit({"phase": "bench_torch", "nvidia_smi": smi,
+          "train_rays_per_s": runs["train"]["rays_per_s"],
+          "render_rays_per_s": runs["render"]["rays_per_s"],
+          "smoke_train_step_rays_per_s": smoke_train_rays_per_s,
+          "smoke_frame_rays_per_s": smoke_frame_rays_per_s,
+          "train": runs["train"], "render": runs["render"]})
 
 
 # the scene's image size: the KITTI dataparser's default, the size the serving
@@ -2945,6 +3012,71 @@ def phase_registry(scene: str, vkitti: str) -> None:
     check(not any(ff.LAUNCHES.values()), f"runs 4-6 f32 steps launched {ff.LAUNCHES}")
 
 
+# the four root launchers of the port, each with its default method and no
+# method argument, on the scene of that method's run (runs 3, 4, 5 and
+# nerfacto's hash preset), 2 steps each at the method's own widths
+LAUNCHER_STEPS = 2
+
+
+def phase_launchers_torch(scene: str, vkitti: str) -> None:
+    """Each train*_torch.py launcher as its own program (all four started
+    together, 2 OpenMP threads each, on the one card): exit code 0, 2 logged
+    steps with finite losses and the eval of the split in metrics.jsonl."""
+    import numpy as np
+    import torch
+
+    out = Path(tempfile.mkdtemp(prefix="nkt_launchers_"))
+    steps = ["--trainer.max_num_iterations", str(LAUNCHER_STEPS), "--trainer.log_every", "1"]
+
+    def kitti(run_out):  # _run_argv with this phase's step count
+        argv = _run_argv(scene, run_out)
+        argv[argv.index("--trainer.max_num_iterations") + 1] = str(LAUNCHER_STEPS)
+        return argv
+
+    runs = {  # launcher: (its default method, its output directory, argv)
+        "train_torch.py": ("semantic-nerfw", out / "a", kitti(str(out / "a")) + _run2_data(scene)),
+        "train_nerf_torch.py": ("vanilla-nerf", out / "b", [
+            "--dataparser.data_dir", vkitti, "--dataparser.train_split_fraction", "0.75",
+            "--trainer.output_dir", str(out / "b")] + steps),
+        "train_nerfacto_torch.py": ("nerfacto", out / "c", kitti(str(out / "c"))),
+        "train_z1_torch.py": ("test-nerfacto", out / "d", [
+            "--dataparser.data", _write_transforms_json(scene),
+            "--trainer.output_dir", str(out / "d")] + steps),
+    }
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    torch.cuda.empty_cache()  # this process's cached blocks, for the four
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(HERE / name)] + argv, cwd=HERE, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, (_, _, argv) in runs.items()}
+    logs = {}
+    try:
+        for name, p in procs.items():
+            logs[name] = p.communicate(timeout=900)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for name, (method, run_out, _) in runs.items():
+        p = procs[name]
+        check(p.returncode == 0, f"{name} exited {p.returncode}:\n{logs[name][-4000:]}")
+        lines = [json.loads(ln) for ln in
+                 (run_out / "exp" / method / "metrics.jsonl").read_text().splitlines()]
+        losses = [ln["total_loss"] for ln in lines if "total_loss" in ln]
+        final = {k[len("eval_all_"):]: v for k, v in lines[-1].items()
+                 if k.startswith("eval_all_")}
+        check(len(losses) == LAUNCHER_STEPS and all(np.isfinite(losses)),
+              f"{name}: logged losses {losses}")
+        check(final.get("num_images") == 2 and all(np.isfinite(v) for v in final.values()),
+              f"{name}: eval {final}")
+        results.append({"launcher": name, "method": method, "rc": p.returncode,
+                        "losses": losses, "eval_all": final})
+    emit({"phase": "launchers_torch", "steps": LAUNCHER_STEPS, "concurrent": len(runs),
+          "wall_s": time.perf_counter() - t0, "runs": results})
+
+
 def _vanilla_frame_vs_cpu(cli, ff, argv4: list) -> None:
     """One --render-only frame of run 4's configuration at a reduced width
     (REDUCED_VANILLA), card against CPU: render_trajectory over the first
@@ -4050,15 +4182,17 @@ def main() -> int:
 
     phase_device()
     records = phase_kernels()
-    phase_slice(records)
-    phase_train(records)
+    frame_rays_per_s = phase_slice(records)
+    phase_bench_torch(records, phase_train(records), frame_rays_per_s)
     with tempfile.TemporaryDirectory(prefix="nkt_scene_") as tmp:
         scene = phase_scene(tmp)
         phase_cli(records, scene)
         phase_parallel(records, scene)
         phase_native_sampler(scene)
         phase_hash(scene)
-        phase_registry(scene, phase_vkitti_scene(tmp))
+        vkitti = phase_vkitti_scene(tmp)
+        phase_registry(scene, vkitti)
+        phase_launchers_torch(scene, vkitti)
         phase_camera_opt(records, scene)
         phase_stream(scene)
         phase_preprocess(scene, tmp)
