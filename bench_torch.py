@@ -11,8 +11,10 @@ step launches the proposal-field forward (A) twice, the field forward (B)
 once, the proposal-field backward (C) twice and the field backward (D) once;
 bench_method checks those counts.
 
-Then a '#'-prefixed line gives the eval-render throughput (forward only,
-65536-ray chunks, A twice and B once a chunk), and a last '#' line names the
+Then '#'-prefixed lines give the eval-render throughput (forward only,
+65536-ray chunks, A twice and B once a chunk) and the hash-grid parity path
+(the reference operating point: 4096 rays, (256, 96) proposals, the
+non-fused path, no hand-written kernel), and a last '#' line names the
 device.
 
     python3 bench_torch.py                 # on the CUDA card
@@ -111,6 +113,19 @@ def make_train_step(cfg, params: dict, optimizer, cameras):
     return step
 
 
+def make_render_chunk(cfg, params: dict, cameras):
+    """One eval chunk: the forward-only render of the rays of
+    ``ray_indices`` (B, 3) at step 30000 of the schedules. Returns the sum
+    of its rgb and depth, so that nothing is skipped."""
+    @torch.no_grad()
+    def chunk(ray_indices):
+        out = nerfacto.forward(params, cfg, generate_rays(cameras, ray_indices), step=30000,
+                               train=False)
+        return out["rgb"].sum() + out["depth"].sum()
+
+    return chunk
+
+
 def _check_launches(before: dict, per_unit: dict, units: int, what: str) -> None:
     """The fused kernels launched since ``before`` must be ``units`` x
     ``per_unit`` (none at all where ``per_unit`` is empty)."""
@@ -181,19 +196,12 @@ def bench_render(batch_size: int, steps: int, device=None, inner: int = 20,
     summed so that nothing is skipped, timed as bench_method times."""
     dev = resolve_device(device)
     cfg = bench_config("fourier", dev)
-    params = nerfacto.init(cfg, seed=seed, device=dev)
-    cameras = bench_cameras(dev)
+    chunk = make_render_chunk(cfg, nerfacto.init(cfg, seed=seed, device=dev), bench_cameras(dev))
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    @torch.no_grad()
     def run_round():
         indices = _random_ray_indices(gen, (inner, batch_size))
-        acc = torch.zeros((), device=dev)
-        for i in range(inner):
-            out = nerfacto.forward(params, cfg, generate_rays(cameras, indices[i]),
-                                   step=30000, train=False)
-            acc = acc + out["rgb"].sum() + out["depth"].sum()
-        return acc
+        return sum(chunk(indices[i]) for i in range(inner))
 
     per_chunk = FUSED_CHUNK if dev.type == "cuda" else {}
     before = dict(ff.LAUNCHES)
@@ -225,10 +233,16 @@ def main(argv=None) -> None:
         "unit": "rays/sec",
         "vs_baseline": round(rate / 5e6, 4),
     }), flush=True)
-    chunk, steps, inner = (65536, 60, 20) if on_card else (128, 1, 1)
-    render_rate = bench_render(chunk, steps, dev, inner=inner, seed=args.seed)
+    chunk, chunks, inner = (65536, 60, 20) if on_card else (128, 1, 1)
+    render_rate = bench_render(chunk, chunks, dev, inner=inner, seed=args.seed)
     print(f"# eval-render (forward-only, {chunk}-ray chunks): {render_rate:.1f} rays/sec",
           flush=True)
+    # the hash path keeps the reference's 4096-ray batch, at a fifth of the
+    # steps; on the CPU in rounds of one step, whose 2^19-entry tables take
+    # about a second a step there
+    hash_rate = bench_method("hash", min(batch, 4096), max(steps // 5, 2), dev,
+                             inner=10 if on_card else 1, seed=args.seed)
+    print(f"# hash-grid parity path: {hash_rate:.1f} rays/sec", flush=True)
     name = torch.cuda.get_device_name(dev) if on_card else "cpu (plain path)"
     print(f"# device: {name}; torch {torch.__version__}", flush=True)
 

@@ -35,9 +35,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    bodies; a small camera rendered in f32 on the card must
    match the CPU plain path; the viewer answers /status, /render and /orbit
    with PNGs;
-4. the training slice: 22 steps of the bench's train step (full-width bf16
-   nerfacto-tpu, 16,384 random pixels of 32 cameras of 376x1241 and random
-   colours per step, forward -> loss -> backward -> per-group Adam) with the
+4. the training slice: 22 steps of bench_torch.py's train step, built from
+   bench_torch (full-width bf16 nerfacto-tpu, 16,384 random pixels of 32
+   cameras of 376x1241 and random colours per step, forward -> loss ->
+   backward -> per-group Adam) with the
    launch counts 2 / 1 / 2 / 1 per step (all through their wgmma
    bodies) and the median step time of the last
    20; the same three turns of bodies; Trainer.train(30) at full width on the
@@ -48,9 +49,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    same 3 steps on the CPU plain path; then (phase bench_torch) the port's
    bench entry point, bench_torch.py, at a cut depth: bench_method("fourier",
    16384, steps=3, inner=5) with A 2 / B 1 / C 2 / D 1 launches a step and
-   bench_render(65536, steps=2, inner=2) with A 2 / B 1 a chunk, both rays/s
-   printed with the card's name and power limit and beside the rays/s of
-   this phase's bench step and of the serving frame;
+   bench_render(65536, steps=2, inner=2) with A 2 / B 1 a chunk and
+   bench_method("hash", 4096, steps=2, inner=2) with no kernel launch, the
+   rays/s printed with the card's name and power limit and beside the
+   rays/s of this phase's bench step and of the serving frame, and the
+   device's busy share of one bench step and of one render chunk (a
+   profiler pass over a chunk built by bench_torch.make_render_chunk);
 5. kernels A and C at the nerfacto field's base widths (H = 128, (256, 128,
    128, 16)), which the semantics path runs through their base-width wgmma
    bodies: held against their plain versions in both bases and dtypes (C
@@ -1101,7 +1105,7 @@ OP_GROUPS = (("table scatter-adds", ("index_add", "IndexSelectBackward", "index_
 
 
 def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12,
-                  by_op: bool = False) -> None:
+                  by_op: bool = False) -> dict:
     """Where the time of one call of ``work`` goes (a frame, a train step):
     device time by kernel name and the device's busy share of the wall time;
     with ``by_op`` also by the op that launched it, in OP_GROUPS and the rest
@@ -1122,6 +1126,7 @@ def phase_profile(work, n_rays: int, what: str = "frame", top: int = 12,
                         for name, us, count in ops[:top]]
         rec["by_op_group_ms"] = groups
     emit(rec)
+    return rec
 
 
 def phase_slice(records) -> float:
@@ -1227,19 +1232,18 @@ def phase_slice(records) -> float:
     return h * w / med
 
 
-def phase_train(records) -> float:
+def phase_train(records) -> tuple:
     """The training slice (see the module docstring); returns the bench
-    step's rays/s at its median step time."""
+    step's rays/s at its median step time and the profile of one step."""
     import dataclasses
     import tempfile
 
     import numpy as np
     import torch
 
-    from nerf_kbs_tpu_torch.cameras.cameras import generate_rays
-    from nerf_kbs_tpu_torch.data.outputs import DataparserOutputs
-    from nerf_kbs_tpu_torch.data.synthetic import SyntheticDataManager, orbit_cameras
-    from nerf_kbs_tpu_torch.engine.optimizers import build_optimizer, tree_leaves
+    import bench_torch
+    from nerf_kbs_tpu_torch.data.synthetic import SyntheticDataManager
+    from nerf_kbs_tpu_torch.engine.optimizers import tree_leaves
     from nerf_kbs_tpu_torch.engine.trainer import Trainer, mark_trainable
     from nerf_kbs_tpu_torch.methods import nerfacto_tpu_method
     from nerf_kbs_tpu_torch.models import nerfacto
@@ -1247,32 +1251,23 @@ def phase_train(records) -> float:
 
     dev = torch.device("cuda")
     spec = nerfacto_tpu_method()
-    cfg = dataclasses.replace(spec.model_config(), num_images=32)
-    check(cfg.compute_dtype == "bfloat16" and cfg.stop_grad_sampling, "flagship train config")
 
-    # (1) the bench's step: random pixels of 32 KITTI-sized cameras, random
-    # colours, step 500 of the schedules, the registry's optimizers
-    h, w, batch_rays, n_steps, warm = 376, 1241, 16384, 22, 2
-    params = nerfacto.init(cfg, seed=0)
+    # (1) bench_torch.py's step: random pixels of its 32 KITTI-sized
+    # cameras, random colours, step 500 of the schedules, its Adam
+    batch_rays, n_steps, warm = 16384, 22, 2
+    cfg = bench_torch.bench_config("fourier", dev)
+    check(cfg.compute_dtype == "bfloat16" and cfg.stop_grad_sampling, "flagship train config")
+    params = nerfacto.init(cfg, seed=0, device=dev)
     mark_trainable(params)
-    opt = build_optimizer(spec.optimizers, nerfacto.param_groups(params))
-    cams = DataparserOutputs([], orbit_cameras(32, h=h, w=w),
-                             np.array([[-1.0] * 3, [1.0] * 3])).cameras()
+    opt = bench_torch.bench_optimizer(params, dev)
+    train_step = bench_torch.make_train_step(cfg, params, opt, bench_torch.bench_cameras(dev))
     gen = torch.Generator(device=dev).manual_seed(1)
     start = [t.detach().clone() for t in tree_leaves(params)]
 
     def bench_step():
-        idx = torch.stack([torch.randint(0, hi, (batch_rays,), generator=gen, device=dev)
-                           for hi in (32, h, w)], dim=-1).to(torch.int32)
-        batch = {"ray_indices": idx,
-                 "image": torch.rand(batch_rays, 3, generator=gen, device=dev)}
-        rays = generate_rays(cams, idx)
-        out = nerfacto.forward(params, cfg, rays, step=500, train=True, generator=gen)
-        total, _ = nerfacto.loss(cfg, out, batch, train=True)
-        opt.zero_grad()
-        total.backward()
-        opt.step()
-        return total.detach()
+        idx = bench_torch._random_ray_indices(gen, (batch_rays,))
+        return train_step(idx, torch.rand(batch_rays, 3, generator=gen, device=dev),
+                          generator=gen)
 
     ff.reset_launches()
     times, losses = [], []
@@ -1325,7 +1320,7 @@ def phase_train(records) -> float:
           "median_step_ms": {k: sorted(v)[len(v) // 2] for k, v in turns.items()}})
 
     # (3) where one step's time goes
-    phase_profile(bench_step, batch_rays, what="train_step")
+    step_profile = phase_profile(bench_step, batch_rays, what="train_step")
     ff.FORCE_WMMA = BODY_TURNS["mlp_wmma"]
     try:
         phase_profile(bench_step, batch_rays, what="train_step, mlp_wmma bodies")
@@ -1387,23 +1382,31 @@ def phase_train(records) -> float:
     emit({"phase": "train_vs_cpu", "rays": 256, "losses_card": runs["cuda"],
           "losses_cpu": runs["cpu"], "max_rel_diff": rel, "tol": 2e-3})
     check(rel <= 2e-3, f"card vs CPU f32 train steps: {runs}")
-    return batch_rays / (med * 1e-3)
+    return batch_rays / (med * 1e-3), step_profile
 
 
 # bench_torch.py at a cut depth: its train bench (16,384 rays, rounds of 5
-# steps, 2 warm-up rounds and 3 timed ones) and its render bench (65,536-ray
-# chunks, rounds of 2 chunks, 1 warm-up round and 3 timed ones)
+# steps, 2 warm-up rounds and 3 timed ones), its render bench (65,536-ray
+# chunks, rounds of 2 chunks, 1 warm-up round and 3 timed ones) and its
+# hash-grid parity point (4,096 rays, rounds of 2 steps)
 BENCH_TRAIN = {"batch_size": 16384, "steps": 3, "inner": 5}
 BENCH_RENDER = {"batch_size": 65536, "steps": 2, "inner": 2}
+BENCH_HASH = {"batch_size": 4096, "steps": 2, "inner": 2}
 
 
-def phase_bench_torch(records, smoke_train_rays_per_s: float,
+def phase_bench_torch(records, smoke_train_rays_per_s: float, step_profile: dict,
                       smoke_frame_rays_per_s: float) -> None:
     """bench_torch.py, the port's bench entry point, through bench_method
     and bench_render on the card: the launch counts of each (A 2, B 1, C 2,
-    D 1 a step; A 2, B 1 a chunk), both rays/s beside the card's name and
-    power limit and beside the smoke's own bench step and serving frame."""
+    D 1 a step; A 2, B 1 a chunk; none on the hash path), the rays/s beside
+    the card's name and power limit and beside the smoke's own bench step
+    (built from bench_torch in phase_train) and serving frame, and the
+    device's busy share of the wall time of one render chunk and of one
+    step (``step_profile``, phase_train's profile of the bench step)."""
+    import torch
+
     import bench_torch
+    from nerf_kbs_tpu_torch.models import nerfacto
     from nerf_kbs_tpu_torch.ops import fused_field as ff
 
     smi = subprocess.run(
@@ -1411,14 +1414,15 @@ def phase_bench_torch(records, smoke_train_rays_per_s: float,
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     runs = {}
-    for what, fn, kw, per_unit, warm in (
-            ("train", lambda **k: bench_torch.bench_method("fourier", **k), BENCH_TRAIN,
-             FUSED_STEP, 2),
-            ("render", bench_torch.bench_render, BENCH_RENDER, FUSED_CHUNK, 1)):
+    for what, field, kw, per_unit, warm in (
+            ("train", "fourier", BENCH_TRAIN, bench_torch.FUSED_STEP, 2),
+            ("render", None, BENCH_RENDER, bench_torch.FUSED_CHUNK, 1),
+            ("hash", "hash", BENCH_HASH, {}, 2)):
         units = (warm + 3 * max(kw["steps"] // kw["inner"], 1)) * kw["inner"]
         ff.reset_launches()
         t0 = time.perf_counter()
-        rate = fn(**kw)
+        rate = (bench_torch.bench_render(**kw) if field is None
+                else bench_torch.bench_method(field, **kw))
         seconds = time.perf_counter() - t0
         launches = {k: v for k, v in ff.LAUNCHES.items() if v}
         check(launches == {k: units * v for k, v in per_unit.items()},
@@ -1431,12 +1435,26 @@ def phase_bench_torch(records, smoke_train_rays_per_s: float,
                 rec[f"bench_torch_{what}_launches_per"] = (
                     "16,384-ray bench_torch step" if what == "train"
                     else "65,536-ray bench_torch render chunk")
+
+    # one render chunk as bench_render builds it, after a warm-up chunk
+    dev = torch.device("cuda")
+    cfg = bench_torch.bench_config("fourier", dev)
+    chunk = bench_torch.make_render_chunk(cfg, nerfacto.init(cfg, seed=0, device=dev),
+                                          bench_torch.bench_cameras(dev))
+    idx = bench_torch._random_ray_indices(torch.Generator(device=dev).manual_seed(0),
+                                          (2, BENCH_RENDER["batch_size"]))
+    chunk(idx[0])
+    render_profile = phase_profile(lambda: chunk(idx[1]), BENCH_RENDER["batch_size"],
+                                   what="bench_render chunk")
+    busy = {what: {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")}
+            for what, prof in (("train_step", step_profile), ("render_chunk", render_profile))}
     emit({"phase": "bench_torch", "nvidia_smi": smi,
           "train_rays_per_s": runs["train"]["rays_per_s"],
           "render_rays_per_s": runs["render"]["rays_per_s"],
+          "hash_rays_per_s": runs["hash"]["rays_per_s"],
           "smoke_train_step_rays_per_s": smoke_train_rays_per_s,
-          "smoke_frame_rays_per_s": smoke_frame_rays_per_s,
-          "train": runs["train"], "render": runs["render"]})
+          "smoke_frame_rays_per_s": smoke_frame_rays_per_s, "profiled": busy,
+          "train": runs["train"], "render": runs["render"], "hash": runs["hash"]})
 
 
 # the scene's image size: the KITTI dataparser's default, the size the serving
@@ -3140,10 +3158,6 @@ def _dx_spy(ff):
 
 
 CAMERA_OPT = ["--model.camera_optimizer", "SO3xR3"]
-# per train step and per eval chunk of nerfacto-tpu: A 2, B 1, C 2, D 1
-FUSED_STEP = {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1, "fourier_mlp_bwd_wgmma": 2,
-              "fourier_field_mlp_bwd_wgmma": 1}
-FUSED_CHUNK = {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1}
 
 
 def phase_camera_opt(records, scene: str) -> None:
@@ -3154,6 +3168,7 @@ def phase_camera_opt(records, scene: str) -> None:
     import torch
 
     import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from bench_torch import FUSED_CHUNK, FUSED_STEP
     from nerf_kbs_tpu_torch.engine import cli
     from nerf_kbs_tpu_torch.ops import fused_field as ff
 
@@ -3348,6 +3363,7 @@ def phase_stream(scene: str) -> None:
     import numpy as np
     import torch
 
+    from bench_torch import FUSED_STEP
     from nerf_kbs_tpu_torch.data.dataparsers.suds_metadata import SudsMetadataConfig
     from nerf_kbs_tpu_torch.data.stream import ChunkedStreamDataManager, StreamConfig
     from nerf_kbs_tpu_torch.engine.trainer import Trainer
@@ -4183,7 +4199,7 @@ def main() -> int:
     phase_device()
     records = phase_kernels()
     frame_rays_per_s = phase_slice(records)
-    phase_bench_torch(records, phase_train(records), frame_rays_per_s)
+    phase_bench_torch(records, *phase_train(records), frame_rays_per_s)
     with tempfile.TemporaryDirectory(prefix="nkt_scene_") as tmp:
         scene = phase_scene(tmp)
         phase_cli(records, scene)

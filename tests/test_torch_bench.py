@@ -81,8 +81,8 @@ def _printed(capsys, main, *args):
 
 def test_main_prints_bench_py_keys(capsys, monkeypatch):
     """One JSON line with bench.py's keys in bench.py's order (bench.py's
-    main run with its benches stubbed), then the render and device
-    comments; the CPU run's metric is not named per GPU."""
+    main run with its benches stubbed), then the render, hash-grid parity
+    and device comments; the CPU run's metric is not named per GPU."""
     monkeypatch.setattr(bench, "bench_method", lambda *a, **k: 1.0)
     monkeypatch.setattr(bench, "bench_render", lambda *a, **k: 1.0)
     want, _ = _printed(capsys, bench.main)
@@ -92,8 +92,9 @@ def test_main_prints_bench_py_keys(capsys, monkeypatch):
     assert got["unit"] == want["unit"] and got["value"] > 0
     assert got["vs_baseline"] == round(got["value"] / 5e6, 4)
     assert lines[1].startswith("# eval-render (forward-only, 128-ray chunks): ")
-    assert float(lines[1].split()[-2]) > 0
-    assert lines[2].startswith("# device: cpu")
+    assert lines[2].startswith("# hash-grid parity path: ")
+    assert all(float(ln.split()[-2]) > 0 for ln in lines[1:3])
+    assert lines[3].startswith("# device: cpu")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
