@@ -190,11 +190,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    step of each preprocessing trainer (RAFT at 640x192 with 12 iterations,
    the segmenter, the inpainter at 432x240 with T = 10) card against CPU,
    its ms and peak memory;
-18. a {"kernels": [...]} line, each record's "launches" counted per
+18. the port's tools (phase tools_torch): the nine tools/*_torch.py as
+   programs, started together at cut sizes (the orbit scene at 64x64, 50 to
+   200 steps; regen_data_torch at 3 frames of 94x310): their JAX twins'
+   committed result keys, the studies' launches a step (A 2 / B 1 / C 2 /
+   D 1, C and D all with dx in the camera arms) and an eval chunk (A 2 / B
+   1) from their '# launches' lines, and that they learn (see
+   phase_tools_torch);
+19. a {"kernels": [...]} line, each record's "launches" counted per
    "launches_per" (a frame, a bench step, a run-2 or a run-7 step, a run-2
    step with the camera optimizer; A to D also with
-   "parallel_launches_per_rank_step" and "per_rank_n_max_err"), then the
-   last line
+   "parallel_launches_per_rank_step" and "per_rank_n_max_err", and the
+   studies' launches a step), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or run from a directory without the port, it exits non-zero
@@ -3140,23 +3147,6 @@ def _vanilla_frame_vs_cpu(cli, ff, argv4: list) -> None:
     check(not any(ff.LAUNCHES.values()), f"run 4's frame launched {ff.LAUNCHES}")
 
 
-def _dx_spy(ff):
-    """Counts the calls of the two backward wrappers by their spec's
-    need_dx: ({wrapper: [calls without dx, calls with dx]}, restore)."""
-    real = {"_mlp_backward": ff._mlp_backward, "_field_backward": ff._field_backward}
-    calls = {"fourier_mlp_bwd": [0, 0], "fourier_field_mlp_bwd": [0, 0]}
-
-    def spy(attr, key):
-        def call(spec, *args):
-            calls[key][int(spec.need_dx)] += 1
-            return real[attr](spec, *args)
-        return call
-
-    ff._mlp_backward = spy("_mlp_backward", "fourier_mlp_bwd")
-    ff._field_backward = spy("_field_backward", "fourier_field_mlp_bwd")
-    return calls, lambda: [setattr(ff, k, v) for k, v in real.items()]
-
-
 CAMERA_OPT = ["--model.camera_optimizer", "SO3xR3"]
 
 
@@ -3174,14 +3164,12 @@ def phase_camera_opt(records, scene: str) -> None:
 
     out = tempfile.mkdtemp(prefix="nkt_camopt_")
     argv7 = _run_argv(scene, out) + CAMERA_OPT
-    calls, restore = _dx_spy(ff)
-    try:
-        r7 = _cli_run(cli, ff, "nerfacto-tpu", argv7, out, FUSED_STEP, FUSED_CHUNK,
-                      phase="cli_run7_camera_opt")
-    finally:
-        restore()
-    check(calls == {"fourier_mlp_bwd": [0, 60], "fourier_field_mlp_bwd": [0, 30]},
-          f"run 7 backward calls [no dx, dx]: {calls}")
+    r7 = _cli_run(cli, ff, "nerfacto-tpu", argv7, out, FUSED_STEP, FUSED_CHUNK,
+                  phase="cli_run7_camera_opt")
+    # every backward launch of the 30 steps ran its dx branch (C 60, D 30)
+    dx7 = {k: v for k, v in ff.DX_LAUNCHES.items() if v}
+    check(dx7 == {k: 30 * v for k, v in FUSED_STEP.items() if "_bwd" in k},
+          f"run 7 backward launches with dx: {dx7}")
     lines = [json.loads(ln) for ln in
              (Path(out) / "exp" / "nerfacto-tpu" / "metrics.jsonl").read_text().splitlines()]
     reg = [ln["camera_opt_regularizer"] for ln in lines if "camera_opt_regularizer" in ln]
@@ -3207,16 +3195,13 @@ def phase_camera_opt(records, scene: str) -> None:
                                                   _pairs(argv7)))
     batch = fresh._to_device(fresh.dm.next_train(0))
     ff.reset_launches()
-    calls, restore = _dx_spy(ff)
-    try:
-        fresh.train_step(batch)
-        torch.cuda.synchronize()
-    finally:
-        restore()
+    fresh.train_step(batch)
+    torch.cuda.synchronize()
     one_step = {k: v for k, v in ff.LAUNCHES.items() if v}
-    check(one_step == FUSED_STEP and calls == {"fourier_mlp_bwd": [0, 2],
-                                               "fourier_field_mlp_bwd": [0, 1]},
-          f"one run-7 step launched {one_step}, backward calls {calls}")
+    dx_step = {k: v for k, v in ff.DX_LAUNCHES.items() if v}
+    check(one_step == FUSED_STEP and dx_step == {"fourier_mlp_bwd_wgmma": 2,
+                                                 "fourier_field_mlp_bwd_wgmma": 1},
+          f"one run-7 step launched {one_step}, with dx {dx_step}")
     # at step 0 the coarse-to-fine window is closed, so the field does not
     # depend on position yet and the translations get no gradient; the
     # rotations do, through the view directions' SH features. From step 1
@@ -3243,7 +3228,7 @@ def phase_camera_opt(records, scene: str) -> None:
           "step1_grad_translation_max_abs": float(grad1[:, :3].abs().max()),
           "step1_grad_rotation_max_abs": float(grad1[:, 3:].abs().max()),
           "eval_all_images_s": split_s, "eval_images": 2, "ms_per_image": split_s * 1e3 / 2,
-          "launches_per_step": one_step, "backward_calls_per_step_no_dx_dx": calls})
+          "launches_per_step": one_step, "dx_launches_per_step": dx_step})
     phase_profile(lambda: fresh.train_step(batch), 4096,
                   what="run 7 train step (camera optimizer, C and D with dx)", top=16)
     del fresh
@@ -3263,29 +3248,19 @@ def phase_camera_opt(records, scene: str) -> None:
         cli.method_registry["semantic-nerfw"](),
         _pairs(_run_argv(scene, out) + RUN2_MODEL + _run2_data(scene) + CAMERA_OPT)))
     batch = run2._to_device(run2.dm.next_train(0))
-    real, seen = ff._mlp_backward, []
-
-    def spy(spec, *args):
-        seen.append((tuple(spec.layer_dims), spec.need_dx))
-        return real(spec, *args)
-
     ff.reset_launches()
-    ff._mlp_backward = spy
-    try:
-        run2.train_step(batch)
-        torch.cuda.synchronize()
-    finally:
-        ff._mlp_backward = real
+    run2.train_step(batch)
+    torch.cuda.synchronize()
     one_step = {k: v for k, v in ff.LAUNCHES.items() if v}
-    base_calls = [dx for dims, dx in seen if dims == tuple(run2.model_config.field.base_mlp.dims)]
-    check(one_step == RUN2_STEP and base_calls == [True],
-          f"one run-2 step with the camera optimizer launched {one_step}, backward calls {seen}")
+    dx_step = {k: v for k, v in ff.DX_LAUNCHES.items() if v}
+    # every backward launch ran its dx branch, the base-width body's included
+    check(one_step == RUN2_STEP and dx_step == {k: v for k, v in one_step.items() if "_bwd" in k},
+          f"one run-2 step with the camera optimizer launched {one_step}, with dx {dx_step}")
     for rec in records:
         if rec["name"] == "fourier_mlp_bwd_base_dx":
             rec["launches"] = one_step["fourier_mlp_bwd_base_wgmma"]
             rec["launches_per"] = "4,096-ray run-2 train step with --model.camera_optimizer SO3xR3"
-    emit({"phase": "cli_run2_camera_opt_step", "launches": one_step,
-          "backward_calls_dims_need_dx": [[list(d), dx] for d, dx in seen]})
+    emit({"phase": "cli_run2_camera_opt_step", "launches": one_step, "dx_launches": dx_step})
     del run2
     torch.cuda.empty_cache()
 
@@ -3512,68 +3487,6 @@ SEGMENTER = HERE / "outputs" / "segmenter3" / "segmenter.npz"
 # moved, so the order differences of one pass feed the next
 VS_CPU_TOL = {"depth": 1e-4, "pose": 1e-4, "raft": 1e-3, "segmenter": 1e-4, "inpaint": 1e-4}
 MASK_SHARE_TOL = 1e-3
-
-
-def exact_motion_chain(n_frames: int, h: int, w: int, th: float, device=None) -> dict:
-    """The chain of tools/demo_motion_pipeline.py on the port's ops: the
-    port's dynamic street scene (two moving cars) at h x w gives exact depth,
-    ego-motion, optical flow and the true moving masks; per pair, exact depth
-    and pose -> pose2flow -> moving_probability -> hard_motion_mask (times
-    the flow's validity) -> instances_from_components(min_area=32) ->
-    per_object_fusion, scored by IoU against the true dynamic mask. ->
-    {"mean_iou", "per_frame_iou" (rounded to 4 places, as the tool's),
-    "median_static_flow_err_px", "masks" (uint8 0/1), "seconds_ops"}."""
-    import numpy as np
-    import torch
-
-    from nerf_kbs_tpu_torch.data.synthetic_kitti import (
-        CX, CY, FX, FY, make_movers, make_poses, make_scene, render_dynamic_flow,
-        render_dynamic_frame,
-    )
-    from nerf_kbs_tpu_torch.device import resolve_device
-    from nerf_kbs_tpu_torch.process_data.motion_mask import (
-        hard_motion_mask, instances_from_components, moving_probability, per_object_fusion,
-    )
-    from nerf_kbs_tpu_torch.process_data.warp import pose2flow
-
-    dev = resolve_device(device)
-    sx, sy = w / 1242.0, h / 375.0
-    cam = (FX * sx, FY * sy, CX * sx, CY * sy)
-    K = np.array([[cam[0], 0, cam[2]], [0, cam[1], cam[3]], [0, 0, 1.0]], np.float32)
-    K_t = torch.as_tensor(K, device=dev)[None]
-    K_inv_t = torch.as_tensor(np.linalg.inv(K).astype(np.float32), device=dev)[None]
-    static = make_scene(0, n_frames * 0.8 + 90.0)
-    movers = make_movers()
-    poses = make_poses(n_frames)
-    ious, static_errs, masks, ops_s = [], [], [], 0.0
-    for i in range(n_frames - 1):
-        _, depth, _, dyn_gt = render_dynamic_frame(poses[i], static, movers, i, h, w, *cam)
-        optical, valid, _ = render_dynamic_flow(poses[i], poses[i + 1], static, movers, i, i + 1,
-                                                h, w, *cam)
-        Pa, Pb = np.eye(4), np.eye(4)
-        Pa[:3], Pb[:3] = poses[i], poses[i + 1]
-        rel = (np.linalg.inv(Pb) @ Pa)[:3].astype(np.float32)
-        t0 = time.perf_counter()
-        rigid = pose2flow(torch.as_tensor(depth, device=dev)[None],
-                          torch.as_tensor(rel, device=dev)[None], K_t, K_inv_t)[0]
-        valid_t = torch.as_tensor(valid, device=dev)
-        # invalid pixels (sky, behind the camera) carry the rigid flow, as a
-        # real flow net gives flow everywhere
-        opt_t = torch.where(valid_t[None], torch.as_tensor(np.moveaxis(optical, -1, 0),
-                                                           device=dev), rigid)
-        prob = moving_probability(opt_t, rigid)
-        hard = (hard_motion_mask(prob, th) * valid_t.to(torch.uint8)).cpu().numpy()
-        diff = torch.linalg.vector_norm(opt_t - rigid, dim=0).cpu().numpy()
-        ops_s += time.perf_counter() - t0
-        static_errs.append(float(np.median(diff[valid & ~dyn_gt])))
-        inst = instances_from_components(hard, min_area=32)
-        dyn_pred = (1 - per_object_fusion(inst, hard)).astype(bool)
-        union = float((dyn_pred | dyn_gt).sum())
-        ious.append(float((dyn_pred & dyn_gt).sum()) / max(union, 1.0))
-        masks.append(dyn_pred.astype(np.uint8))
-    return {"mean_iou": float(np.mean(ious)), "per_frame_iou": [round(v, 4) for v in ious],
-            "median_static_flow_err_px": round(float(np.median(static_errs)), 4),
-            "masks": masks, "seconds_ops": ops_s}
 
 
 def _intrinsics(scene: str) -> tuple:
@@ -3924,6 +3837,8 @@ def phase_preprocess_metadata(scene: str, motion: str, flows: str, out_dir: str)
 def phase_preprocess_exact_chain() -> None:
     """tools/demo_motion_pipeline.py's chain at its defaults on the card:
     its mean IoU within CHAIN_IOU_TOL of the JAX package's recorded one."""
+    from nerf_kbs_tpu_torch.process_data.exact_chain import exact_motion_chain
+
     t0 = time.perf_counter()
     res = exact_motion_chain(CHAIN["frames"], CHAIN["h"], CHAIN["w"], CHAIN["th"])
     seconds = time.perf_counter() - t0
@@ -4167,6 +4082,231 @@ def phase_preprocess(scene: str, out_dir: str) -> None:
     check(not moved, f"the preprocessing phases launched fused kernels: {moved}")
 
 
+# ---------------------------------------------------------------------------
+# the port's tools (tools/*_torch.py) as programs
+# ---------------------------------------------------------------------------
+
+# outputs/field_ab/tri_ab.json's overrides: the study_field tri arm
+TRI_AB = ["max_res=64", "base_res=4", "hidden_dim=128", "num_layers=3",
+          "num_proposal_samples_per_ray=[128,48]", "fourier_basis=tri",
+          "fourier_anneal_steps=1500", "stop_grad_sampling=true"]
+# the studies' orbit scene cut from 128 x 128 and 28 + 4 cameras
+TOOL_SCENE = ["--img", "64", "--cams", "12", "--eval-cams", "2"]
+# kernel by launch counter (any body)
+KERNEL_OF = {"fourier_mlp": "A", "fourier_field_mlp": "B", "fourier_mlp_bwd": "C",
+             "fourier_field_mlp_bwd": "D"}
+STUDY_STEP = {"A": 2, "B": 1, "C": 2, "D": 1}
+STUDY_CHUNK = {"A": 2, "B": 1}
+# study_camera_opt at the cut size: the frozen arm's recovered reprojection
+# error at most CAMOPT_RECOVERY of the injected one, its pretrained field's
+# eval PSNR at most CAMOPT_FIELD_DB under the opt arm's
+CAMOPT_RECOVERY = 0.7
+CAMOPT_FIELD_DB = 1.0
+# each tool: its argv at the phase's cut sizes (``out`` its directory) and
+# the committed result of its JAX twin whose keys it must write
+TOOL_RUNS = {
+    "study_field": (lambda out: ["--steps", "100", "--eval-every", "50", "--scan-steps", "25",
+                                 "--name", "tri_ab_cut", *TOOL_SCENE, *TRI_AB],
+                    "field_ab/tri_ab.json"),
+    # the window opens in the first third of the pretraining, as the JAX
+    # frozen arm's fourier_anneal_steps=1000 of 3000 (tools/tpu_queue_aa.sh);
+    # a 2-layer base MLP, the point of frozen.json's run (its tool set no
+    # num_layers, whose default was 2): at the registry's 3 layers the
+    # pretraining may stay at the white background
+    "study_camera_opt": (lambda out: ["--arms", "opt,frozen", "--steps", "200",
+                                      "--eval-every", "100", "--scan-steps", "50",
+                                      "--out", str(out / "camopt.json"), *TOOL_SCENE,
+                                      "fourier_anneal_steps=60", "num_layers=2"],
+                         "camopt_study/frozen.json"),
+    "study_vanilla": (lambda out: ["--steps", "50", "--eval-every", "50", *TOOL_SCENE],
+                      "vanilla_orbit/result.json"),
+    "study_flow": (lambda out: ["--steps", "50", "--frames", "10", "--h", "94", "--w", "310",
+                                "--data", str(out / "kitti_syn_flow")], None),
+    "train_segmenter": (lambda out: ["--scenes", "4", "--eval-scenes", "1", "--frames", "3",
+                                     "--steps", "100", "--out", str(out)],
+                        "segmenter3/result.json"),
+    "tune_decoder": (lambda out: ["--ckpt", str(SEGMENTER), "--tune-scenes", "1",
+                                  "--eval-scenes", "1", "--frames", "2", "--out", str(out)],
+                     "segmenter_decoder/result.json"),
+    "validate_inpaint": (lambda out: ["--steps", "100", "--size", "64", "--frames", "12",
+                                      "--out", str(out)], "inpaint_validation/result.json"),
+    "demo_motion_pipeline": (lambda out: ["--out", str(out)],
+                             "motion_pipeline_demo/result.json"),
+    "regen_data": (lambda out: ["--root", str(out), "--frames", "3", "--h", "94",
+                                "--w", "310"], None),
+}
+
+
+def _by_kernel(counts: dict) -> dict:
+    """Launch counts of fused_field.LAUNCHES keys (any body) by kernel, A to D."""
+    out: dict = {}
+    for k, v in counts.items():
+        kernel = KERNEL_OF[k.replace("_base_wgmma", "").replace("_wgmma", "")]
+        out[kernel] = out.get(kernel, 0) + v
+    return out
+
+
+def _tool_launches(log: str) -> dict:
+    """A tool's '# launches' lines by phase name."""
+    return {d["name"]: d for d in (json.loads(ln[len("# launches "):])
+                                   for ln in log.splitlines() if ln.startswith("# launches "))}
+
+
+def _per_unit(summary: dict) -> dict:
+    """(train launches by kernel per step, of them with dx per step, eval
+    launches by kernel per chunk), each None where the counts are not a
+    whole multiple."""
+    def per(counts, units):
+        by = _by_kernel(counts)
+        return {k: v // units for k, v in by.items()} if units and all(
+            v % units == 0 for v in by.values()) else None
+
+    return (per(summary["train"], summary["train_steps"]),
+            per(summary["train_dx"], summary["train_steps"]),
+            per(summary["eval"], summary["eval_chunks"]))
+
+
+def phase_tools_torch(records) -> None:
+    """Each port tool (TOOL_RUNS) as a program of its own at a cut size, all
+    started together (1 OpenMP thread each) on the one card, each in a
+    directory of its own: exit code 0; the key set of its JAX twin's
+    committed result; the studies' fused launches a step (A 2 / B 1 / C 2 /
+    D 1, every C and D launch with dx in the camera arms) and an eval chunk
+    (A 2 / B 1); and that each study learns: study_field's last eval PSNR
+    above its first; study_camera_opt's frozen arm pretrained to a field
+    that learned (CAMOPT_FIELD_DB), then recovering the poses to at most
+    CAMOPT_RECOVERY of the injected reprojection error with its eval PSNR
+    unmoved by the camera-only phase, the opt arm ending below the injected
+    error; the trained inpainter above the untrained one; the segmenter's
+    held-out scores finite, study_flow's depth errors finite, the motion
+    demo's mean IoU within CHAIN_IOU_TOL of the JAX tool's, regen_data's
+    three datasets written."""
+    import numpy as np
+
+    # every tool writes into the phase's directory, removed at its end
+    with tempfile.TemporaryDirectory(prefix="nkt_tools_") as tmp:
+        root = Path(tmp)
+        env = {**os.environ, "OMP_NUM_THREADS": "1"}
+        procs, outs = {}, {}
+        t0 = time.perf_counter()
+        try:
+            for name, (argv, _) in TOOL_RUNS.items():
+                out = root / name
+                out.mkdir()
+                outs[name] = out
+                with open(out / "log.txt", "w") as log:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, str(HERE / "tools" / f"{name}_torch.py"), *argv(out)],
+                        cwd=out, env=env, stdout=log, stderr=subprocess.STDOUT)
+            seconds = {}
+            for name, p in procs.items():
+                p.wait(timeout=900)
+                seconds[name] = time.perf_counter() - t0
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        logs = {name: (outs[name] / "log.txt").read_text() for name in procs}
+        for name, p in procs.items():
+            check(p.returncode == 0, f"tools/{name}_torch.py exited {p.returncode}:\n"
+                                     f"{logs[name][-4000:]}")
+
+        def last_json(name):
+            return [json.loads(ln) for ln in logs[name].splitlines() if ln.startswith("{")][-1]
+
+        results = {
+            "study_field": last_json("study_field"),
+            "study_camera_opt": json.loads(
+                (outs["study_camera_opt"] / "camopt.json").read_text()),
+            "study_vanilla": last_json("study_vanilla"),
+            "study_flow": last_json("study_flow"),
+            **{n: json.loads((outs[n] / "result.json").read_text())
+               for n in ("train_segmenter", "tune_decoder", "validate_inpaint",
+                         "demo_motion_pipeline")},
+        }
+        keys_ok = {}
+        for name, (_, committed) in TOOL_RUNS.items():
+            if committed is not None:
+                # the committed keys; a result committed before its tool gained
+                # a key lacks that one
+                want = set(json.loads((HERE / "outputs" / committed).read_text()))
+                keys_ok[name] = want <= set(results[name])
+        regen = sorted(str(p.relative_to(outs["regen_data"] / "outputs"))
+                       for p in (outs["regen_data"] / "outputs").iterdir())
+
+    field = results["study_field"]
+    field_launches = _tool_launches(logs["study_field"])["tri_ab_cut"]
+    cam_launches = _tool_launches(logs["study_camera_opt"])
+    per_step = {n: _per_unit(d) for n, d in
+                [("study_field", field_launches)] + list(cam_launches.items())}
+    arms = {a["arm"]: a for a in results["study_camera_opt"]["arms"]}
+    seg = results["train_segmenter"]["heldout_touching"]
+    inp = results["validate_inpaint"]
+    flow = results["study_flow"]
+    emit({"phase": "tools_torch", "concurrent": len(procs), "wall_s": time.perf_counter() - t0,
+          "seconds_to_exit": seconds, "keys_match_jax_results": keys_ok,
+          "launches_per_step_dx_per_step_per_eval_chunk": per_step,
+          "study_field_trajectory": field["trajectory"], "study_field_rays_per_sec":
+              field["rays_per_sec"],
+          "study_camera_opt": {a: {k: v for k, v in r.items() if "trajectory" not in k}
+                               for a, r in arms.items()},
+          "study_camera_opt_injected": results["study_camera_opt"]["injected"],
+          "study_vanilla_trajectory": results["study_vanilla"]["trajectory"],
+          "study_flow": flow, "train_segmenter_heldout": seg,
+          "train_segmenter_train_seconds": results["train_segmenter"]["train_seconds"],
+          "tune_decoder_eval": {k: results["tune_decoder"][k] for k in
+                                ("eval_baseline", "eval_tuned", "eval_tuned_constrained")},
+          "validate_inpaint": {k: inp[k] for k in ("masked_psnr_trained",
+                                                   "masked_psnr_untrained",
+                                                   "masked_psnr_gray_fill", "fill_img_count")},
+          "demo_motion_pipeline": results["demo_motion_pipeline"], "regen_data": regen})
+
+    check(all(keys_ok.values()), f"tools' result keys against their JAX twins': {keys_ok}")
+    check(regen == ["kitti_dyn", "kitti_syn", "vkitti_syn"] and "DONE" in logs["regen_data"],
+          f"regen_data_torch wrote {regen}")
+    for name, (train, dx, chunk) in per_step.items():
+        camera = name != "study_field" and not name.endswith("pretrain")
+        check(train == STUDY_STEP and chunk == STUDY_CHUNK
+              and dx == ({"C": 2, "D": 1} if camera else {}),
+              f"{name}: launches a step {train}, with dx {dx}, an eval chunk {chunk}")
+    check(field_launches["train_steps"] == 100, f"study_field launches {field_launches}")
+    evals = [t[2] for t in field["trajectory"]]
+    check(len(evals) == 2 and evals[-1] > evals[0], f"study_field eval PSNR {evals}")
+    # the frozen arm's recovery counts only through a field that learned the
+    # scene: its pretraining's eval PSNR rose and ends within
+    # CAMOPT_FIELD_DB of the opt arm's joint field (or above it)
+    frozen, opt = arms["frozen"], arms["opt"]
+    pre = [t[2] for t in frozen["pretrain_trajectory"]]
+    check(pre[-1] > pre[0] and pre[-1] >= opt["final_eval_psnr"] - CAMOPT_FIELD_DB,
+          f"study_camera_opt frozen arm: pretraining eval PSNR {pre}, the opt arm's "
+          f"{opt['final_eval_psnr']}")
+    injected = frozen["injected_reproj_px_err"]
+    check(opt["reproj_px_err"] < injected and frozen["reproj_px_err"] <= CAMOPT_RECOVERY * injected,
+          f"study_camera_opt reprojection error: opt arm {opt['reproj_px_err']}, frozen arm "
+          f"{frozen['reproj_px_err']}, injected {injected}")
+    # the camera-only phase moves the tangents alone: the eval cameras
+    # carry no deltas, so the frozen field renders them as pretrained
+    check(frozen["trajectory"][-1][2] == pre[-1],
+          f"study_camera_opt frozen arm: eval PSNR {pre[-1]} after pretraining, "
+          f"{frozen['trajectory'][-1][2]} after the camera-only phase")
+    check(all(np.isfinite(m["depth_mse"]) and m["num_images"] == 1 for m in flow.values()),
+          f"study_flow {flow}")
+    check(seg["segmenter_fused_mask_iou"] > 0 and np.isfinite(seg["segmenter_instance_quality"]),
+          f"train_segmenter held-out {seg}")
+    check(inp["masked_psnr_trained"] > inp["masked_psnr_untrained"],
+          f"validate_inpaint {inp}")
+    check(abs(results["demo_motion_pipeline"]["mean_iou"] - JAX_CHAIN_IOU) <= CHAIN_IOU_TOL,
+          f"demo_motion_pipeline_torch {results['demo_motion_pipeline']}")
+    for rec in records:
+        if rec["name"] in WRAPPER:
+            rec["study_field_launches_per_step"] = per_step["study_field"][0][
+                KERNEL_OF[WRAPPER[rec["name"]]]]
+        elif rec["name"][:-len("_dx")] in ("fourier_mlp_bwd", "fourier_field_bwd"):
+            rec["study_camera_opt_dx_launches_per_step"] = per_step["opt"][1][
+                KERNEL_OF[WRAPPER[rec["name"][:-len("_dx")]]]]
+
+
 def _pairs(argv: list) -> dict:
     """--k v pairs of an argv list as override paths."""
     return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
@@ -4212,6 +4352,7 @@ def main() -> int:
         phase_camera_opt(records, scene)
         phase_stream(scene)
         phase_preprocess(scene, tmp)
+    phase_tools_torch(records)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]
     check(not bad, f"imported {bad}")

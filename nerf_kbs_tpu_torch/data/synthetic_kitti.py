@@ -355,16 +355,21 @@ def _dynamic_flow_of(traced, movers, dt, pose_b, h, w, fx, fy, cx, cy):
     return _flow_of(pts, sem, xs_f, ys_f, pose_b, h, w, fx, fy, cx, cy)
 
 
-def render_dynamic_frame(pose, static, movers, frame, h, w, fx, fy, cx, cy):
+def render_dynamic_frame(pose, static, movers, frame, h, w, fx, fy, cx, cy,
+                         return_instances: bool = False):
     """One frame with the movers at their positions of ``frame``: (rgb (H, W,
     3), z-depth (H, W) f32, semantic ids (H, W) int32, moving mask (H, W)
-    bool)."""
+    bool) and, with ``return_instances``, the instance ids (H, W) int32 (0
+    background, 1 .. len(movers) the movers): the segmenter's free labels."""
     _, _, norm, _, _, rgb, t_ray, sem, ids = _dynamic_trace(pose, static, movers, frame, h, w,
                                                             fx, fy, cx, cy)
     dyn = (ids >= 0) & (ids < len(movers))
     # the camera-space direction has z = 1: z-depth = ray distance / |d_cam|
-    return (rgb.reshape(h, w, 3), (t_ray / norm[:, 0]).reshape(h, w).astype(np.float32),
-            sem.reshape(h, w).astype(np.int32), dyn.reshape(h, w))
+    out = (rgb.reshape(h, w, 3), (t_ray / norm[:, 0]).reshape(h, w).astype(np.float32),
+           sem.reshape(h, w).astype(np.int32), dyn.reshape(h, w))
+    if return_instances:
+        return out + (np.where(dyn, ids + 1, 0).astype(np.int32).reshape(h, w),)
+    return out
 
 
 def render_dynamic_flow(pose_a, pose_b, static, movers, frame_a, frame_b, h, w, fx, fy, cx, cy):

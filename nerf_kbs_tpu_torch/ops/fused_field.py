@@ -21,8 +21,9 @@ spec says ``need_dx``.
 
 A wrapper given CUDA tensors launches its kernel (``csrc/``) or raises; given
 CPU tensors it runs the plain version. ``LAUNCHES`` counts kernel launches
-(a backward's passes over the points and its reduction belong to one launch);
-it and the cache of weight-image indices on the device are shared by every
+(a backward's passes over the points and its reduction belong to one launch),
+``DX_LAUNCHES`` the backward launches among them that ran their dx branch;
+they and the cache of weight-image indices on the device are shared by every
 thread that launches (a live viewer renders while the trainer steps), so
 both change under a lock.
 Every kernel has a wgmma body for the flagship widths (``_wgmma_field``;
@@ -47,23 +48,28 @@ from nerf_kbs_tpu_torch.ops import _kernels
 KERNELS = ("fourier_mlp", "fourier_field_mlp", "fourier_mlp_bwd", "fourier_field_mlp_bwd")
 LAUNCHES = {**dict.fromkeys(KERNELS, 0), **{f"{k}_wgmma": 0 for k in KERNELS},
             "fourier_mlp_base_wgmma": 0, "fourier_mlp_bwd_base_wgmma": 0}
+# the backward launches of LAUNCHES whose spec asked for dx (need_dx)
+DX_LAUNCHES = {k: 0 for k in LAUNCHES if "_bwd" in k}
 # measurement only: the kernels (names from KERNELS) whose flagship widths
 # (and, for the fused MLP, base widths) go through the WMMA body too, so that
 # one run can time both bodies of a kernel on the same inputs while the
 # others keep their wgmma bodies
 FORCE_WMMA: frozenset = frozenset()
-_shared = threading.Lock()  # LAUNCHES and _image_index_on_device
+_shared = threading.Lock()  # LAUNCHES, DX_LAUNCHES and _image_index_on_device
 
 
 def reset_launches() -> None:
     with _shared:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, DX_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
-def _count(key: str) -> None:
+def _count(key: str, dx: bool = False) -> None:
     with _shared:
         LAUNCHES[key] += 1
+        if dx:
+            DX_LAUNCHES[key] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -576,7 +582,7 @@ def _mlp_backward(spec: FusedMLPSpec, x_t, B, ws, bs, g):
         2 * image.numel() if body else 0, scratch.data_ptr() if scratch is not None else None,
         scratch.numel() if scratch is not None else 0, _stream(x),
     )
-    _count("fourier_mlp_bwd" + body)
+    _count("fourier_mlp_bwd" + body, spec.need_dx)
     dws, dbs = _unpack(dwb, spec.layer_dims)
     return dx, dws, dbs
 
@@ -695,7 +701,7 @@ def _field_backward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_w
         image.data_ptr() if wgmma else None, 2 * image.numel() if wgmma else 0,
         scratch.data_ptr() if wgmma else None, scratch.numel() if wgmma else 0, _stream(x),
     )
-    _count("fourier_field_mlp_bwd_wgmma" if wgmma else "fourier_field_mlp_bwd")
+    _count("fourier_field_mlp_bwd_wgmma" if wgmma else "fourier_field_mlp_bwd", spec.need_dx)
     d_base_ws, d_base_bs = _unpack(d_base, spec.base_dims)
     d_rgb_ws, d_rgb_bs = _unpack(d_rgb, spec.rgb_dims)
     return dx, dfeats, d_base_ws, d_base_bs, d_rgb_ws, d_rgb_bs

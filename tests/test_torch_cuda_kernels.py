@@ -312,9 +312,11 @@ def test_fourier_field_backward_kernel_flagship(dev, basis, need_dx, F, n):
     x, B, feats, bws, bbs, rws, rbs, kw = _flagship(rng, n, F, basis, dev)
     g = torch.tensor(rng.normal(size=(4, n)), dtype=torch.float32, device=dev)
     spec = ff.FusedFieldSpec(need_dx=need_dx, **kw)
-    before = dict(ff.LAUNCHES)
+    before, before_dx = dict(ff.LAUNCHES), dict(ff.DX_LAUNCHES)
     got = ff._field_backward(spec, x, feats, B, bws, bbs, rws, rbs, g)
     assert ff.LAUNCHES["fourier_field_mlp_bwd_wgmma"] == before["fourier_field_mlp_bwd_wgmma"] + 1
+    assert ff.DX_LAUNCHES == {**before_dx, "fourier_field_mlp_bwd_wgmma":
+                              before_dx["fourier_field_mlp_bwd_wgmma"] + int(need_dx)}
     assert ff.LAUNCHES["fourier_field_mlp_bwd"] == before["fourier_field_mlp_bwd"]
     want = ff.fourier_field_backward_reference(x, feats, B, bws, bbs, rws, rbs, g, basis, True,
                                                need_dx)

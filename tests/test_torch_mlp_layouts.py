@@ -68,7 +68,11 @@ def test_mlp_image_needs_whole_k_steps():
 def test_pair_order_forward_and_its_inverse_on_dw0(basis):
     """Encoding and W_0 rows permuted alike give the plain pre-activation up
     to summation order, and the dW_0 the kernel accumulates in image order,
-    scattered through the order, is ``_pack``'s dW_0 bit for bit."""
+    scattered through the order, is ``_pack``'s dW_0 bit for bit. The relu
+    mask is the reference's own: its forward (``_encode_grads``,
+    ``_chain_fwd``) runs once and feeds both the mask and its backward
+    (``_chain_bwd``), since a pre-activation within rounding of zero can
+    land on either side in two separate f32 products."""
     rng = np.random.default_rng(1)
     n, H = 257, 40
     x = torch.tensor(rng.random((3, n)), dtype=torch.float32)
@@ -76,13 +80,14 @@ def test_pair_order_forward_and_its_inverse_on_dw0(basis):
     ws, bs = _mlp(rng, DIMS)
     g = torch.tensor(rng.normal(size=(1, n)), dtype=torch.float32)
     order = torch.from_numpy(ff._mlp_k_order(H))
-    enc = ff._encode(x, B, basis, True)
+    s, c, _, _ = ff._encode_grads(x, B, basis)
+    enc = ff._cast(torch.cat([s, c]), True)
+    pre, acts = ff._chain_fwd(enc, ws, bs, True)
     w0 = ff._cast(ws[0], True)
-    pre = w0.T @ enc + bs[0][:, None]
     pre_pairs = w0[order].T @ enc[order] + bs[0][:, None]
-    assert float((pre - pre_pairs).abs().max()) <= 1e-5
-    _, dws, _ = ff.fourier_mlp_backward_reference(x, B, ws, bs, g, basis, True, need_dx=False)
-    dh = ff._cast(ws[1] @ g * (pre > 0), True)
+    assert float((pre[0] - pre_pairs).abs().max()) <= 1e-5
+    _, dws, _ = ff._chain_bwd(ws, pre, acts, g, True, dot_first=True, need_din=False)
+    dh = ff._cast(ws[1] @ g * (pre[0] > 0), True)
     in_image_order = enc[order] @ dh.T  # row k is feature order[k]
     back = torch.empty_like(in_image_order)
     back[order] = in_image_order
@@ -93,17 +98,19 @@ def test_pair_order_forward_and_its_inverse_on_dw0(basis):
 @pytest.mark.parametrize("basis", ["tri", "sincos"])
 def test_pair_order_dx(basis):
     """d_enc taken k-step by k-step from the image (columns 0..7 ds, 8..15 dc
-    of 8 frequencies) gives the plain dx."""
+    of 8 frequencies) gives the plain dx. The relu mask and the plain dx
+    share one forward of the reference (see the test above)."""
     rng = np.random.default_rng(2)
     n, H = 130, 40
     x = torch.tensor(rng.random((3, n)), dtype=torch.float32)
     B = torch.tensor(rng.normal(size=(3, H)) * 5.0, dtype=torch.float32)
     ws, bs = _mlp(rng, DIMS)
     g = torch.tensor(rng.normal(size=(1, n)), dtype=torch.float32)
-    want, _, _ = ff.fourier_mlp_backward_reference(x, B, ws, bs, g, basis, True, need_dx=True)
     s, c, dsdu, dcdu = ff._encode_grads(x, B, basis)
-    pre = ff._cast(ws[0], True).T @ ff._cast(torch.cat([s, c]), True) + bs[0][:, None]
-    dh = ff._cast(ws[1] @ g * (pre > 0), True)
+    pre, acts = ff._chain_fwd(ff._cast(torch.cat([s, c]), True), ws, bs, True)
+    d_enc, _, _ = ff._chain_bwd(ws, pre, acts, g, True, dot_first=True, need_din=True)
+    want = ff._dx_from_denc(d_enc, dsdu, dcdu, B)
+    dh = ff._cast(ws[1] @ g * (pre[0] > 0), True)
     order = ff._mlp_k_order(H)
     w0_pairs = ff._cast(ws[0], True)[torch.from_numpy(order)]  # rows in pair order
     dx = torch.zeros(3, n)
@@ -166,6 +173,22 @@ def test_launch_counters_and_forcing():
     ff.LAUNCHES["fourier_mlp_wgmma"] += 3
     ff.reset_launches()
     assert not any(ff.LAUNCHES.values())
+
+
+def test_dx_launch_counters():
+    """DX_LAUNCHES keeps a count for each backward body, which a launch
+    with need_dx adds to beside its LAUNCHES count, and reset_launches
+    clears it too."""
+    assert set(ff.DX_LAUNCHES) == {"fourier_mlp_bwd", "fourier_field_mlp_bwd",
+                                   "fourier_mlp_bwd_wgmma", "fourier_field_mlp_bwd_wgmma",
+                                   "fourier_mlp_bwd_base_wgmma"}
+    ff.reset_launches()
+    ff._count("fourier_mlp_bwd_wgmma", True)
+    ff._count("fourier_field_mlp_bwd_wgmma", False)
+    assert ff.LAUNCHES["fourier_mlp_bwd_wgmma"] == ff.LAUNCHES["fourier_field_mlp_bwd_wgmma"] == 1
+    assert {k: v for k, v in ff.DX_LAUNCHES.items() if v} == {"fourier_mlp_bwd_wgmma": 1}
+    ff.reset_launches()
+    assert not any(ff.LAUNCHES.values()) and not any(ff.DX_LAUNCHES.values())
 
 
 @pytest.mark.parametrize("dims,want", [(DIMS, 80 * 16 + 16 + 16 * 16 + 16),

@@ -247,10 +247,11 @@ def test_exact_motion_chain_matches_the_jax_tool(tmp_path, monkeypatch):
     """The chain of ``tools/demo_motion_pipeline.py`` (exact depth and pose
     -> pose2flow -> moving_probability -> hard mask -> components ->
     per-object fusion, scored against the true dynamic masks) at 4 frames of
-    94 x 310: the JAX tool itself against ``chip_smoke.exact_motion_chain``
-    on the CPU, mask for mask."""
+    94 x 310: the JAX tool itself against the port's
+    ``process_data.exact_chain.exact_motion_chain`` on the CPU, mask for
+    mask."""
     pytest.importorskip("PIL.Image")
-    import chip_smoke
+    from nerf_kbs_tpu_torch.process_data.exact_chain import exact_motion_chain
     from nerf_kbs_tpu_torch.utils.images import decode_png
 
     monkeypatch.syspath_prepend(str(Path(__file__).resolve().parent.parent / "tools"))
@@ -261,7 +262,7 @@ def test_exact_motion_chain_matches_the_jax_tool(tmp_path, monkeypatch):
                                       "--out", str(out), "--platform", ""])
     demo_motion_pipeline.main()
     want = json.loads((out / "result.json").read_text())
-    got = chip_smoke.exact_motion_chain(4, 94, 310, 0.3, device="cpu")
+    got = exact_motion_chain(4, 94, 310, 0.3, device="cpu")
     assert len(got["masks"]) == 3
     for i, m in enumerate(got["masks"]):
         np.testing.assert_array_equal(m * 255, decode_png((out / f"mask_{i:03d}.png").read_bytes()))
