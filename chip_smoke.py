@@ -63,7 +63,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    also at N below and around one tile and past the card's resident tiles
    (against the plain versions and the WMMA bodies) and A at one run-2 eval
    chunk; timed at the train-step shape, the wgmma and WMMA bodies in turns,
-   C with and without dx (part of phase 2);
+   C with and without dx; and A and C at sem30k-flagship2's 2-layer base
+   (tools/reference_runs_torch.sh; (256, 128, 16), which their WMMA bodies
+   run) against their plain versions and timed at its train step, 16,384
+   rays x 48 samples, tri, bf16 (the *_base2 records) (part of phase 2);
 6. the street scene: the port's writer makes an 8-frame 376x1241
    KITTI-layout scene (frames, depth, semantics, masks, forward flow),
    timed;
@@ -190,14 +193,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    step of each preprocessing trainer (RAFT at 640x192 with 12 iterations,
    the segmenter, the inpainter at 432x240 with T = 10) card against CPU,
    its ms and peak memory;
-18. the port's tools (phase tools_torch): the nine tools/*_torch.py as
+18. the reference operating point (phase reference_runs): the two
+   protocols of tools/reference_runs_torch.sh (the JAX package's 30k-step
+   runs), read from the script and cut to the street scene (split 6 / 2)
+   and to 1,500 steps of ilf050 (nerfacto-tpu) and 600 of sem30k-flagship2
+   (semantic-nerfw, tri Fourier field), the anneal and the cadences cut in
+   proportion, 16,384 rays a step, through cli.main: the launch counts of
+   each run (A 2 / B 1 / C 2 / D 1 a step for ilf050; A 2 + 1 on the WMMA
+   body for the 2-layer base, C likewise, for sem30k-flagship2), every
+   logged loss finite, and the final PSNR of the split at least 2 dB above
+   the eval images' PSNR against their own mean colour (a run stalled at the
+   background fails);
+19. the port's tools (phase tools_torch): the nine tools/*_torch.py as
    programs, started together at cut sizes (the orbit scene at 64x64, 50 to
    200 steps; regen_data_torch at 3 frames of 94x310): their JAX twins'
    committed result keys, the studies' launches a step (A 2 / B 1 / C 2 /
    D 1, C and D all with dx in the camera arms) and an eval chunk (A 2 / B
    1) from their '# launches' lines, and that they learn (see
    phase_tools_torch);
-19. a {"kernels": [...]} line, each record's "launches" counted per
+20. a {"kernels": [...]} line, each record's "launches" counted per
    "launches_per" (a frame, a bench step, a run-2 or a run-7 step, a run-2
    step with the camera optimizer; A to D also with
    "parallel_launches_per_rank_step" and "per_rank_n_max_err", and the
@@ -1040,6 +1054,71 @@ def phase_kernels():
         records.append(rec)
         del x, g
         torch.cuda.empty_cache()
+
+    # kernels A and C at sem30k-flagship2's base widths (tools/reference_runs_torch.sh:
+    # semantic-nerfw's 2-layer base MLP, H = 128), which no wgmma body is
+    # written for: the WMMA bodies run them. Held against the plain versions
+    # and timed at that run's train step (16,384 rays x 48 samples), tri,
+    # bf16, no dx (its sampling is detached and it has no camera optimizer)
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.engine import cli
+
+    sem = cli.apply_overrides(cli.method_registry["semantic-nerfw"](),
+                              protocol_argv("sem30k-flagship2", "out")[1]).model
+    base2 = sem.field.base_mlp
+    check(base2.dims[0] == 2 * fB.shape[1], f"sem30k-flagship2's base MLP {base2.dims}")
+    b2ws, b2bs = _weights(base2, gen, dev)
+    b2_dims, n_b2 = base2.dims, 16384 * sem.num_nerf_samples_per_ray
+    bm2 = macs(b2_dims)
+    b2_w = sum(t.numel() for t in (*b2ws, *b2bs)) + fB.numel()
+    x = positions(n_b2)
+    g = torch.randn(b2_dims[-1], n_b2, generator=gen).to(dev)
+    ff.reset_launches()
+    for name, mac, src, line in (
+        ("fourier_mlp_fwd", 3 * fB.shape[1] + sum(bm2), "fourier_mlp_fwd.cu", 329),
+        ("fourier_mlp_bwd", 3 * fB.shape[1] + sum(bm2[:-1]) + sum(bm2) + sum(bm2[1:]),
+         "fourier_mlp_bwd.cu", 381),
+    ):
+        spec = ff.FusedMLPSpec(h_freqs=fB.shape[1], layer_dims=b2_dims, bf16=True, basis="tri",
+                               need_dx=False)
+        if name == "fourier_mlp_fwd":
+            kern = lambda: ff.fourier_mlp(spec, x, fB, b2ws, b2bs)  # noqa: E731
+            plain = lambda: ff.fourier_mlp_reference(x, fB, b2ws, b2bs, "tri", True)  # noqa: E731
+            err = float((kern() - plain()).abs().max())
+            ok = err <= TOLERANCE[("tri", True)]
+        else:
+            kern = lambda: list(ff._mlp_backward(spec, x, fB, b2ws, b2bs, g)[1:])  # noqa: E731
+            plain = lambda: list(ff.fourier_mlp_backward_reference(  # noqa: E731
+                x, fB, b2ws, b2bs, g, "tri", True, False)[1:])
+            got, want = kern(), plain()
+            err = max(rel_err(a, b) for a, b in zip(sum(got, []), sum(want, [])))
+            ok = err <= SUM_TOLERANCE
+            del got, want
+        check(ok, f"{name} at sem30k-flagship2's base widths {b2_dims}: err {err}")
+        ms = time_ms(kern, 10)
+        dev_ms, by_name = device_ms(kern, 10)
+        alu = alu_ops_per_point(name, fB.shape[1], sum(b2_dims[1:-1]), b2_dims[-1])
+        per_point_bytes = 12 + 4 * b2_dims[-1]
+        rec = {"name": f"{name}_base2", "route": "cuda",
+               "source": f"nerf_kbs_tpu_torch/csrc/{src}",
+               "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
+               "max_abs_err": err,
+               **({"err_is": "weight and bias gradients, relative to each one's largest "
+                             "magnitude"} if name == "fourier_mlp_bwd" else {}),
+               "ms": ms, "plain_ms": time_ms(plain, 3),
+               **bound(n_b2 * per_point_bytes + 4 * b2_w * (2 if name == "fourier_mlp_bwd" else 1),
+                       2.0 * n_b2 * mac, n_b2 * alu, bf16=True),
+               "library_ms": None, "n_points": n_b2, "dims": list(b2_dims),
+               "h_freqs": fB.shape[1], "basis": "tri", "dtype": "bf16", "body": "wmma",
+               "alu_instructions_per_point": alu, "device_ms": dev_ms,
+               "device_ms_by_kernel": {k[:60]: v for k, v in by_name.items()}}
+        emit({"phase": "timing", **rec})
+        records.append(rec)
+    ran = {k: v for k, v in ff.LAUNCHES.items() if v}
+    check(set(ran) == {"fourier_mlp", "fourier_mlp_bwd"},
+          f"sem30k-flagship2's base widths launched {ran}")
+    del x, g
+    torch.cuda.empty_cache()
     return records
 
 
@@ -4307,6 +4386,136 @@ def phase_tools_torch(records) -> None:
                 KERNEL_OF[WRAPPER[rec["name"][:-len("_dx")]]]]
 
 
+# phase reference_runs: the two protocols of tools/reference_runs_torch.sh
+# (the JAX package's 30,000-step reference runs) cut to the smoke's scene and
+# time. Per protocol: the steps, and the launches of a train step and of an
+# eval chunk (an eval batch is one chunk). ilf050 runs the flagship field (A
+# and C at the proposal widths, B and D); sem30k-flagship2's split field has
+# a 2-layer base MLP, (256, 128, 16), which A and C run on their WMMA bodies.
+REFERENCE_RUNS = {
+    "ilf050": (1500, {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1,
+                      "fourier_mlp_bwd_wgmma": 2, "fourier_field_mlp_bwd_wgmma": 1},
+               {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1}),
+    "sem30k-flagship2": (600, {"fourier_mlp_wgmma": 2, "fourier_mlp": 1,
+                               "fourier_mlp_bwd_wgmma": 2, "fourier_mlp_bwd": 1},
+                         {"fourier_mlp_wgmma": 2, "fourier_mlp": 1}),
+}
+REFERENCE_STEPS = 30000
+# the protocol's cadences, cut by steps / 30,000 with the run
+REFERENCE_CADENCES = ("model.fourier_anneal_steps", "trainer.steps_per_eval_image",
+                      "trainer.steps_per_eval_batch", "trainer.steps_per_eval_all_images",
+                      "trainer.log_every", "trainer.max_num_iterations")
+
+
+def protocol_argv(protocol: str, out: str) -> tuple[str, dict]:
+    """(method, override pairs) of ``protocol``'s seed-42 run, output under
+    ``out``, as tools/reference_runs_torch.sh prints it."""
+    words = subprocess.run(["bash", str(HERE / "tools" / "reference_runs_torch.sh"), "--argv",
+                            out, f"{protocol}-s42"], check=True, capture_output=True,
+                           text=True).stdout.split()
+    return words[1], _pairs(words[2:])
+
+
+def reference_argv(protocol: str, scene: str, out: str) -> tuple[str, list, dict]:
+    """(method, argv, cuts) of ``protocol`` as tools/reference_runs_torch.sh
+    runs it at seed 42, cut to the smoke: the scene (8 frames at SCENE_HW,
+    split 6 / 2, the protocol's 36 / 4 of 40 at 0.9 leaving no eval frame of
+    8), its cadences by steps / 30,000 (the Fourier anneal, the evals, the
+    log, the run's length), a checkpoint at the end only. Every other pair
+    is the protocol's: 16,384 rays a step, the widths, the interlevel
+    fraction, ``steps_per_dispatch`` 50. ``cuts`` maps each changed path to
+    (protocol's value, cut value)."""
+    method, ov = protocol_argv(protocol, out)
+    steps = REFERENCE_RUNS[protocol][0]
+    cut = {k: str(int(ov[k]) * steps // REFERENCE_STEPS) for k in REFERENCE_CADENCES}
+    cut.update({"dataparser.last_frame": "8", "dataparser.train_split_fraction": "0.75",
+                "dataparser.image_height": str(SCENE_HW[0]),
+                "dataparser.image_width": str(SCENE_HW[1]),
+                "trainer.steps_per_save": str(steps)})
+    for k, v in ov.items():
+        if v.startswith("outputs/kitti_syn"):
+            cut[k] = scene + v[len("outputs/kitti_syn"):]
+    cuts = {k: (ov[k], v) for k, v in cut.items()}
+    ov.update(cut)
+    return method, [x for k, v in ov.items() for x in (f"--{k}", v)], cuts
+
+
+def phase_reference_runs(records, scene: str) -> None:
+    """Both protocols of tools/reference_runs_torch.sh through cli.main,
+    cut (reference_argv): the launch counts of the whole run (steps x a
+    step's, plus the eval batches', eval images' and the split's chunks x a
+    chunk's), every logged loss finite, and no stall at the background: the
+    split's final PSNR at least 2 dB above that of each eval image against
+    its own mean colour (the frozen 3-layer arm of the camera study sat
+    there, PERF.md). Records the eval PSNR at each eval, the wall time and
+    the median logged rays/s; the ``*_base2`` kernel records (A and C at
+    sem30k-flagship2's base widths) take their launches a step from it."""
+    import numpy as np
+
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.data.datamanager import InMemoryDataManager
+    from nerf_kbs_tpu_torch.engine import cli
+    from nerf_kbs_tpu_torch.ops import fused_field as ff
+
+    for protocol, (steps, per_step, per_chunk) in REFERENCE_RUNS.items():
+        out = tempfile.mkdtemp(prefix=f"nkt_ref_{protocol}_")
+        method, argv, cuts = reference_argv(protocol, scene, out)
+        spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
+        tr = spec.trainer
+        dm = InMemoryDataManager(spec.dataparser.parse("train"), spec.dataparser.parse("val"),
+                                 spec.datamanager)
+        gts = dm.eval_assets["images"].astype(np.float64) / 255.0
+        n_eval = len(gts)
+        mean_colour_psnr = [float(-10 * np.log10(np.mean((g - g.mean((0, 1))) ** 2)))
+                            for g in gts]
+        chunks_per_image = -(-SCENE_HW[0] * SCENE_HW[1] // tr.eval_num_rays_per_chunk)
+        chunks = (steps // tr.steps_per_eval_batch
+                  + (steps // tr.steps_per_eval_image + n_eval) * chunks_per_image)
+        want = {k: steps * per_step.get(k, 0) + chunks * per_chunk.get(k, 0)
+                for k in set(per_step) | set(per_chunk)}
+        ff.reset_launches()
+        t0 = time.perf_counter()
+        cli.main([method] + argv)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        check(launches == want, f"{protocol}: launches {launches}, want {want}")
+        lines = [json.loads(ln) for ln in
+                 (Path(out) / f"{protocol}-s42" / tr.experiment_name / method
+                  / "metrics.jsonl").read_text().splitlines()]
+        logged = [ln for ln in lines if "total_loss" in ln]
+        check(len(logged) == steps // tr.log_every, f"{protocol}: {len(logged)} logged steps")
+        check(all(np.isfinite(v) for ln in logged for k, v in ln.items() if k.endswith("_loss")),
+              f"{protocol}: a non-finite loss")
+        final = [ln for ln in lines if "eval_all_psnr" in ln]
+        check(len(final) == 1 and final[0]["eval_all_num_images"] == n_eval
+              and all(np.isfinite(v) for v in final[0].values()), f"{protocol}: eval {final}")
+        floor = float(np.mean(mean_colour_psnr)) + 2.0
+        check(final[0]["eval_all_psnr"] >= floor,
+              f"{protocol}: eval_all_psnr {final[0]['eval_all_psnr']:.3f} under {floor:.3f}, "
+              "2 dB over the eval images' own mean colour: stalled at the background")
+        rays_per_s = sorted(ln["rays_per_sec"] for ln in logged[1:])
+        emit({"phase": "reference_runs", "protocol": protocol, "method": method,
+              "steps": steps, "cuts": cuts, "wall_s": wall,
+              "median_rays_per_s": rays_per_s[len(rays_per_s) // 2],
+              "launches": launches, "launches_per_step": per_step,
+              "launches_per_eval_chunk": per_chunk, "eval_chunks": chunks,
+              "loss_first": logged[0]["total_loss"], "loss_last": logged[-1]["total_loss"],
+              "psnr_last": logged[-1]["psnr"],
+              "eval_psnr": {ln["step"]: ln["eval_psnr"] for ln in lines if "eval_psnr" in ln},
+              "eval_batch_psnr": {ln["step"]: ln["eval_batch_psnr"] for ln in lines
+                                  if "eval_batch_psnr" in ln},
+              "eval_all": {k: v for k, v in final[0].items() if k.startswith("eval_all_")},
+              "mean_colour_psnr": mean_colour_psnr, "stall_floor_psnr": floor})
+        if protocol == "sem30k-flagship2":
+            for rec in records:
+                if rec["name"].endswith("_base2"):
+                    counter = WRAPPER[rec["name"][:-len("_base2")]]
+                    rec["launches"] = per_step[counter]
+                    rec["launches_per"] = "16,384-ray sem30k-flagship2 train step"
+                    rec["launches_per_eval_chunk"] = per_chunk.get(counter, 0)
+                    rec["reference_run_launches"] = launches[counter]
+
+
 def _pairs(argv: list) -> dict:
     """--k v pairs of an argv list as override paths."""
     return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
@@ -4352,6 +4561,7 @@ def main() -> int:
         phase_camera_opt(records, scene)
         phase_stream(scene)
         phase_preprocess(scene, tmp)
+        phase_reference_runs(records, scene)
     phase_tools_torch(records)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]

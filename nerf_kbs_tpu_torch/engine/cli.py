@@ -349,8 +349,11 @@ def main(argv: Optional[list[str]] = None, device=None):
         print(f"live viewer on http://{viewer.host}:{viewer.port} "
               "(/ /ws /status /render /orbit /latest)", flush=True)
     metrics = trainer.train()
-    final = trainer.eval_all_images()
-    trainer._log({"step": trainer.step, **{f"eval_all_{k}": v for k, v in final.items()}})
+    if trainer.last_eval_all is not None and trainer.last_eval_all[0] == trainer.step:
+        final = trainer.last_eval_all[1]  # the loop's, logged once as in the JAX package
+    else:
+        final = trainer.eval_all_images()
+        trainer._log({"step": trainer.step, **{f"eval_all_{k}": v for k, v in final.items()}})
     trainer.save_checkpoint()
     print(f"done: {metrics} eval={final}", flush=True)
     return viewer

@@ -113,6 +113,11 @@ class TrainerConfig:
     # for the eval image's appearance row, fitted on the image's left half
     eval_fit_appearance_steps: int = 0
     eval_fit_appearance_lr: float = 1e-2
+    # the JAX package's scanned dispatch (K steps a dispatch, landing on every
+    # cadence's boundary and logging its last step's metrics): accepted so
+    # that its argvs run unchanged, and without effect, since every step here
+    # is dispatched on its own (module docstring) and logs the same lines
+    steps_per_dispatch: int = 1
 
 
 def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
@@ -174,6 +179,8 @@ class Trainer:
         self._lpips = None
         self._lpips_checked = False
         self._tb_writer = None
+        # (step, metrics) of the last eval_all_images of the loop's cadence
+        self.last_eval_all: Optional[tuple[int, dict]] = None
         if config.load_dir is not None:
             self.load_checkpoint(config.load_dir)
 
@@ -235,6 +242,7 @@ class Trainer:
                 self._log({"step": self.step, **{f"eval_{k}": v for k, v in em.items()}})
             if self.step % cfg.steps_per_eval_all_images == 0 and n_eval > 0:
                 am = self.eval_all_images()
+                self.last_eval_all = (self.step, am)
                 self._log({"step": self.step, **{f"eval_all_{k}": v for k, v in am.items()}})
             if self.step % cfg.steps_per_save == 0:
                 self.save_checkpoint()
