@@ -63,10 +63,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    also at N below and around one tile and past the card's resident tiles
    (against the plain versions and the WMMA bodies) and A at one run-2 eval
    chunk; timed at the train-step shape, the wgmma and WMMA bodies in turns,
-   C with and without dx; and A and C at sem30k-flagship2's 2-layer base
-   (tools/reference_runs_torch.sh; (256, 128, 16), which their WMMA bodies
-   run) against their plain versions and timed at its train step, 16,384
-   rays x 48 samples, tri, bf16 (the *_base2 records) (part of phase 2);
+   C with and without dx; the same for A and C at sem30k-flagship2's 2-layer
+   base (tools/reference_runs_torch.sh; (256, 128, 16), the same base-width
+   wgmma bodies at one hidden layer), timed at its train step, 16,384 rays x
+   48 samples, tri, bf16, no dx (the *_base2 records) (part of phase 2);
 6. the street scene: the port's writer makes an 8-frame 376x1241
    KITTI-layout scene (frames, depth, semantics, masks, forward flow),
    timed;
@@ -199,11 +199,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and to 1,500 steps of ilf050 (nerfacto-tpu) and 600 of sem30k-flagship2
    (semantic-nerfw, tri Fourier field), the anneal and the cadences cut in
    proportion, 16,384 rays a step, through cli.main: the launch counts of
-   each run (A 2 / B 1 / C 2 / D 1 a step for ilf050; A 2 + 1 on the WMMA
-   body for the 2-layer base, C likewise, for sem30k-flagship2), every
+   each run (A 2 / B 1 / C 2 / D 1 a step for ilf050; A 2 + 1 on the
+   base-width wgmma body for the 2-layer base, C likewise, for
+   sem30k-flagship2; no WMMA body), every
    logged loss finite, and the final PSNR of the split at least 2 dB above
    the eval images' PSNR against their own mean colour (a run stalled at the
-   background fails);
+   background fails); then a profile of one sem30k-flagship2 step;
 19. the port's tools (phase tools_torch): the nine tools/*_torch.py as
    programs, started together at cut sizes (the orbit scene at 64x64, 50 to
    200 steps; regen_data_torch at 3 frames of 94x310): their JAX twins'
@@ -837,290 +838,266 @@ def phase_kernels():
         del x, g
         torch.cuda.empty_cache()
 
-    # kernels A and C at the nerfacto field's base widths (H = 128, (256, 128,
-    # 128, 16)): the semantics path runs the base MLP alone in them, through
-    # their base-width wgmma bodies. Parity in both bases and dtypes (C with
-    # and without dx) at run 2's train-step shape (4096 rays x 48 samples) and
-    # a ragged N; the wgmma bodies at the edge N values and A at one eval
-    # chunk; then times at the train-step shape, tri, bf16, the wgmma and
-    # WMMA bodies in turns, C with and without dx
+    # kernels A and C at the base widths, H = 128: the nerfacto field's base
+    # MLP (256, 128, 128, 16), which the semantics path runs alone in them
+    # (run 2), and sem30k-flagship2's 2-layer base (256, 128, 16)
+    # (tools/reference_runs_torch.sh: semantic-nerfw's split field), both
+    # through their base-width wgmma bodies. Parity in both bases and dtypes
+    # (C with and without dx) at run 2's train-step shape and a ragged N; the
+    # wgmma bodies at the edge N values and A at one eval chunk; then times
+    # tri, bf16, the wgmma and WMMA bodies in turns: the 3-layer base at run
+    # 2's train step (C with and without dx), the 2-layer base at
+    # sem30k-flagship2's (16,384 rays x 48 samples; no dx: its sampling is
+    # detached and it has no camera optimizer)
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.engine import cli
+
     hB = fB  # the field's frequencies, (3, 128)
     base_dims = fcfg.base_mlp.dims
     n_base = 4096 * cfg.num_nerf_samples_per_ray
+    sem = cli.apply_overrides(cli.method_registry["semantic-nerfw"](),
+                              protocol_argv("sem30k-flagship2", "out")[1]).model
+    base2 = sem.field.base_mlp
+    check(base2.dims[0] == 2 * fB.shape[1] and base2.dims == (256, 128, 16),
+          f"sem30k-flagship2's base MLP {base2.dims}")
+    b2ws, b2bs = _weights(base2, gen, dev)
+    n_b2 = 16384 * sem.num_nerf_samples_per_ray
+    # widths name -> (dims, weights, biases)
+    chains = {"base": (base_dims, bws, bbs), "base2": (base2.dims, b2ws, b2bs)}
 
-    def base_a(basis, bf16, x):
+    def base_a(basis, bf16, x, widths="base"):
+        dims, ws, bs = chains[widths]
         B = hB * (2 * math.pi) if basis == "sincos" else hB
-        spec = ff.FusedMLPSpec(h_freqs=B.shape[1], layer_dims=base_dims, bf16=bf16, basis=basis)
-        return (lambda: ff.fourier_mlp(spec, x, B, bws, bbs),
-                lambda: ff.fourier_mlp_reference(x, B, bws, bbs, basis, bf16))
+        spec = ff.FusedMLPSpec(h_freqs=B.shape[1], layer_dims=dims, bf16=bf16, basis=basis)
+        return (lambda: ff.fourier_mlp(spec, x, B, ws, bs),
+                lambda: ff.fourier_mlp_reference(x, B, ws, bs, basis, bf16))
 
-    def base_c(basis, bf16, need_dx, x, g):
+    def base_c(basis, bf16, need_dx, x, g, widths="base"):
+        dims, ws, bs = chains[widths]
         B = hB * (2 * math.pi) if basis == "sincos" else hB
-        spec = ff.FusedMLPSpec(h_freqs=B.shape[1], layer_dims=base_dims, bf16=bf16, basis=basis,
+        spec = ff.FusedMLPSpec(h_freqs=B.shape[1], layer_dims=dims, bf16=bf16, basis=basis,
                                need_dx=need_dx)
 
         def flat(res):
             dx, dws, dbs = res
             return ([] if dx is None else [dx]) + list(dws) + list(dbs)
 
-        return (lambda: flat(ff._mlp_backward(spec, x, B, bws, bbs, g)),
-                lambda: flat(ff.fourier_mlp_backward_reference(x, B, bws, bbs, g, basis, bf16,
+        return (lambda: flat(ff._mlp_backward(spec, x, B, ws, bs, g)),
+                lambda: flat(ff.fourier_mlp_backward_reference(x, B, ws, bs, g, basis, bf16,
                                                                need_dx)))
 
     ff.reset_launches()
-    for n in (n_base, 100_003):
-        x = positions(n)
-        g = torch.randn(base_dims[-1], n, generator=gen).to(dev)
-        for basis in ("tri", "sincos"):
-            for bf16 in (True, False):
-                kern, plain = base_a(basis, bf16, x)
-                got, want = kern(), plain()
-                err = float((got - want).abs().max())
-                tol = TOLERANCE[(basis, bf16)]
-                check(bool(torch.isfinite(got).all()) and err <= tol,
-                      f"fourier_mlp_fwd base widths n={n} {basis} bf16={bf16}: err {err}")
-                emit({"phase": "parity", "kernel": "fourier_mlp_fwd", "widths": "base",
-                      "dims": list(base_dims), "n": n, "basis": basis,
-                      "dtype": "bf16" if bf16 else "f32", "body": "base_wgmma" if bf16 else "f32",
-                      "max_abs_err": err, "tol": tol, "max_abs_ref": float(want.abs().max())})
-                for need_dx in (False, True):
-                    kern, plain = base_c(basis, bf16, need_dx, x, g)
-                    got, want, again = kern(), plain(), kern()
-                    check(all(bool(torch.isfinite(t).all()) for t in got),
-                          "fourier_mlp_bwd base widths: non-finite output")
-                    tol = BWD_TOLERANCE[(basis, bf16)]
-                    per_point = [a.shape[-1] == n for a in got]
-                    errs = [rel_err(a, b) for a, b in zip(got, want)]
-                    out = [outliers(a, b, tol) for a, b, pp in zip(got, want, per_point) if pp]
-                    same = all(torch.equal(a, b) for a, b in zip(got, again))
-                    emit({"phase": "parity", "kernel": "fourier_mlp_bwd", "widths": "base",
-                          "dims": list(base_dims), "n": n, "basis": basis,
-                          "dtype": "bf16" if bf16 else "f32", "need_dx": need_dx,
-                          "body": "base_wgmma" if bf16 else "f32", "sum_tol": SUM_TOLERANCE,
-                          "max_rel_err": max(e for e, pp in zip(errs, per_point) if not pp),
-                          "last_layer_rel_err": errs[-1],
-                          "per_point_outlier_share": max(out, default=None),
-                          "repeat_bit_identical": same})
-                    check(all(e <= SUM_TOLERANCE for e, pp in zip(errs, per_point) if not pp),
-                          f"fourier_mlp_bwd base n={n} {basis} bf16={bf16} dx={need_dx}: {errs}")
-                    check(all(o <= PER_POINT_OUTLIERS for o in out),
-                          f"fourier_mlp_bwd base n={n} {basis} bf16={bf16}: outliers {out}")
-                    check(same, f"fourier_mlp_bwd base n={n}: a repeat gave other bits")
-                    del got, want, again
-        del x, g
-        torch.cuda.empty_cache()
+    for widths, (dims, _, _) in chains.items():
+        for n in (n_base, 100_003):
+            x = positions(n)
+            g = torch.randn(dims[-1], n, generator=gen).to(dev)
+            for basis in ("tri", "sincos"):
+                for bf16 in (True, False):
+                    kern, plain = base_a(basis, bf16, x, widths)
+                    got, want = kern(), plain()
+                    err = float((got - want).abs().max())
+                    tol = TOLERANCE[(basis, bf16)]
+                    check(bool(torch.isfinite(got).all()) and err <= tol,
+                          f"fourier_mlp_fwd {widths} widths n={n} {basis} bf16={bf16}: err {err}")
+                    emit({"phase": "parity", "kernel": "fourier_mlp_fwd", "widths": widths,
+                          "dims": list(dims), "n": n, "basis": basis,
+                          "dtype": "bf16" if bf16 else "f32",
+                          "body": "base_wgmma" if bf16 else "f32",
+                          "max_abs_err": err, "tol": tol, "max_abs_ref": float(want.abs().max())})
+                    for need_dx in (False, True):
+                        kern, plain = base_c(basis, bf16, need_dx, x, g, widths)
+                        got, want, again = kern(), plain(), kern()
+                        check(all(bool(torch.isfinite(t).all()) for t in got),
+                              f"fourier_mlp_bwd {widths} widths: non-finite output")
+                        tol = BWD_TOLERANCE[(basis, bf16)]
+                        per_point = [a.shape[-1] == n for a in got]
+                        errs = [rel_err(a, b) for a, b in zip(got, want)]
+                        out = [outliers(a, b, tol) for a, b, pp in zip(got, want, per_point)
+                               if pp]
+                        same = all(torch.equal(a, b) for a, b in zip(got, again))
+                        emit({"phase": "parity", "kernel": "fourier_mlp_bwd", "widths": widths,
+                              "dims": list(dims), "n": n, "basis": basis,
+                              "dtype": "bf16" if bf16 else "f32", "need_dx": need_dx,
+                              "body": "base_wgmma" if bf16 else "f32",
+                              "sum_tol": SUM_TOLERANCE,
+                              "max_rel_err": max(e for e, pp in zip(errs, per_point) if not pp),
+                              "last_layer_rel_err": errs[-1],
+                              "per_point_outlier_share": max(out, default=None),
+                              "repeat_bit_identical": same})
+                        check(all(e <= SUM_TOLERANCE for e, pp in zip(errs, per_point) if not pp),
+                              f"fourier_mlp_bwd {widths} n={n} {basis} bf16={bf16} "
+                              f"dx={need_dx}: {errs}")
+                        check(all(o <= PER_POINT_OUTLIERS for o in out),
+                              f"fourier_mlp_bwd {widths} n={n} {basis} bf16={bf16}: "
+                              f"outliers {out}")
+                        check(same, f"fourier_mlp_bwd {widths} n={n}: a repeat gave other bits")
+                        del got, want, again
+            del x, g
+            torch.cuda.empty_cache()
     # bf16 on the base-width wgmma bodies; f32 on the f32 bodies, which count
     # under the kernels' plain keys
     ran = {k: v for k, v in ff.LAUNCHES.items() if v}
-    check(ran == {"fourier_mlp_base_wgmma": 4, "fourier_mlp": 4,
-                  "fourier_mlp_bwd_base_wgmma": 16, "fourier_mlp_bwd": 16},
+    check(ran == {"fourier_mlp_base_wgmma": 8, "fourier_mlp": 8,
+                  "fourier_mlp_bwd_base_wgmma": 32, "fourier_mlp_bwd": 32},
           f"base-width launches {ran}")
 
     # the base-width bodies below and around one tile and past the tiles the
-    # card holds at once (2 x 2 warpgroups an SM in the forward, 2 in the
-    # backward's per-point pass), held as the proposal widths' above: the
-    # forward to its plain version and to the WMMA body; the backward's last
-    # layer (dW_2, db_2: no mask) to the plain version and every output to
-    # the WMMA body, which rounds and masks at the same places
-    for n in (1, 63, 64, 65, 64 * 3 + 1, 64 * 132 * 4 + 1):
-        x = positions(n)
-        g = torch.randn(base_dims[-1], n, generator=gen).to(dev)
-        for basis in ("tri", "sincos"):
-            before = dict(ff.LAUNCHES)
-            kern, plain = base_a(basis, True, x)
-            got, want = kern(), plain()
-            err = float((got - want).abs().max())
-            err_old = float((got - wmma_body(kern, "fourier_mlp_fwd")()).abs().max())
-            check(bool(torch.isfinite(got).all()) and err <= TOLERANCE[(basis, True)]
-                  and err_old <= TOLERANCE[(basis, True)],
-                  f"fourier_mlp_fwd base n={n} {basis}: err {err}, vs WMMA body {err_old}")
-            errs = {}
-            for need_dx in (False, True):
-                kern, plain = base_c(basis, True, need_dx, x, g)
-                got, want, again = kern(), plain(), kern()
-                old = wmma_body(kern, "fourier_mlp_bwd")()
-                check(all(bool(torch.isfinite(t).all()) for t in got),
-                      f"fourier_mlp_bwd base n={n}: non-finite output")
-                last = [int(need_dx) + 2, int(need_dx) + 5]  # dW_2, db_2
-                errs[need_dx] = {"last_layer_vs_plain": max(rel_err(got[i], want[i]) for i in last),
-                                 "all_vs_plain": max(rel_err(a, b) for a, b in zip(got, want)),
-                                 "all_vs_wmma_body": max(rel_err(a, b)
-                                                         for a, b in zip(got, old))}
-                check(errs[need_dx]["last_layer_vs_plain"] <= SUM_TOLERANCE
-                      and errs[need_dx]["all_vs_wmma_body"] <= SUM_TOLERANCE,
-                      f"fourier_mlp_bwd base n={n} {basis} need_dx={need_dx}: {errs[need_dx]}")
-                check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                      f"fourier_mlp_bwd base n={n} {basis}: a repeat gave other bits")
-            moved = {k: ff.LAUNCHES[k] - before[k] for k in ff.LAUNCHES if ff.LAUNCHES[k] != before[k]}
-            check(moved == {"fourier_mlp_base_wgmma": 1, "fourier_mlp": 1,
-                            "fourier_mlp_bwd_base_wgmma": 4, "fourier_mlp_bwd": 2},
-                  f"base edge launches {moved}")
-            emit({"phase": "parity_edge", "kernels": "fourier_mlp_fwd, fourier_mlp_bwd",
-                  "widths": "base", "n": n, "basis": basis, "dtype": "bf16",
-                  "fwd_max_abs_err": err, "fwd_vs_wmma_body": err_old,
-                  "tol": TOLERANCE[(basis, True)],
-                  "bwd_rel_err": {"no_dx": errs[False], "dx": errs[True]},
-                  "sum_tol": SUM_TOLERANCE, "repeat_bit_identical": True})
-        del x, g
-        torch.cuda.empty_cache()
+    # card holds at once (at most 6 warpgroups an SM in either pass), held as
+    # the proposal widths' above: the forward to its plain version and to the
+    # WMMA body; the backward's last layer (its dW and db: no mask) to the
+    # plain version and every output to the WMMA body, which rounds and masks
+    # at the same places
+    for widths, (dims, _, _) in chains.items():
+        depth = len(dims) - 1
+        for n in (1, 63, 64, 65, 64 * 3 + 1, 64 * 132 * 6 + 1):
+            x = positions(n)
+            g = torch.randn(dims[-1], n, generator=gen).to(dev)
+            for basis in ("tri", "sincos"):
+                before = dict(ff.LAUNCHES)
+                kern, plain = base_a(basis, True, x, widths)
+                got, want = kern(), plain()
+                err = float((got - want).abs().max())
+                err_old = float((got - wmma_body(kern, "fourier_mlp_fwd")()).abs().max())
+                check(bool(torch.isfinite(got).all()) and err <= TOLERANCE[(basis, True)]
+                      and err_old <= TOLERANCE[(basis, True)],
+                      f"fourier_mlp_fwd {widths} n={n} {basis}: err {err}, "
+                      f"vs WMMA body {err_old}")
+                errs = {}
+                for need_dx in (False, True):
+                    kern, plain = base_c(basis, True, need_dx, x, g, widths)
+                    got, want, again = kern(), plain(), kern()
+                    old = wmma_body(kern, "fourier_mlp_bwd")()
+                    check(all(bool(torch.isfinite(t).all()) for t in got),
+                          f"fourier_mlp_bwd {widths} n={n}: non-finite output")
+                    # the last layer's dW and db
+                    last = [int(need_dx) + depth - 1, int(need_dx) + 2 * depth - 1]
+                    errs[need_dx] = {
+                        "last_layer_vs_plain": max(rel_err(got[i], want[i]) for i in last),
+                        "all_vs_plain": max(rel_err(a, b) for a, b in zip(got, want)),
+                        "all_vs_wmma_body": max(rel_err(a, b) for a, b in zip(got, old))}
+                    check(errs[need_dx]["last_layer_vs_plain"] <= SUM_TOLERANCE
+                          and errs[need_dx]["all_vs_wmma_body"] <= SUM_TOLERANCE,
+                          f"fourier_mlp_bwd {widths} n={n} {basis} need_dx={need_dx}: "
+                          f"{errs[need_dx]}")
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"fourier_mlp_bwd {widths} n={n} {basis}: a repeat gave other bits")
+                moved = {k: ff.LAUNCHES[k] - before[k] for k in ff.LAUNCHES
+                         if ff.LAUNCHES[k] != before[k]}
+                check(moved == {"fourier_mlp_base_wgmma": 1, "fourier_mlp": 1,
+                                "fourier_mlp_bwd_base_wgmma": 4, "fourier_mlp_bwd": 2},
+                      f"{widths} edge launches {moved}")
+                emit({"phase": "parity_edge", "kernels": "fourier_mlp_fwd, fourier_mlp_bwd",
+                      "widths": widths, "dims": list(dims), "n": n, "basis": basis,
+                      "dtype": "bf16", "fwd_max_abs_err": err, "fwd_vs_wmma_body": err_old,
+                      "tol": TOLERANCE[(basis, True)],
+                      "bwd_rel_err": {"no_dx": errs[False], "dx": errs[True]},
+                      "sum_tol": SUM_TOLERANCE, "repeat_bit_identical": True})
+            del x, g
+            torch.cuda.empty_cache()
 
-    # A at one eval chunk of run 2 (1 << 16 rays x 48 samples)
+    # A at one eval chunk of run 2 and of sem30k-flagship2 (1 << 16 rays x 48
+    # samples)
     n_chunk = (1 << 16) * cfg.num_nerf_samples_per_ray
     x = positions(n_chunk)
-    for basis in ("tri", "sincos"):
-        kern, plain = base_a(basis, True, x)
-        got = kern()
-        err = float((got - plain()).abs().max())
-        err_old = float((got - wmma_body(kern, "fourier_mlp_fwd")()).abs().max())
-        emit({"phase": "parity", "kernel": "fourier_mlp_fwd", "widths": "base",
-              "dims": list(base_dims), "n": n_chunk, "basis": basis, "dtype": "bf16",
-              "body": "base_wgmma", "max_abs_err": err, "vs_wmma_body": err_old,
-              "tol": TOLERANCE[(basis, True)]})
-        check(bool(torch.isfinite(got).all()) and err <= TOLERANCE[(basis, True)]
-              and err_old <= TOLERANCE[(basis, True)],
-              f"fourier_mlp_fwd base n={n_chunk} {basis}: err {err}, vs WMMA body {err_old}")
-        del got
+    for widths, (dims, _, _) in chains.items():
+        for basis in ("tri", "sincos"):
+            kern, plain = base_a(basis, True, x, widths)
+            got = kern()
+            err = float((got - plain()).abs().max())
+            err_old = float((got - wmma_body(kern, "fourier_mlp_fwd")()).abs().max())
+            emit({"phase": "parity", "kernel": "fourier_mlp_fwd", "widths": widths,
+                  "dims": list(dims), "n": n_chunk, "basis": basis, "dtype": "bf16",
+                  "body": "base_wgmma", "max_abs_err": err, "vs_wmma_body": err_old,
+                  "tol": TOLERANCE[(basis, True)]})
+            check(bool(torch.isfinite(got).all()) and err <= TOLERANCE[(basis, True)]
+                  and err_old <= TOLERANCE[(basis, True)],
+                  f"fourier_mlp_fwd {widths} n={n_chunk} {basis}: err {err}, "
+                  f"vs WMMA body {err_old}")
+            del got
     del x
     torch.cuda.empty_cache()
 
-    bm_all = macs(base_dims)
-    base_hidden = sum(base_dims[1:-1])
-    base_w = sum(t.numel() for t in (*bws, *bbs)) + fB.numel()
-    c_base_mac = 3 * fB.shape[1] + sum(bm_all[:-1]) + sum(bm_all) + sum(bm_all[1:])
-    for name, need_dx, per_point_bytes, w_floats, mac, src, line in (
-        ("fourier_mlp_fwd", False, 12 + 4 * base_dims[-1], base_w,
-         3 * fB.shape[1] + sum(bm_all), "fourier_mlp_fwd.cu", 329),
-        ("fourier_mlp_bwd", False, 12 + 4 * base_dims[-1], 2 * base_w, c_base_mac,
-         "fourier_mlp_bwd.cu", 381),
-        # with dx: d_enc = W_0 . dh_0 (2H x 128 MACs a point), B . dproj, and
-        # the dx write
-        ("fourier_mlp_bwd", True, 12 + 4 * base_dims[-1] + 12, 2 * base_w,
-         c_base_mac + bm_all[0] + 3 * fB.shape[1], "fourier_mlp_bwd.cu", 381),
-    ):
-        x = positions(n_base)
-        is_c = name == "fourier_mlp_bwd"
-        g = torch.randn(base_dims[-1], n_base, generator=gen).to(dev)
-        kern, plain = base_c("tri", True, need_dx, x, g) if is_c else base_a("tri", True, x)
-        old = wmma_body(kern, name)
-        got, want, prev = kern(), plain(), old()
-        if is_c:
-            err = max(rel_err(a, b) for a, b in zip(got, want) if a.shape[-1] != n_base)
-            err_old = max(rel_err(a, b) for a, b in zip(prev, want) if a.shape[-1] != n_base)
-            out = max([outliers(a, b, BWD_TOLERANCE[("tri", True)])
-                       for a, b in zip(got, want) if a.shape[-1] == n_base], default=None)
-            check(err <= SUM_TOLERANCE and err_old <= SUM_TOLERANCE
-                  and (out is None or out <= PER_POINT_OUTLIERS),
-                  f"{name} base dx={need_dx}: rel err {err}, WMMA body {err_old}, outliers {out}")
-        else:
-            err = float((got - want).abs().max())
-            err_old = float((prev - want).abs().max())
-            check(err <= TOLERANCE[("tri", True)] and err_old <= TOLERANCE[("tri", True)],
-                  f"{name} base: err {err}, WMMA body {err_old}")
-        del got, want, prev
-        reps = 10 if is_c else 20
-        turns = [both_ms(old, 3), both_ms(kern, reps), both_ms(kern, reps), both_ms(old, 3)]
-        by_name = turns[1][2]
-        ev, dv = [t[0] for t in turns], [t[1] for t in turns]
-        plain_ms = time_ms(plain, 3)
-        alu = alu_ops_per_point(name, fB.shape[1], base_hidden, base_dims[-1], need_dx=need_dx)
-        body_kernel = f"{name}_base_wgmma_kernel"
-        rec = {"name": f"{name}_base" + ("_dx" if need_dx else ""), "route": "cuda",
-               "source": f"nerf_kbs_tpu_torch/csrc/{src}",
-               "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
-               "max_abs_err": err,
-               **({"err_is": "weight and bias gradients, relative to each one's largest "
-                             "magnitude", "per_point_outlier_share": out,
-                   "need_dx": need_dx} if is_c else {}),
-               "ms": (ev[1] + ev[2]) / 2, "plain_ms": plain_ms,
-               **bound(n_base * per_point_bytes + 4 * w_floats, 2.0 * n_base * mac,
-                       n_base * alu, bf16=True),
-               "library_ms": None, "n_points": n_base, "dims": list(base_dims),
-               "h_freqs": fB.shape[1], "basis": "tri", "dtype": "bf16", "body": "base_wgmma",
-               "alu_instructions_per_point": alu, "wmma_body_ms": (ev[0] + ev[3]) / 2,
-               "wmma_body_max_err": err_old, "turns_ms": ev,
-               "device_ms": (dv[1] + dv[2]) / 2, "wmma_body_device_ms": (dv[0] + dv[3]) / 2,
-               "device_turns_ms": dv,
-               "body_kernel_ms": sum(v for k, v in by_name.items() if body_kernel in k),
-               "device_ms_by_kernel": {k[:60]: v for k, v in by_name.items()}}
-        if is_c:
-            rec.update({
-                "per_point_pass_ms": rec.pop("body_kernel_ms"),
-                "weight_gradient_passes_ms": sum(v for k, v in by_name.items()
-                                                 if "nkt_field_dw" in k),
-                "reduction_ms": sum(v for k, v in by_name.items()
-                                    if "nkt_reduce_partials" in k),
-                "scratch_bytes": ff._mlp_base_scratch_bytes(n_base)})
-        emit({"phase": "timing", **rec})
-        records.append(rec)
-        del x, g
-        torch.cuda.empty_cache()
-
-    # kernels A and C at sem30k-flagship2's base widths (tools/reference_runs_torch.sh:
-    # semantic-nerfw's 2-layer base MLP, H = 128), which no wgmma body is
-    # written for: the WMMA bodies run them. Held against the plain versions
-    # and timed at that run's train step (16,384 rays x 48 samples), tri,
-    # bf16, no dx (its sampling is detached and it has no camera optimizer)
-    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
-    from nerf_kbs_tpu_torch.engine import cli
-
-    sem = cli.apply_overrides(cli.method_registry["semantic-nerfw"](),
-                              protocol_argv("sem30k-flagship2", "out")[1]).model
-    base2 = sem.field.base_mlp
-    check(base2.dims[0] == 2 * fB.shape[1], f"sem30k-flagship2's base MLP {base2.dims}")
-    b2ws, b2bs = _weights(base2, gen, dev)
-    b2_dims, n_b2 = base2.dims, 16384 * sem.num_nerf_samples_per_ray
-    bm2 = macs(b2_dims)
-    b2_w = sum(t.numel() for t in (*b2ws, *b2bs)) + fB.numel()
-    x = positions(n_b2)
-    g = torch.randn(b2_dims[-1], n_b2, generator=gen).to(dev)
+    H = fB.shape[1]
     ff.reset_launches()
-    for name, mac, src, line in (
-        ("fourier_mlp_fwd", 3 * fB.shape[1] + sum(bm2), "fourier_mlp_fwd.cu", 329),
-        ("fourier_mlp_bwd", 3 * fB.shape[1] + sum(bm2[:-1]) + sum(bm2) + sum(bm2[1:]),
-         "fourier_mlp_bwd.cu", 381),
-    ):
-        spec = ff.FusedMLPSpec(h_freqs=fB.shape[1], layer_dims=b2_dims, bf16=True, basis="tri",
-                               need_dx=False)
-        if name == "fourier_mlp_fwd":
-            kern = lambda: ff.fourier_mlp(spec, x, fB, b2ws, b2bs)  # noqa: E731
-            plain = lambda: ff.fourier_mlp_reference(x, fB, b2ws, b2bs, "tri", True)  # noqa: E731
-            err = float((kern() - plain()).abs().max())
-            ok = err <= TOLERANCE[("tri", True)]
-        else:
-            kern = lambda: list(ff._mlp_backward(spec, x, fB, b2ws, b2bs, g)[1:])  # noqa: E731
-            plain = lambda: list(ff.fourier_mlp_backward_reference(  # noqa: E731
-                x, fB, b2ws, b2bs, g, "tri", True, False)[1:])
-            got, want = kern(), plain()
-            err = max(rel_err(a, b) for a, b in zip(sum(got, []), sum(want, [])))
-            ok = err <= SUM_TOLERANCE
-            del got, want
-        check(ok, f"{name} at sem30k-flagship2's base widths {b2_dims}: err {err}")
-        ms = time_ms(kern, 10)
-        dev_ms, by_name = device_ms(kern, 10)
-        alu = alu_ops_per_point(name, fB.shape[1], sum(b2_dims[1:-1]), b2_dims[-1])
-        per_point_bytes = 12 + 4 * b2_dims[-1]
-        rec = {"name": f"{name}_base2", "route": "cuda",
-               "source": f"nerf_kbs_tpu_torch/csrc/{src}",
-               "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
-               "max_abs_err": err,
-               **({"err_is": "weight and bias gradients, relative to each one's largest "
-                             "magnitude"} if name == "fourier_mlp_bwd" else {}),
-               "ms": ms, "plain_ms": time_ms(plain, 3),
-               **bound(n_b2 * per_point_bytes + 4 * b2_w * (2 if name == "fourier_mlp_bwd" else 1),
-                       2.0 * n_b2 * mac, n_b2 * alu, bf16=True),
-               "library_ms": None, "n_points": n_b2, "dims": list(b2_dims),
-               "h_freqs": fB.shape[1], "basis": "tri", "dtype": "bf16", "body": "wmma",
-               "alu_instructions_per_point": alu, "device_ms": dev_ms,
-               "device_ms_by_kernel": {k[:60]: v for k, v in by_name.items()}}
-        emit({"phase": "timing", **rec})
-        records.append(rec)
+    for widths, need_dx_cases, n_pts in (("base", (False, True), n_base),
+                                         ("base2", (False,), n_b2)):
+        dims, ws, bs = chains[widths]
+        bm_all = macs(dims)
+        hidden = sum(dims[1:-1])
+        w_floats = sum(t.numel() for t in (*ws, *bs)) + fB.numel()
+        c_mac = 3 * H + sum(bm_all[:-1]) + sum(bm_all) + sum(bm_all[1:])
+        items = [("fourier_mlp_fwd", False, 12 + 4 * dims[-1], w_floats, 3 * H + sum(bm_all),
+                  "fourier_mlp_fwd.cu", 329)]
+        for need_dx in need_dx_cases:
+            # with dx: d_enc = W_0 . dh_0 (2H x 128 MACs a point), B . dproj,
+            # and the dx write
+            items.append(("fourier_mlp_bwd", need_dx, 12 + 4 * dims[-1] + 12 * need_dx,
+                          2 * w_floats, c_mac + (bm_all[0] + 3 * H) * need_dx,
+                          "fourier_mlp_bwd.cu", 381))
+        for name, need_dx, per_point_bytes, wf, mac, src, line in items:
+            x = positions(n_pts)
+            is_c = name == "fourier_mlp_bwd"
+            g = torch.randn(dims[-1], n_pts, generator=gen).to(dev)
+            kern, plain = (base_c("tri", True, need_dx, x, g, widths) if is_c
+                           else base_a("tri", True, x, widths))
+            old = wmma_body(kern, name)
+            got, want, prev = kern(), plain(), old()
+            if is_c:
+                err = max(rel_err(a, b) for a, b in zip(got, want) if a.shape[-1] != n_pts)
+                err_old = max(rel_err(a, b) for a, b in zip(prev, want) if a.shape[-1] != n_pts)
+                out = max([outliers(a, b, BWD_TOLERANCE[("tri", True)])
+                           for a, b in zip(got, want) if a.shape[-1] == n_pts], default=None)
+                check(err <= SUM_TOLERANCE and err_old <= SUM_TOLERANCE
+                      and (out is None or out <= PER_POINT_OUTLIERS),
+                      f"{name} {widths} dx={need_dx}: rel err {err}, WMMA body {err_old}, "
+                      f"outliers {out}")
+            else:
+                err = float((got - want).abs().max())
+                err_old = float((prev - want).abs().max())
+                check(err <= TOLERANCE[("tri", True)] and err_old <= TOLERANCE[("tri", True)],
+                      f"{name} {widths}: err {err}, WMMA body {err_old}")
+            del got, want, prev
+            reps = 10 if is_c else 20
+            turns = [both_ms(old, 3), both_ms(kern, reps), both_ms(kern, reps), both_ms(old, 3)]
+            by_name = turns[1][2]
+            ev, dv = [t[0] for t in turns], [t[1] for t in turns]
+            plain_ms = time_ms(plain, 3)
+            alu = alu_ops_per_point(name, H, hidden, dims[-1], need_dx=need_dx)
+            body_kernel = f"{name}_base_wgmma_kernel"
+            rec = {"name": f"{name}_{widths}" + ("_dx" if need_dx else ""), "route": "cuda",
+                   "source": f"nerf_kbs_tpu_torch/csrc/{src}",
+                   "replaces": f"nerf_kbs_tpu/ops/fused_field.py:{line}", "launches": 0,
+                   "max_abs_err": err,
+                   **({"err_is": "weight and bias gradients, relative to each one's largest "
+                                 "magnitude", "per_point_outlier_share": out,
+                       "need_dx": need_dx} if is_c else {}),
+                   "ms": (ev[1] + ev[2]) / 2, "plain_ms": plain_ms,
+                   **bound(n_pts * per_point_bytes + 4 * wf, 2.0 * n_pts * mac, n_pts * alu,
+                           bf16=True),
+                   "library_ms": None, "n_points": n_pts, "dims": list(dims),
+                   "h_freqs": H, "basis": "tri", "dtype": "bf16", "body": "base_wgmma",
+                   "alu_instructions_per_point": alu, "wmma_body_ms": (ev[0] + ev[3]) / 2,
+                   "wmma_body_max_err": err_old, "turns_ms": ev,
+                   "device_ms": (dv[1] + dv[2]) / 2, "wmma_body_device_ms": (dv[0] + dv[3]) / 2,
+                   "device_turns_ms": dv,
+                   "body_kernel_ms": sum(v for k, v in by_name.items() if body_kernel in k),
+                   "device_ms_by_kernel": {k[:60]: v for k, v in by_name.items()}}
+            if is_c:
+                rec.update({
+                    "per_point_pass_ms": rec.pop("body_kernel_ms"),
+                    "weight_gradient_passes_ms": sum(v for k, v in by_name.items()
+                                                     if "nkt_field_dw" in k),
+                    "reduction_ms": sum(v for k, v in by_name.items()
+                                        if "nkt_reduce_partials" in k),
+                    "scratch_bytes": ff._mlp_base_scratch_bytes(n_pts, dims)})
+            emit({"phase": "timing", **rec})
+            records.append(rec)
+            del x, g
+            torch.cuda.empty_cache()
     ran = {k: v for k, v in ff.LAUNCHES.items() if v}
-    check(set(ran) == {"fourier_mlp", "fourier_mlp_bwd"},
-          f"sem30k-flagship2's base widths launched {ran}")
-    del x, g
-    torch.cuda.empty_cache()
+    check(set(ran) == {"fourier_mlp", "fourier_mlp_bwd", "fourier_mlp_base_wgmma",
+                       "fourier_mlp_bwd_base_wgmma"}, f"the base widths' timing launched {ran}")
     return records
-
 
 # kernel name -> its wrapper's name in fused_field.KERNELS, and the launch
 # counter of the body the main paths run (the wgmma body of all four)
@@ -4391,14 +4368,15 @@ def phase_tools_torch(records) -> None:
 # time. Per protocol: the steps, and the launches of a train step and of an
 # eval chunk (an eval batch is one chunk). ilf050 runs the flagship field (A
 # and C at the proposal widths, B and D); sem30k-flagship2's split field has
-# a 2-layer base MLP, (256, 128, 16), which A and C run on their WMMA bodies.
+# a 2-layer base MLP, (256, 128, 16), which A and C run on their base-width
+# wgmma bodies. The counts are exact: a launch of a WMMA body fails the phase.
 REFERENCE_RUNS = {
     "ilf050": (1500, {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1,
                       "fourier_mlp_bwd_wgmma": 2, "fourier_field_mlp_bwd_wgmma": 1},
                {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1}),
-    "sem30k-flagship2": (600, {"fourier_mlp_wgmma": 2, "fourier_mlp": 1,
-                               "fourier_mlp_bwd_wgmma": 2, "fourier_mlp_bwd": 1},
-                         {"fourier_mlp_wgmma": 2, "fourier_mlp": 1}),
+    "sem30k-flagship2": (600, {"fourier_mlp_wgmma": 2, "fourier_mlp_base_wgmma": 1,
+                               "fourier_mlp_bwd_wgmma": 2, "fourier_mlp_bwd_base_wgmma": 1},
+                         {"fourier_mlp_wgmma": 2, "fourier_mlp_base_wgmma": 1}),
 }
 REFERENCE_STEPS = 30000
 # the protocol's cadences, cut by steps / 30,000 with the run
@@ -4449,7 +4427,8 @@ def phase_reference_runs(records, scene: str) -> None:
     its own mean colour (the frozen 3-layer arm of the camera study sat
     there, PERF.md). Records the eval PSNR at each eval, the wall time and
     the median logged rays/s; the ``*_base2`` kernel records (A and C at
-    sem30k-flagship2's base widths) take their launches a step from it."""
+    sem30k-flagship2's base widths) take their launches a step from it, and
+    one sem30k-flagship2 step is profiled (device busy share)."""
     import numpy as np
 
     import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
@@ -4509,11 +4488,20 @@ def phase_reference_runs(records, scene: str) -> None:
         if protocol == "sem30k-flagship2":
             for rec in records:
                 if rec["name"].endswith("_base2"):
-                    counter = WRAPPER[rec["name"][:-len("_base2")]]
+                    counter = f"{WRAPPER[rec['name'][:-len('_base2')]]}_base_wgmma"
                     rec["launches"] = per_step[counter]
                     rec["launches_per"] = "16,384-ray sem30k-flagship2 train step"
                     rec["launches_per_eval_chunk"] = per_chunk.get(counter, 0)
                     rec["reference_run_launches"] = launches[counter]
+            # one step of the protocol under the profiler: the device's busy
+            # share of a sem30k-flagship2 step
+            trainer = cli.build_trainer(spec)
+            batch = trainer._to_device(trainer.dm.next_train(steps))
+            trainer.train_step(batch)
+            phase_profile(lambda: trainer.train_step(batch),
+                          spec.datamanager.train_num_rays_per_batch,
+                          what="sem30k-flagship2 train step", top=25)
+            del trainer
 
 
 def _pairs(argv: list) -> dict:

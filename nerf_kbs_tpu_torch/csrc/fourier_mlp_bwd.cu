@@ -49,9 +49,10 @@
 //   encoding's layout, so the thread that made s(u), c(u) applies their
 //   derivatives and B and a quad shuffle finishes dx. Nothing per point
 //   reaches device memory but dx.
-// - bf16 at the field's base widths (H = 128, dims (256, 128, 128, 16), the
-//   semantics path's base MLP): the field backward's design for its base
-//   chain (wgmma_bwd.cuh), in two passes. The per-point pass
+// - bf16 at the base widths (H = 128, dims (256, 128, 128, 16), the
+//   semantics path's base MLP, or (256, 128, 16), sem30k-flagship2's 2-layer
+//   base; the template's HID is 2 or 1): the field backward's design for its
+//   base chain (wgmma_bwd.cuh), in two passes. The per-point pass
 //   (fourier_mlp_bwd_base_wgmma_kernel), persistent blocks of two
 //   warpgroups, each on its own 64-point tile with no block barrier, the
 //   base image (BaseImage) resident as in the forward: it recomputes the two
@@ -68,11 +69,21 @@
 //   What bounds it: ~238 kFLOP a point on the tensor cores (recompute, dW,
 //   W . dh), 0.047 ms at the 196,608 points of a 4,096-ray step; the scratch
 //   round trip adds ~416 MB of device memory traffic there (~0.12 ms).
+//   HID = 1 recomputes one hidden layer, takes dh_1 = g and forms dh_0 by
+//   one W . dh product; it leaves h1, dh_0 and dh_1, 272 values a point, and
+//   its weight gradients are dW_0 (nkt_field_dw0_kernel) and dW_1
+//   (nkt_field_dw_kernel<128, 16>). At the 786,432 points of a
+//   sem30k-flagship2 step the scratch is ~428 MB, written and read back:
+//   ~0.26 ms at 3.35 TB/s against a bound of 0.111 ms, so two passes cannot
+//   get near the bound.
+//   One block of four warpgroups an SM (128 registers, 16 to 192 bytes of
+//   spills): of the shapes timed on an H100 80GB HBM3 at 700 W, 4 x 1 took 0.516 device ms, 3 x 1
+//   0.528, 2 x 2 0.550 and 2 x 1 (255 registers, no spills) 0.565.
 // - bf16 at any other widths (fourier_mlp_bwd_mma_kernel, chain_bwd.cuh):
 //   WMMA tiles with activations in shared memory; each tile's act^T . dh goes
 //   through the block's partial in L2. At the proposal widths it needs about
-//   five times the wgmma body's time, at the base widths 24 times the
-//   bound.
+//   five times the wgmma body's time, at the base widths 23 to 24 times the
+//   bound. No main path runs it.
 // - f32 compute (the oracle mode): one thread per point (chain_bwd.cuh).
 #include "wgmma_bwd.cuh"
 
@@ -575,26 +586,38 @@ static int launch_wgmma(const float* x, int n, const float* Bm, const void* imag
 // bf16 compute at the field's base widths: wgmma (see wgmma_bwd.cuh)
 // ---------------------------------------------------------------------------
 
-// Warpgroups per block of the per-point pass, one block per SM, as the field
+// Warpgroups per block of the per-point pass and blocks per SM, by the
+// chain's hidden layers. Two hidden layers: one block per SM, as the field
 // backward's: ptxas gives the pass all 255 registers a thread (88 to 232
 // bytes of spills in three of its four instances), so two warpgroups of 128
-// threads are what an SM's 65,536 registers hold.
-#define NKT_C_BASE_WARPGROUPS 2
+// threads are what an SM's 65,536 registers hold. One hidden layer: one block
+// of four warpgroups (see the note at the top for the shapes timed).
+template <int HID>
+struct CBaseShape {
+  static constexpr int warpgroups = HID == 1 ? 4 : 2;
+  static constexpr int blocks = 1;
+};
 
 // Per-point widths (bf16 values) of what the per-point pass leaves for the
 // weight-gradient passes, laid out as the field backward's FieldScratch: the
-// hidden layers' inputs h1, h2 and the pre-activation gradients of layers
-// 0..2.
+// inputs h_1 .. h_HID of the layers after the first, then the pre-activation
+// gradients of the hidden layers 0 .. HID - 1 and of the last layer (528
+// values a point for two hidden layers, 272 for one).
+template <int HID>
 struct MlpBaseScratch {
-  static constexpr int h1 = 0, h2 = 128, d_b0 = 256, d_b1 = 384, d_b2 = 512, total = 528;
+  // h_l, l = 1 .. HID; the gradient of hidden layer l, l = 0 .. HID - 1
+  __host__ __device__ static constexpr int h(int l) { return 128 * (l - 1); }
+  __host__ __device__ static constexpr int d_hid(int l) { return 128 * HID + 128 * l; }
+  static constexpr int d_out = 256 * HID, total = d_out + 16;
 };
 
-// The per-point pass: forward through the two hidden layers, then backward
-// from dh_2 = g, every activation and gradient in registers between
-// products. It writes dx (NEED_DX), the scratch tiles and the block's bias
-// gradients (f32 sums) into its partial.
-template <bool TRI, bool NEED_DX>
-__global__ void __launch_bounds__(NKT_C_BASE_WARPGROUPS * NKT_WG_THREADS, 1)
+// The per-point pass: forward through the hidden layers, then backward from
+// the last layer's gradient g, every activation and gradient in registers
+// between products. It writes dx (NEED_DX), the scratch tiles and the block's
+// bias gradients (f32 sums) into its partial.
+template <bool TRI, bool NEED_DX, int HID>
+__global__ void __launch_bounds__(CBaseShape<HID>::warpgroups * NKT_WG_THREADS,
+                                  CBaseShape<HID>::blocks)
     fourier_mlp_bwd_base_wgmma_kernel(const float* __restrict__ x, int n,
                                       const float* __restrict__ Bm,
                                       const uint4* __restrict__ image,
@@ -602,10 +625,11 @@ __global__ void __launch_bounds__(NKT_C_BASE_WARPGROUPS * NKT_WG_THREADS, 1)
                                       const float* __restrict__ g, float* __restrict__ dx,
                                       uint32_t* __restrict__ scratch,
                                       float* __restrict__ partials, int stride) {
-  using I = BaseImage;
-  using S = MlpBaseScratch;
+  using I = BaseImage<HID>;
+  using S = MlpBaseScratch<HID>;
+  constexpr int WGS = CBaseShape<HID>::warpgroups;
   extern __shared__ __align__(128) unsigned char smem[];
-  nkt_base_stage(smem, image, wb, ch, Bm);
+  nkt_base_stage<HID>(smem, image, wb, ch, Bm);
   const uint32_t ws = nkt_smem_addr(smem);
   const float* bs = reinterpret_cast<const float*>(smem + I::bytes);
   const float* Bs = bs + I::bias_floats;
@@ -614,16 +638,17 @@ __global__ void __launch_bounds__(NKT_C_BASE_WARPGROUPS * NKT_WG_THREADS, 1)
   const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
 
   // bias-gradient sums over all of this thread's tiles
-  float db_b0[nkt_db_count(64)] = {}, db_b1[nkt_db_count(64)] = {}, db_b2[nkt_db_count(8)] = {};
+  float db_hid[HID][nkt_db_count(64)] = {}, db_out[nkt_db_count(8)] = {};
 
   // no block barrier in this loop: each warpgroup walks its own tiles
-  for (int tile = blockIdx.x * NKT_C_BASE_WARPGROUPS + threadIdx.x / NKT_WG_THREADS;
-       tile < ntiles; tile += gridDim.x * NKT_C_BASE_WARPGROUPS) {
+  for (int tile = blockIdx.x * WGS + threadIdx.x / NKT_WG_THREADS; tile < ntiles;
+       tile += gridDim.x * WGS) {
     const long long pa = (long long)tile * NKT_WG_ROWS + 16 * L.w + L.g, pb = pa + 8;
     float xa[3], xb[3];
     nkt_wg_load_x(x, n, tile, L, xa, xb);
-    // dh_2 = g at the thread's entries of a (64, 16) accumulator: d[4j + e]
-    // row a, d[4j + 2 + e] row b, of column 8j + 2t + e (zeros past the edge)
+    // the last layer's gradient g at the thread's entries of a (64, 16)
+    // accumulator: d[4j + e] row a, d[4j + 2 + e] row b, of column 8j + 2t + e
+    // (zeros past the edge)
     float d[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -633,37 +658,44 @@ __global__ void __launch_bounds__(NKT_C_BASE_WARPGROUPS * NKT_WG_THREADS, 1)
     }
 
     // ---- forward through the hidden layers, keeping the relu masks
-    uint32_t m_h1[2], m_h2[2];
+    uint32_t mask[HID][2];
     uint32_t h[32];
     {
       float acc[64];
-      nkt_wg_first_layer<TRI, I::H>(acc, Bs, L.t, xa, xb, ws + I::w_b0);
-      nkt_wg_relu_pack<true>(acc, bs + I::b_b0, L.t, h, m_h1);
-      nkt_wg_store_tile<128>(scratch, S::h1, ntiles, tile, L, h);
-      nkt_wg_forward<8>(acc, h, ws + I::w_b1);
-      nkt_wg_relu_pack<true>(acc, bs + I::b_b1, L.t, h, m_h2);
-      nkt_wg_store_tile<128>(scratch, S::h2, ntiles, tile, L, h);
+      nkt_wg_first_layer<TRI, I::H>(acc, Bs, L.t, xa, xb, ws + I::w_hid(0));
+      nkt_wg_relu_pack<true>(acc, bs + I::b_hid(0), L.t, h, mask[0]);
+      nkt_wg_store_tile<128>(scratch, S::h(1), ntiles, tile, L, h);
+#pragma unroll
+      for (int l = 1; l < HID; ++l) {
+        nkt_wg_forward<8>(acc, h, ws + I::w_hid(l));
+        nkt_wg_relu_pack<true>(acc, bs + I::b_hid(l), L.t, h, mask[l]);
+        nkt_wg_store_tile<128>(scratch, S::h(l + 1), ntiles, tile, L, h);
+      }
     }
 
-    // ---- dh_2 = g: its f32 column sums, then rounded as one k-step
+    // ---- the last layer's gradient g: its f32 column sums, then rounded as
+    // one k-step
     uint32_t d16[4];
-    nkt_wg_colsum(d, lane, db_b2);
+    nkt_wg_colsum(d, lane, db_out);
     d16[0] = nkt_pack_bf16(d[0], d[1]);
     d16[1] = nkt_pack_bf16(d[2], d[3]);
     d16[2] = nkt_pack_bf16(d[4], d[5]);
     d16[3] = nkt_pack_bf16(d[6], d[7]);
-    nkt_wg_store_tile<16>(scratch, S::d_b2, ntiles, tile, L, d16);
+    nkt_wg_store_tile<16>(scratch, S::d_out, ntiles, tile, L, d16);
 
     // ---- backward through the chain
     {
       float acc[64];
-      nkt_wg_backward<1>(acc, d16, ws + I::w_b2, 16, 0);
-      nkt_wg_dh(acc, m_h2, lane, db_b1, h);
-      nkt_wg_store_tile<128>(scratch, S::d_b1, ntiles, tile, L, h);
-      nkt_wg_backward<8>(acc, h, ws + I::w_b1, 128, 0);
-      nkt_wg_dh(acc, m_h1, lane, db_b0, h);
-      nkt_wg_store_tile<128>(scratch, S::d_b0, ntiles, tile, L, h);
-      if (NEED_DX) nkt_wg_base_dx<TRI>(acc, h, ws + I::w_b0, Bs, L, xa, xb, pa, pb, n, dx);
+      nkt_wg_backward<1>(acc, d16, ws + I::w_out, 16, 0);
+#pragma unroll
+      for (int l = HID - 1; l > 0; --l) {
+        nkt_wg_dh(acc, mask[l], lane, db_hid[l], h);
+        nkt_wg_store_tile<128>(scratch, S::d_hid(l), ntiles, tile, L, h);
+        nkt_wg_backward<8>(acc, h, ws + I::w_hid(l), 128, 0);
+      }
+      nkt_wg_dh(acc, mask[0], lane, db_hid[0], h);
+      nkt_wg_store_tile<128>(scratch, S::d_hid(0), ntiles, tile, L, h);
+      if (NEED_DX) nkt_wg_base_dx<TRI>(acc, h, ws + I::w_hid(0), Bs, L, xa, xb, pa, pb, n, dx);
     }
   }
 
@@ -672,58 +704,62 @@ __global__ void __launch_bounds__(NKT_C_BASE_WARPGROUPS * NKT_WG_THREADS, 1)
   // warps in order
   __syncthreads();
   float* dbs = reinterpret_cast<float*>(smem);
-  constexpr int NW = NKT_C_BASE_WARPGROUPS * 4;
+  constexpr int NW = WGS * 4;
   float* row = dbs + (threadIdx.x / 32) * I::bias_floats;
-  nkt_wg_db_put<64>(db_b0, lane, row + I::b_b0);
-  nkt_wg_db_put<64>(db_b1, lane, row + I::b_b1);
-  nkt_wg_db_put<8>(db_b2, lane, row + I::b_b2);
+#pragma unroll
+  for (int l = 0; l < HID; ++l) nkt_wg_db_put<64>(db_hid[l], lane, row + I::b_hid(l));
+  nkt_wg_db_put<8>(db_out, lane, row + I::b_out);
   __syncthreads();
   float* gpart = partials + (size_t)blockIdx.x * stride;
-  const int off[3] = {I::b_b0, I::b_b1, I::b_b2}, end[3] = {I::b_b1, I::b_b2, I::bias_floats};
-  for (int l = 0; l < 3; ++l)
-    for (int c = threadIdx.x; c < end[l] - off[l]; c += blockDim.x) {
+  for (int l = 0; l <= HID; ++l) {
+    const int off = l < HID ? I::b_hid(l) : I::b_out, width = l < HID ? 128 : 16;
+    for (int c = threadIdx.x; c < width; c += blockDim.x) {
       float sum = 0.0f;
-      for (int w = 0; w < NW; ++w) sum += dbs[w * I::bias_floats + off[l] + c];
+      for (int w = 0; w < NW; ++w) sum += dbs[w * I::bias_floats + off + c];
       gpart[gl.b[l] + c] = sum;
     }
+  }
 }
 
-// The per-point pass, then dW_0, dW_1 and dW_2 over its scratch; every pass
+// The per-point pass, then the weight gradients over its scratch (dW_0 by
+// nkt_field_dw0_kernel, the later layers' by nkt_field_dw_kernel); every pass
 // on the same `grid` blocks, each block filling its own partial.
-template <bool TRI, bool NEED_DX>
+template <bool TRI, bool NEED_DX, int HID>
 static int launch_base_wgmma(const float* x, int n, const float* Bm, const void* image,
                              const float* wb, const Chain& ch, const GradLayout& gl,
                              const float* g, float* dx, uint32_t* scratch, float* partials,
                              int partial_rows, int stride, int* nblocks, cudaStream_t stream) {
-  using S = MlpBaseScratch;
-  constexpr int smem = BaseImage::smem_bytes;
-  cudaError_t err = cudaFuncSetAttribute(fourier_mlp_bwd_base_wgmma_kernel<TRI, NEED_DX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using S = MlpBaseScratch<HID>;
+  using Shape = CBaseShape<HID>;
+  constexpr int smem = BaseImage<HID>::smem_bytes;
+  auto kernel = fourier_mlp_bwd_base_wgmma_kernel<TRI, NEED_DX, HID>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
   const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
-  int grid = sms;
+  int grid = sms * Shape::blocks;
   if (grid > ntiles) grid = ntiles;
   if (grid > partial_rows) grid = partial_rows;
   *nblocks = grid;
-  fourier_mlp_bwd_base_wgmma_kernel<TRI, NEED_DX>
-      <<<grid, NKT_C_BASE_WARPGROUPS * NKT_WG_THREADS, smem, stream>>>(
-          x, n, Bm, reinterpret_cast<const uint4*>(image), wb, ch, gl, g, dx, scratch, partials,
-          stride);
+  kernel<<<grid, Shape::warpgroups * NKT_WG_THREADS, smem, stream>>>(
+      x, n, Bm, reinterpret_cast<const uint4*>(image), wb, ch, gl, g, dx, scratch, partials,
+      stride);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const size_t per = (size_t)ntiles * (NKT_WG_ROWS / 2);  // words per unit of width
-  if ((rc = launch_dw0<TRI>(x, n, Bm, scratch + S::d_b0 * per, ntiles, grid, partials, stride,
-                            gl.w[0], stream)) != 0)
+  if ((rc = launch_dw0<TRI>(x, n, Bm, scratch + S::d_hid(0) * per, ntiles, grid, partials,
+                            stride, gl.w[0], stream)) != 0)
     return rc;
-  if ((rc = launch_dw<128, 128>(scratch, S::h1, S::d_b1, ntiles, grid, partials, stride, gl.w[1],
-                                0, 128, stream)) != 0)
-    return rc;
-  return launch_dw<128, 16>(scratch, S::h2, S::d_b2, ntiles, grid, partials, stride, gl.w[2], 0,
-                            128, stream);
+  for (int l = 1; l < HID; ++l)
+    if ((rc = launch_dw<128, 128>(scratch, S::h(l), S::d_hid(l), ntiles, grid, partials, stride,
+                                  gl.w[l], 0, 128, stream)) != 0)
+      return rc;
+  return launch_dw<128, 16>(scratch, S::h(HID), S::d_out, ntiles, grid, partials, stride,
+                            gl.w[HID], 0, 128, stream);
 }
 
 // x (3, n), Bm (3, H), wb the packed chain with f32 (unrounded) weights, g
@@ -735,10 +771,11 @@ static int launch_base_wgmma(const float* x, int n, const float* Bm, const void*
 // between parts is left as it was). bf16 compute has three bodies, named by
 // `variant`: 1 is the wgmma body for the proposal fields' widths
 // (nkt_mlp_is_flagship), and needs `image`, W_0^T as bf16 of image_bytes
-// (wgmma_chain.cuh MlpImage); 2 is the wgmma design for the field's base
-// widths (nkt_mlp_is_base: a per-point pass, then the weight-gradient
-// passes), and needs `image`, the base chain's bf16 image (BaseImage), and
-// `scratch`, of ceil(n / 64) * 64 * MlpBaseScratch::total bf16 values; 0 is
+// (wgmma_chain.cuh MlpImage); 2 is the wgmma design for the base widths
+// (nkt_mlp_base_depth, (256, 128, 16) or (256, 128, 128, 16): a per-point
+// pass, then the weight-gradient passes), and needs `image`, the base chain's
+// bf16 image (BaseImage), and `scratch`, of ceil(n / 64) * 64 *
+// MlpBaseScratch<depth>::total bf16 values; 0 is
 // the WMMA body, which takes every shape. Launches on `stream`, does not
 // synchronise; returns the launch error (0 on success).
 extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H, const float* wb,
@@ -758,8 +795,12 @@ extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H
   const long long ntiles = ((long long)n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
   const bool proposal = variant == 1 && nkt_mlp_is_flagship(ch, H) &&
                         image_bytes == MlpImage::w0_bytes;
-  const bool base = variant == 2 && nkt_mlp_is_base(ch, H) && image_bytes == BaseImage::bytes &&
-                    scratch_bytes == ntiles * NKT_WG_ROWS * MlpBaseScratch::total * 2;
+  const int depth = variant == 2 ? nkt_mlp_base_depth(ch, H) : 0;
+  const bool base =
+      depth > 0 &&
+      image_bytes == (depth == 1 ? BaseImage<1>::bytes : BaseImage<2>::bytes) &&
+      scratch_bytes == ntiles * NKT_WG_ROWS * 2 *
+                           (depth == 1 ? MlpBaseScratch<1>::total : MlpBaseScratch<2>::total);
   if (variant != 0 && !(bf16 && (proposal || base))) return NKT_ERR_VARIANT;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (n == 0) {
@@ -773,13 +814,15 @@ extern "C" int nkt_fourier_mlp_bwd(const float* x, int n, const float* Bm, int H
 #define NKT_BASE_ARGS                                                                     \
   x, n, Bm, image, wb, ch, gl, g, dx, reinterpret_cast<uint32_t*>(scratch), partials,      \
       partial_rows, stride, &nblocks, s
-#define NKT_PICK_BASE(TRI)                                   \
-  (need_dx ? launch_base_wgmma<TRI, true>(NKT_BASE_ARGS)     \
-           : launch_base_wgmma<TRI, false>(NKT_BASE_ARGS))
+#define NKT_PICK_BASE(TRI, D)                                  \
+  (need_dx ? launch_base_wgmma<TRI, true, D>(NKT_BASE_ARGS)     \
+           : launch_base_wgmma<TRI, false, D>(NKT_BASE_ARGS))
   if (variant == 1)
     rc = tri ? NKT_PICK(true) : NKT_PICK(false);
+  else if (variant == 2 && depth == 1)
+    rc = tri ? NKT_PICK_BASE(true, 1) : NKT_PICK_BASE(false, 1);
   else if (variant == 2)
-    rc = tri ? NKT_PICK_BASE(true) : NKT_PICK_BASE(false);
+    rc = tri ? NKT_PICK_BASE(true, 2) : NKT_PICK_BASE(false, 2);
   else if (bf16)
     rc = tri ? launch_mma<true>(x, n, Bm, H, wb, ch, gl, g, need_dx, dx, partials, partial_rows,
                                 stride, &nblocks, s)

@@ -45,24 +45,31 @@
 //   encoding's own instructions, at a little under half the ALUs' peak.
 //   wgmma rather than mma.sync.m16n8k16: the tensor cores are idle either
 //   way, and the header, its layouts and its probe were there.
-// - bf16 at the base widths (fourier_mlp_fwd_base_wgmma_kernel): the field
-//   forward's base chain without the rgb chain. One warpgroup owns a 64-point
-//   tile with no block barrier in the tile loop; x goes straight into
-//   registers; the encoding, in the field's feature order, is made k-step by
-//   k-step into A operands behind the running m64n128k16 product
-//   (nkt_wg_first_layer); bias, relu and the bf16 rounding pack each
-//   accumulator into the next layer's A operand in registers. The 100 KB
-//   image of the three W^T matrices is staged once a block by cp.async, with
-//   the biases and B beside it (~103 KB). The last layer's 16 columns plus
-//   their bias go out as f32, unrounded, a warp's store 32 contiguous bytes
-//   per column. Blocks of two warpgroups, two blocks an SM: the shared memory
+// - bf16 at the base widths (fourier_mlp_fwd_base_wgmma_kernel<TRI, HID>):
+//   the field forward's base chain without the rgb chain, with HID = 2
+//   hidden layers (256, 128, 128, 16) or HID = 1, (256, 128, 16),
+//   sem30k-flagship2's 2-layer base. One warpgroup owns a 64-point tile with
+//   no block barrier in the tile loop; x goes straight into registers; the
+//   encoding, in the field's feature order, is made k-step by k-step into A
+//   operands behind the running m64n128k16 product (nkt_wg_first_layer);
+//   bias, relu and the bf16 rounding pack each accumulator into the next
+//   layer's A operand in registers. The image of the W^T matrices (100 KB at
+//   HID = 2, 70 KB at HID = 1) is staged once a block by cp.async, with the
+//   biases and B beside it. The last layer's 16 columns plus their bias go
+//   out as f32, unrounded, a warp's store 32 contiguous bytes per column.
+//   HID = 2: blocks of two warpgroups, two blocks an SM: the shared memory
 //   holds two images, and the body fits the 128 registers a thread that
 //   leaves (ptxas: 122 and 124, no spills), the accumulator (64), the packed
-//   activations (32) and the rest.
+//   activations (32) and the rest. HID = 1: one block of four warpgroups an
+//   SM (108 and 113 registers, no spills). Of the shapes timed at 786,432
+//   points on an H100 80GB HBM3 at 700 W, 4 x 1 took 0.162 device ms, 2 x 2
+//   0.164 and 1 x 3 0.179; 2 x 3 and 3 x 2 leave 80 registers a thread,
+//   fewer than the m64n128 products need (ptxas asks for 94). Its bound is
+//   the encoding's f32 instructions, ~0.056 ms at those points.
 // - bf16 at any other widths (fourier_mlp_fwd_mma_kernel, mma_chain.cuh):
 //   WMMA tiles with activations in shared memory and four block barriers a
 //   tile; at the proposal widths it needs about four times the wgmma body's
-//   time, at the base widths about 18 times the bound.
+//   time, at the base widths 17 to 18 times the bound. No main path runs it.
 // - f32 compute (the oracle mode): one thread per point on f32 FMAs
 //   (fused_chain.cuh).
 #include "mma_chain.cuh"
@@ -309,45 +316,53 @@ static int launch_wgmma(const float* x, int n, const float* Bm, const void* imag
 // bf16 compute at the field's base widths: wgmma (see wgmma_chain.cuh)
 // ---------------------------------------------------------------------------
 
-// Warpgroups per block, each on its own tiles, and blocks per SM (see the
-// note at the top).
-#define NKT_A_BASE_WARPGROUPS 2
-#define NKT_A_BASE_BLOCKS_PER_SM 2
+// Warpgroups per block, each on its own tiles, and blocks per SM, by the
+// chain's hidden layers (see the note at the top for the shapes timed).
+template <int HID>
+struct ABaseShape {
+  static constexpr int warpgroups = HID == 1 ? 4 : 2;
+  static constexpr int blocks = HID == 1 ? 1 : 2;
+};
 
-template <bool TRI>
-__global__ void __launch_bounds__(NKT_A_BASE_WARPGROUPS * NKT_WG_THREADS, NKT_A_BASE_BLOCKS_PER_SM)
+template <bool TRI, int HID>
+__global__ void __launch_bounds__(ABaseShape<HID>::warpgroups * NKT_WG_THREADS,
+                                  ABaseShape<HID>::blocks)
     fourier_mlp_fwd_base_wgmma_kernel(const float* __restrict__ x, int n,
                                       const float* __restrict__ Bm,
                                       const uint4* __restrict__ image,
                                       const float* __restrict__ wb, Chain ch,
                                       float* __restrict__ out) {
-  using I = BaseImage;
+  using I = BaseImage<HID>;
+  constexpr int WGS = ABaseShape<HID>::warpgroups;
   extern __shared__ __align__(128) unsigned char smem[];
-  nkt_base_stage(smem, image, wb, ch, Bm);
+  nkt_base_stage<HID>(smem, image, wb, ch, Bm);
   const uint32_t ws = nkt_smem_addr(smem);
   const float* bs = reinterpret_cast<const float*>(smem + I::bytes);
   const float* Bs = bs + I::bias_floats;
   const WgLane L = nkt_wg_lane();
   // the last layer's bias at the thread's columns 2t, 2t + 1, 8 + 2t, 9 + 2t
-  const float2 b_lo = *reinterpret_cast<const float2*>(bs + I::b_b2 + 2 * L.t);
-  const float2 b_hi = *reinterpret_cast<const float2*>(bs + I::b_b2 + 8 + 2 * L.t);
+  const float2 b_lo = *reinterpret_cast<const float2*>(bs + I::b_out + 2 * L.t);
+  const float2 b_hi = *reinterpret_cast<const float2*>(bs + I::b_out + 8 + 2 * L.t);
   const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
 
   // no barrier from here on: each warpgroup walks its own tiles
-  for (int tile = blockIdx.x * NKT_A_BASE_WARPGROUPS + threadIdx.x / NKT_WG_THREADS;
-       tile < ntiles; tile += gridDim.x * NKT_A_BASE_WARPGROUPS) {
+  for (int tile = blockIdx.x * WGS + threadIdx.x / NKT_WG_THREADS; tile < ntiles;
+       tile += gridDim.x * WGS) {
     float xa[3], xb[3];
     nkt_wg_load_x(x, n, tile, L, xa, xb);
     uint32_t h[32];
     {
       float acc[64];
-      nkt_wg_first_layer<TRI, I::H>(acc, Bs, L.t, xa, xb, ws + I::w_b0);
-      nkt_wg_relu_pack<false>(acc, bs + I::b_b0, L.t, h, nullptr);
-      nkt_wg_forward<8>(acc, h, ws + I::w_b1);
-      nkt_wg_relu_pack<false>(acc, bs + I::b_b1, L.t, h, nullptr);
+      nkt_wg_first_layer<TRI, I::H>(acc, Bs, L.t, xa, xb, ws + I::w_hid(0));
+      nkt_wg_relu_pack<false>(acc, bs + I::b_hid(0), L.t, h, nullptr);
+#pragma unroll
+      for (int l = 1; l < HID; ++l) {
+        nkt_wg_forward<8>(acc, h, ws + I::w_hid(l));
+        nkt_wg_relu_pack<false>(acc, bs + I::b_hid(l), L.t, h, nullptr);
+      }
     }
     float acc[8];
-    nkt_wg_forward<8>(acc, h, ws + I::w_b2);
+    nkt_wg_forward<8>(acc, h, ws + I::w_out);
     // acc[4j + e] is row a, acc[4j + 2 + e] row b, of column 8j + 2t + e
     const long long pa = (long long)tile * NKT_WG_ROWS + 16 * L.w + L.g, pb = pa + 8;
 #pragma unroll
@@ -360,32 +375,32 @@ __global__ void __launch_bounds__(NKT_A_BASE_WARPGROUPS * NKT_WG_THREADS, NKT_A_
   }
 }
 
-template <bool TRI>
+template <bool TRI, int HID>
 static int launch_base_wgmma(const float* x, int n, const float* Bm, const void* image,
                              const float* wb, const Chain& ch, float* out, cudaStream_t stream) {
-  constexpr int THREADS = NKT_A_BASE_WARPGROUPS * NKT_WG_THREADS;
-  constexpr int smem = BaseImage::smem_bytes;
-  cudaError_t err = cudaFuncSetAttribute(fourier_mlp_fwd_base_wgmma_kernel<TRI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int WGS = ABaseShape<HID>::warpgroups, THREADS = WGS * NKT_WG_THREADS;
+  constexpr int smem = BaseImage<HID>::smem_bytes;
+  auto kernel = fourier_mlp_fwd_base_wgmma_kernel<TRI, HID>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  // all of the SM's shared memory and L1 as shared memory: two images
-  if ((err = cudaFuncSetAttribute(fourier_mlp_fwd_base_wgmma_kernel<TRI>,
-                                  cudaFuncAttributePreferredSharedMemoryCarveout,
+  // all of the SM's shared memory and L1 as shared memory: two or more images
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                   (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
     return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fourier_mlp_fwd_base_wgmma_kernel<TRI>, THREADS, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+      cudaSuccess)
     return (int)err;
   if (per_sm < 1) return NKT_ERR_SMEM;
   const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
-  const int want = (ntiles + NKT_A_BASE_WARPGROUPS - 1) / NKT_A_BASE_WARPGROUPS;
+  const int want = (ntiles + WGS - 1) / WGS;
   const int grid = want < sms * per_sm ? want : sms * per_sm;
-  fourier_mlp_fwd_base_wgmma_kernel<TRI><<<grid, THREADS, smem, stream>>>(
-      x, n, Bm, reinterpret_cast<const uint4*>(image), wb, ch, out);
+  kernel<<<grid, THREADS, smem, stream>>>(x, n, Bm, reinterpret_cast<const uint4*>(image), wb, ch,
+                                          out);
   return (int)cudaGetLastError();
 }
 
@@ -395,12 +410,12 @@ static int launch_base_wgmma(const float* x, int n, const float* Bm, const void*
 // by `variant`: 1 is the wgmma body for the proposal fields' widths (see
 // nkt_mlp_is_flagship), and needs `image`, W_0^T as bf16 of image_bytes
 // (wgmma_chain.cuh MlpImage); it rounds the rest of wb to bf16 itself, so wb
-// may come unrounded. 2 is the wgmma body for the field's base widths (see
-// nkt_mlp_is_base), and needs `image`, the base chain's bf16 image
-// (BaseImage); it reads only the f32 biases of wb. 0 is the WMMA body, which
-// takes every shape and wants the weights in wb already rounded.
-// Launches on `stream`, does not synchronise; returns the launch error (0 on
-// success).
+// may come unrounded. 2 is the wgmma body for the base widths (see
+// nkt_mlp_base_depth: (256, 128, 16) or (256, 128, 128, 16)), and needs
+// `image`, the base chain's bf16 image (BaseImage); it reads only the f32
+// biases of wb. 0 is the WMMA body, which takes every shape and wants the
+// weights in wb already rounded. Launches on `stream`, does not synchronise;
+// returns the launch error (0 on success).
 extern "C" int nkt_fourier_mlp_fwd(const float* x, int n, const float* Bm, int H, const float* wb,
                                    int wb_floats, const int* dims, int n_layers, int tri, int bf16,
                                    int variant, const void* image, int image_bytes, float* out,
@@ -411,16 +426,19 @@ extern "C" int nkt_fourier_mlp_fwd(const float* x, int n, const float* Bm, int H
   if (packed != wb_floats || dims[0] != 2 * H) return NKT_ERR_PACKING;
   const bool proposal = variant == 1 && nkt_mlp_is_flagship(ch, H) &&
                         image_bytes == MlpImage::w0_bytes;
-  const bool base = variant == 2 && nkt_mlp_is_base(ch, H) && image_bytes == BaseImage::bytes;
+  const int depth = variant == 2 ? nkt_mlp_base_depth(ch, H) : 0;
+  const bool base =
+      depth > 0 && image_bytes == (depth == 1 ? BaseImage<1>::bytes : BaseImage<2>::bytes);
   if (variant != 0 && !(bf16 && (proposal || base))) return NKT_ERR_VARIANT;
   if (n == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (variant == 1)
     return tri ? launch_wgmma<true>(x, n, Bm, image, wb, ch, out, s)
                : launch_wgmma<false>(x, n, Bm, image, wb, ch, out, s);
-  if (variant == 2)
-    return tri ? launch_base_wgmma<true>(x, n, Bm, image, wb, ch, out, s)
-               : launch_base_wgmma<false>(x, n, Bm, image, wb, ch, out, s);
+#define NKT_BASE(T, D) launch_base_wgmma<T, D>(x, n, Bm, image, wb, ch, out, s)
+  if (variant == 2 && depth == 1) return tri ? NKT_BASE(true, 1) : NKT_BASE(false, 1);
+  if (variant == 2) return tri ? NKT_BASE(true, 2) : NKT_BASE(false, 2);
+#undef NKT_BASE
   if (bf16) {
     MmaChain m;
     int w_elems = 0, b_floats = 0;

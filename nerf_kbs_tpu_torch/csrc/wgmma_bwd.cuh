@@ -1,7 +1,8 @@
 // The wgmma backward's shared pieces, for the two kernels whose backward
 // runs the base chain H = 128, (256, 128, 128, 16) on wgmma: the field
 // backward (fourier_field_bwd.cu, both chains) and the fused MLP backward at
-// the base widths (fourier_mlp_bwd.cu, the base chain alone).
+// the base widths (fourier_mlp_bwd.cu, the base chain alone, also with one
+// hidden layer, (256, 128, 16)).
 //
 // Both split the work in two. A per-point pass walks 64-point tiles, one
 // warpgroup a tile, recomputes the forward and walks the chain backwards

@@ -3,7 +3,8 @@
 // the two field kernels (fourier_field_fwd.cu, fourier_field_bwd.cu, see
 // FieldImage), the two fused-MLP kernels at the proposal fields' widths
 // (fourier_mlp_fwd.cu, fourier_mlp_bwd.cu, see MlpImage) and the same two at
-// the field's base widths, the base chain alone (see BaseImage).
+// the base widths, a base chain of one or two hidden layers alone (see
+// BaseImage).
 //
 // One warpgroup (4 warps) owns a tile of 64 points, the M dimension of every
 // product. Thread (w, g, t) = (warp in the group, lane / 4, lane % 4) holds
@@ -442,19 +443,26 @@ __device__ __forceinline__ void nkt_wg_base_out(const float (&acc)[8], const flo
   }
 }
 
-// The base chain's weight image, H = 128, (256, 128, 128, 16): its three W^T
+// The base chain's weight image, H = 128, dims (256, 128, ..., 128, 16) with
+// HID hidden layers of 128 (2: the nerfacto field's base, 3 layers; 1: the
+// 2-layer base of sem30k-flagship2's split field, (256, 128, 16)): its W^T
 // matrices in the core layout, one after another (the host builds it, see
 // ops/fused_field.py `_chain_image_index`), and the places of its biases in
-// shared memory. It is the first part of FieldImage and what the fused-MLP
-// kernels' base-width bodies hold alone.
+// shared memory. HID = 2 is the first part of FieldImage; the fused-MLP
+// kernels' base-width bodies hold either alone.
+template <int HID>
 struct BaseImage {
+  static_assert(HID == 1 || HID == 2, "the base chain has one or two hidden layers");
   static constexpr int H = 128;
-  static constexpr int w_b0 = 0;                     // [128][256]
-  static constexpr int w_b1 = w_b0 + 128 * 256 * 2;  // [128][128]
-  static constexpr int w_b2 = w_b1 + 128 * 128 * 2;  // [16][128]
-  static constexpr int bytes = w_b2 + 16 * 128 * 2;
-  // biases, floats
-  static constexpr int b_b0 = 0, b_b1 = 128, b_b2 = 256, bias_floats = 272;
+  // W_l^T of layer l < HID: [128][256] for l = 0, [128][128] after it
+  __host__ __device__ static constexpr int w_hid(int l) {
+    return l == 0 ? 0 : 128 * 256 * 2 + (l - 1) * 128 * 128 * 2;
+  }
+  static constexpr int w_out = 128 * 256 * 2 + (HID - 1) * 128 * 128 * 2;  // [16][128]
+  static constexpr int bytes = w_out + 16 * 128 * 2;
+  // biases, floats: layer l's at 128 l, the last layer's 16 behind them
+  __host__ __device__ static constexpr int b_hid(int l) { return 128 * l; }
+  static constexpr int b_out = 128 * HID, bias_floats = b_out + 16;
   // shared memory of a block: the image, the biases, then B (3, H)
   static constexpr int smem_bytes = bytes + (bias_floats + 3 * H) * 4;
 };
@@ -466,15 +474,16 @@ struct BaseImage {
 // sigma_raw's place (a zero weight row), 1..15 geo, 16.. the per-point feats.
 template <int KR>
 struct FieldImage {
-  static constexpr int H = BaseImage::H;
-  static constexpr int w_b0 = BaseImage::w_b0, w_b1 = BaseImage::w_b1, w_b2 = BaseImage::w_b2;
-  static constexpr int w_r0 = BaseImage::bytes;     // [64][KR]
+  using Base = BaseImage<2>;
+  static constexpr int H = Base::H;
+  static constexpr int w_b0 = Base::w_hid(0), w_b1 = Base::w_hid(1), w_b2 = Base::w_out;
+  static constexpr int w_r0 = Base::bytes;          // [64][KR]
   static constexpr int w_r1 = w_r0 + 64 * KR * 2;  // [64][64]
   static constexpr int w_r2 = w_r1 + 64 * 64 * 2;  // [16][64]
   static constexpr int bytes = w_r2 + 16 * 64 * 2;
   // biases, floats
-  static constexpr int b_b0 = BaseImage::b_b0, b_b1 = BaseImage::b_b1, b_b2 = BaseImage::b_b2;
-  static constexpr int b_r0 = BaseImage::bias_floats, b_r1 = b_r0 + 64, b_r2 = b_r1 + 64;
+  static constexpr int b_b0 = Base::b_hid(0), b_b1 = Base::b_hid(1), b_b2 = Base::b_out;
+  static constexpr int b_r0 = Base::bias_floats, b_r1 = b_r0 + 64, b_r2 = b_r1 + 64;
   static constexpr int bias_floats = b_r2 + 16;
 };
 
@@ -511,27 +520,33 @@ __device__ __forceinline__ void nkt_field_stage(unsigned char* smem, const uint4
   for (int i = threadIdx.x; i < 3 * I::H; i += blockDim.x) Bs[i] = Bm[i];
 }
 
-// True when the chain is the base chain BaseImage is written for.
-static inline bool nkt_mlp_is_base(const Chain& ch, int H) {
-  return H == BaseImage::H && ch.n_layers == 3 && ch.dims[0] == 256 && ch.dims[1] == 128 &&
-         ch.dims[2] == 128 && ch.dims[3] == 16;
+// The number of hidden layers of 128 (HID of BaseImage) when the chain is a
+// base chain BaseImage is written for, H = 128, (256, 128, 16) or (256, 128,
+// 128, 16); else 0.
+static inline int nkt_mlp_base_depth(const Chain& ch, int H) {
+  const int hid = ch.n_layers - 1;
+  if (H != 128 || hid < 1 || hid > 2 || ch.dims[0] != 256 || ch.dims[hid + 1] != 16) return 0;
+  for (int l = 1; l <= hid; ++l)
+    if (ch.dims[l] != 128) return 0;
+  return hid;
 }
 
 // Device, whole block: the base image into shared memory at smem by
 // cp.async, its biases from the packed chain wb and B (3, H) behind it; ends
 // with the block barrier that makes all of it visible to wgmma.
+template <int HID>
 __device__ __forceinline__ void nkt_base_stage(unsigned char* smem, const uint4* image,
                                                const float* wb, const Chain& ch,
                                                const float* Bm) {
-  using I = BaseImage;
+  using I = BaseImage<HID>;
   uint4* ws = reinterpret_cast<uint4*>(smem);
   for (int i = threadIdx.x; i < I::bytes / 16; i += blockDim.x) nkt_cp_async16(ws + i, image + i);
   nkt_cp_commit();
   float* bs = reinterpret_cast<float*>(smem + I::bytes);
-  const int off[3] = {I::b_b0, I::b_b1, I::b_b2}, end[3] = {I::b_b1, I::b_b2, I::bias_floats};
-  for (int l = 0; l < 3; ++l)
-    for (int i = threadIdx.x; i < end[l] - off[l]; i += blockDim.x)
-      bs[off[l] + i] = wb[ch.b_off[l] + i];
+  for (int l = 0; l <= HID; ++l) {
+    const int off = l < HID ? I::b_hid(l) : I::b_out, width = l < HID ? 128 : 16;
+    for (int i = threadIdx.x; i < width; i += blockDim.x) bs[off + i] = wb[ch.b_off[l] + i];
+  }
   float* Bs = bs + I::bias_floats;
   for (int i = threadIdx.x; i < 3 * I::H; i += blockDim.x) Bs[i] = Bm[i];
   nkt_cp_wait<0>();

@@ -29,8 +29,9 @@ both change under a lock.
 Every kernel has a wgmma body for the flagship widths (``_wgmma_field``;
 ``_wgmma_mlp`` for the proposal fields), counted under the ``*_wgmma`` keys,
 and the WMMA body for every other shape. The two fused-MLP kernels have a
-second wgmma body, for the field's base chain that the semantics path runs
-alone (``_wgmma_mlp_base``), counted under the ``*_base_wgmma`` keys.
+second wgmma body, for the base chains that the semantics path runs alone,
+with one or two hidden layers (``_wgmma_mlp_base``), counted under the
+``*_base_wgmma`` keys.
 """
 
 from __future__ import annotations
@@ -358,10 +359,11 @@ def _wgmma_mlp(spec: "FusedMLPSpec") -> bool:
 
 def _wgmma_mlp_base(spec: "FusedMLPSpec") -> bool:
     """True for the shapes the base-width wgmma bodies of the two fused-MLP
-    kernels are written for (csrc/wgmma_chain.cuh ``nkt_mlp_is_base``): bf16,
-    H = 128, dims (256, 128, 128, 16), the nerfacto field's base chain."""
+    kernels are written for (csrc/wgmma_chain.cuh ``nkt_mlp_base_depth``):
+    bf16, H = 128, dims (256, 128, 128, 16), the nerfacto field's base chain,
+    or (256, 128, 16), the 2-layer base of ``semantic-nerfw``'s split field."""
     return (spec.bf16 and spec.h_freqs == 128
-            and tuple(spec.layer_dims) == (256, 128, 128, 16))
+            and tuple(spec.layer_dims) in ((256, 128, 16), (256, 128, 128, 16)))
 
 
 # the fused-MLP kernels' bodies: counter suffix -> the C entry's `variant`
@@ -502,13 +504,15 @@ def _field_scratch_bytes(n: int, feat_dim: int) -> int:
     return tiles * 64 * (800 + 16 + feat_dim) * 2
 
 
-def _mlp_base_scratch_bytes(n: int) -> int:
+def _mlp_base_scratch_bytes(n: int, dims) -> int:
     """Bytes the base-width backward's per-point pass leaves for its
     weight-gradient passes (csrc/fourier_mlp_bwd.cu ``MlpBaseScratch``): per
-    point, as bf16, the hidden layers' inputs (128 + 128) and the three
-    pre-activation gradients (128 + 128 + 16), for whole 64-point tiles."""
+    point, as bf16, the inputs of the layers after the first (128 a hidden
+    layer) and every pre-activation gradient (128 a hidden layer, then 16),
+    for whole 64-point tiles: 528 values a point for dims (256, 128, 128, 16),
+    272 for (256, 128, 16)."""
     tiles = (n + 63) // 64
-    return tiles * 64 * 528 * 2
+    return tiles * 64 * (256 * (len(dims) - 2) + 16) * 2
 
 
 def _sm_count(t: torch.Tensor) -> int:
@@ -572,7 +576,8 @@ def _mlp_backward(spec: FusedMLPSpec, x_t, B, ws, bs, g):
     image = _mlp_images[body](wb, spec.layer_dims) if body else None
     scratch = None
     if body == "_base_wgmma":
-        scratch = torch.empty(_mlp_base_scratch_bytes(n), device=x.device, dtype=torch.uint8)
+        scratch = torch.empty(_mlp_base_scratch_bytes(n, spec.layer_dims), device=x.device,
+                              dtype=torch.uint8)
     _kernels.call(
         "fourier_mlp_bwd", x.data_ptr(), n, Bc.data_ptr(), H, wb.data_ptr(), wb.numel(),
         _kernels.int_array(spec.layer_dims), spec.num_layers,

@@ -18,6 +18,8 @@ TOL = {False: 1e-4, True: 2e-2}
 # in the fused MLP kernels, through their base-width wgmma bodies in bf16;
 # enough points that a weight gradient is a sum over many (see BWD_TOL)
 BASE_WIDTHS = ((256, 128, 128, 16), 20000)
+# semantic-nerfw's 2-layer base (H = 128, one hidden layer), the same bodies
+BASE2_WIDTHS = ((256, 128, 16), 20000)
 
 
 @pytest.fixture
@@ -44,7 +46,7 @@ def _inputs(rng, H, n, basis, dev):
 @pytest.mark.parametrize("basis", ["tri", "sincos"])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("dims,n", [((24, 16, 5), 300), ((80, 16, 1), 1001),
-                                    BASE_WIDTHS])
+                                    BASE_WIDTHS, BASE2_WIDTHS])
 def test_fourier_mlp_kernel(dev, basis, bf16, dims, n):
     rng = np.random.default_rng(0)
     x, B = _inputs(rng, dims[0] // 2, n, basis, dev)
@@ -100,7 +102,7 @@ def _check_all(names, got, want, tol):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("need_dx", [False, True])
 @pytest.mark.parametrize("dims,n", [((24, 16, 5), 300), ((80, 16, 1), 1001),
-                                    ((64, 32, 32, 4), 5000), BASE_WIDTHS])
+                                    ((64, 32, 32, 4), 5000), BASE_WIDTHS, BASE2_WIDTHS])
 def test_fourier_mlp_backward_kernel(dev, basis, bf16, need_dx, dims, n):
     rng = np.random.default_rng(2)
     x, B = _inputs(rng, dims[0] // 2, n, basis, dev)
@@ -433,20 +435,21 @@ def test_fourier_mlp_backward_kernel_flagship(dev, basis, need_dx, n):
 
 
 # ---------------------------------------------------------------------------
-# the two fused-MLP kernels at the field's base widths (H = 128, (256, 128,
-# 128, 16)), which run their base-width wgmma bodies
+# the two fused-MLP kernels at the base widths (H = 128, (256, 128, 128, 16)
+# and (256, 128, 16)), which run their base-width wgmma bodies
 # ---------------------------------------------------------------------------
 
-BASE_DIMS = BASE_WIDTHS[0]
+BASE_DIMS = [BASE_WIDTHS[0], BASE2_WIDTHS[0]]
 
 
 @pytest.mark.parametrize("basis", ["tri", "sincos"])
 @pytest.mark.parametrize("n", EDGE_N)
-def test_fourier_mlp_kernel_base(dev, basis, n):
+@pytest.mark.parametrize("dims", BASE_DIMS)
+def test_fourier_mlp_kernel_base(dev, basis, n, dims):
     rng = np.random.default_rng(25)
     x, B = _inputs(rng, 128, n, basis, dev)
-    ws, bs = _mlp(rng, BASE_DIMS, dev)
-    spec = ff.FusedMLPSpec(h_freqs=128, layer_dims=BASE_DIMS, bf16=True, basis=basis)
+    ws, bs = _mlp(rng, dims, dev)
+    spec = ff.FusedMLPSpec(h_freqs=128, layer_dims=dims, bf16=True, basis=basis)
     before = dict(ff.LAUNCHES)
     got = ff.fourier_mlp(spec, x, B, ws, bs)
     assert ff.LAUNCHES["fourier_mlp_base_wgmma"] == before["fourier_mlp_base_wgmma"] + 1
@@ -467,12 +470,13 @@ def test_fourier_mlp_kernel_base(dev, basis, n):
 @pytest.mark.parametrize("basis", ["tri", "sincos"])
 @pytest.mark.parametrize("need_dx", [False, True])
 @pytest.mark.parametrize("n", EDGE_N)
-def test_fourier_mlp_backward_kernel_base(dev, basis, need_dx, n):
+@pytest.mark.parametrize("dims", BASE_DIMS)
+def test_fourier_mlp_backward_kernel_base(dev, basis, need_dx, n, dims):
     rng = np.random.default_rng(27)
     x, B = _inputs(rng, 128, n, basis, dev)
-    ws, bs = _mlp(rng, BASE_DIMS, dev)
+    ws, bs = _mlp(rng, dims, dev)
     g = torch.tensor(rng.normal(size=(16, n)), dtype=torch.float32, device=dev)
-    spec = ff.FusedMLPSpec(h_freqs=128, layer_dims=BASE_DIMS, bf16=True, basis=basis,
+    spec = ff.FusedMLPSpec(h_freqs=128, layer_dims=dims, bf16=True, basis=basis,
                            need_dx=need_dx)
 
     def flat(res):
@@ -490,18 +494,20 @@ def test_fourier_mlp_backward_kernel_base(dev, basis, need_dx, n):
         ff.FORCE_WMMA = frozenset()
     torch.cuda.synchronize()
     assert (got[0] is None) == (not need_dx)
-    names = ["dW0", "dW1", "dW2", "db0", "db1", "db2", "dx"]
-    # dW2 and db2 pass no mask: against the plain version. Every output
+    L = len(dims) - 1
+    names = [f"dW{i}" for i in range(L)] + [f"db{i}" for i in range(L)] + ["dx"]
+    # the last layer's dW and db pass no mask: against the plain version. Every output
     # against the WMMA body, which rounds and masks at the same places and
     # differs in the order of the f32 sums only. Against the plain version a
     # relu mask can fall the other way at a point, which moves a gradient
     # summed over few points by percents: there dx is held at all but a few
     # points, and the weight gradients once the points are thousands.
-    _check_all([names[2], names[5]], [flat(got)[2], flat(got)[5]],
-               [flat(want)[2], flat(want)[5]], BWD_TOL[True])
+    last = [L - 1, 2 * L - 1]
+    _check_all([names[i] for i in last], [flat(got)[i] for i in last],
+               [flat(want)[i] for i in last], BWD_TOL[True])
     _check_all(names, flat(got), flat(old), 2e-3)
     if n >= 5000:
-        _check_all(names[:6], flat(got)[:6], flat(want)[:6], BWD_TOL[True])
+        _check_all(names[:2 * L], flat(got)[:2 * L], flat(want)[:2 * L], BWD_TOL[True])
     if need_dx:
         off = ((got[0] - want[0]).abs() > BWD_TOL[True] * want[0].abs().max()).any(dim=0)
         assert int(off.sum()) <= max(1, n // 500)

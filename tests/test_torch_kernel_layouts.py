@@ -104,6 +104,32 @@ def test_base_image_against_unpack(rounded):
     assert torch.equal(field[:image.numel()], image)
 
 
+@pytest.mark.parametrize("rounded", [True, False])
+def test_base2_image_against_unpack(rounded):
+    """The image of the 2-layer base (256, 128, 16): W_0^T then W_1^T in the
+    core layout, bf16, bit for bit, 69,632 bytes (csrc/wgmma_chain.cuh
+    ``BaseImage<1>``); its W_0^T part is the 3-layer image's for the same
+    first layer."""
+    dims = (256, 128, 16)
+    rng = np.random.default_rng(3)
+    ws, bs = _mlp(rng, dims)
+    wb = ff._pack(ws, bs, dims, rounded)
+    image = ff._base_image(wb, dims)
+    assert image.dtype == torch.bfloat16 and image.numel() * 2 == 128 * 256 * 2 + 16 * 128 * 2
+    off = 0
+    for w in ff._unpack(wb, dims)[0]:
+        K, N = w.shape
+        n_, k_ = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+        got = image[off:off + N * K].float()[torch.from_numpy(ff._core_offset(n_, k_, N))]
+        assert torch.equal(got, ff._cast(w, True).T)
+        off += N * K
+    assert off == image.numel()
+    ws3, bs3 = _mlp(rng, FLAGSHIP_BASE)
+    ws3[0], bs3[0] = ws[0], bs[0]
+    image3 = ff._base_image(ff._pack(ws3, bs3, FLAGSHIP_BASE, rounded), FLAGSHIP_BASE)
+    assert torch.equal(image3[:128 * 256], image[:128 * 256])
+
+
 def test_core_offset_is_a_permutation_of_cores():
     r, c = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
     off = ff._core_offset(r, c, 64)
@@ -122,11 +148,15 @@ def test_field_scratch_bytes(n, F):
     assert ff._field_scratch_bytes(n, F) == int(tiles * 64 * 2 * (acts.sum() + grads.sum()))
 
 
-@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 193, 196608, 1000003])
-def test_mlp_base_scratch_bytes(n):
-    acts = [128, 128]  # the hidden layers' inputs (the encoding is recomputed)
-    grads = [128, 128, 16]  # the three pre-activation gradients
-    assert ff._mlp_base_scratch_bytes(n) == -(-n // 64) * 64 * 2 * (sum(acts) + sum(grads))
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 193, 196608, 786432, 1000003])
+@pytest.mark.parametrize("dims,acts,grads", [
+    # the layers' inputs but the encoding (it is recomputed), then every
+    # pre-activation gradient
+    ((256, 128, 128, 16), [128, 128], [128, 128, 16]),
+    ((256, 128, 16), [128], [128, 16]),
+])
+def test_mlp_base_scratch_bytes(n, dims, acts, grads):
+    assert ff._mlp_base_scratch_bytes(n, dims) == -(-n // 64) * 64 * 2 * (sum(acts) + sum(grads))
 
 
 @pytest.mark.parametrize("chains", [

@@ -143,12 +143,17 @@ BASE = (256, 128, 128, 16)
     ({"h_freqs": 64, "layer_dims": (128, 128, 128, 16)}, False),
     ({"layer_dims": (256, 64, 64, 16)}, False),
     ({"layer_dims": (256, 128, 128, 1)}, False),
-    ({"layer_dims": (256, 128, 16)}, False),
+    ({"layer_dims": (256, 128, 16)}, True),
+    ({"layer_dims": (256, 128, 16), "basis": "tri", "need_dx": False}, True),
+    ({"layer_dims": (256, 128, 16), "bf16": False}, False),
+    ({"layer_dims": (256, 128, 128, 128, 16)}, False),
+    ({"layer_dims": (256, 64, 16)}, False),
+    ({"layer_dims": (256, 128, 1)}, False),
     ({"h_freqs": 40, "layer_dims": DIMS}, False)])
 def test_wgmma_mlp_base_shapes(kw, want):
-    """The base-width bodies take bf16, H = 128, (256, 128, 128, 16) in
-    either basis and refuse every other shape; the two predicates never
-    both hold, and the body names the counter."""
+    """The base-width bodies take bf16, H = 128, (256, 128, 128, 16) or
+    (256, 128, 16) in either basis and refuse every other shape; the two
+    predicates never both hold, and the body names the counter."""
     spec = ff.FusedMLPSpec(**{**dict(h_freqs=128, layer_dims=BASE), **kw})
     assert ff._wgmma_mlp_base(spec) == want
     assert not (ff._wgmma_mlp_base(spec) and ff._wgmma_mlp(spec))

@@ -1,8 +1,9 @@
 """Port vs JAX package, the host sampler (``nerf_kbs_tpu_torch.native``):
 ``sample_ray_batch`` with and without depths bit for bit against
 ``nerf_kbs_tpu.native.lib`` at 1 and 4 OpenMP threads (one subprocess per
-count: the runtime reads the count when it starts), the datamanager's
-default batches against JAX's, and a failed build. About 6 s."""
+count: the runtime reads the count when it starts), at one thread also at
+the reference runs' shape, the datamanager's default batches against
+JAX's, and a failed build. About 14 s."""
 
 import os
 import subprocess
@@ -109,6 +110,38 @@ def test_native_draws_depend_on_the_thread_count(draws):
     assert not np.array_equal(one, four)
     # the first thread's share starts from the same stream
     np.testing.assert_array_equal(one[:10], four[:10])
+
+
+_REFERENCE_WORKER = r"""
+import numpy as np
+from nerf_kbs_tpu.native import lib as jn
+from nerf_kbs_tpu_torch.native import lib as tn
+
+# the reference runs' train stack (tools/reference_runs_torch.sh: 36 train
+# images of 375 x 1242) and batch, the datamanager's seed 0, steps 1k to 5k
+rng = np.random.default_rng(0)
+imgs = rng.integers(0, 256, (36, 375, 1242, 3), dtype=np.uint8)
+depths = rng.random((36, 375, 1242), dtype=np.float32)
+for step in range(1000, 6000, 1000):
+    seed = 0 * 1_000_003 + step
+    got = tn.sample_ray_batch(imgs, 16384, seed, depths=depths)
+    want = jn.sample_ray_batch(imgs, 16384, seed, depths=depths)
+    for k in got:
+        assert np.array_equal(got[k], want[k].reshape(got[k].shape)), (step, k)
+print("identical")
+"""
+
+
+def test_native_draws_the_reference_runs_batches_at_one_thread(tmp_path):
+    """At one OpenMP thread (the JAX reference runs' host had one core, and
+    tools/reference_runs_torch.sh pins one) both samplers draw the same
+    batches at the reference runs' shape, bit for bit."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(_REFERENCE_WORKER)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, str(worker)], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "identical", out.stderr[-4000:]
 
 
 def test_native_coerces_and_checks_inputs():

@@ -21,6 +21,7 @@ script's is held to the JAX queue script's, so the three cannot drift:
 """
 
 import json
+import os
 import re
 import shlex
 import shutil
@@ -110,6 +111,29 @@ def test_script_argv_is_the_jax_runs(protocol):
         assert (launcher, method) == (jl.replace(".py", "_torch.py"), jmethod)
         assert argv == jargv + ["--trainer.output_dir", f"O/{protocol}-s{seed}",
                                 "--trainer.seed", str(seed), "--trainer.steps_per_save", "5000"]
+
+
+def test_training_runs_draw_at_one_thread(tmp_path):
+    """The script runs every launcher at OMP_NUM_THREADS=1 whatever the
+    caller's count, so the host sampler draws the JAX runs' batches (their
+    host had one core); the launchers get the argv ``--argv`` prints. A
+    python3 and an nvidia-smi on the PATH stand in for the real ones and
+    record their calls."""
+    bin_dir, calls = tmp_path / "bin", tmp_path / "calls.txt"
+    bin_dir.mkdir()
+    (bin_dir / "python3").write_text(
+        f'#!/bin/bash\necho "OMP=${{OMP_NUM_THREADS:-unset}} $*" >> {calls}\n')
+    (bin_dir / "nvidia-smi").write_text("#!/bin/bash\necho 'a card, 700.00 W'\n")
+    for f in bin_dir.iterdir():
+        f.chmod(0o755)
+    out, runs = tmp_path / "out", ["ilf050-s42", "sem30k-flagship2-s43"]
+    env = {**os.environ, "PATH": f"{bin_dir}:{os.environ['PATH']}", "OMP_NUM_THREADS": "8"}
+    subprocess.run(["bash", str(SCRIPT), str(out), " ".join(runs)], env=env, check=True,
+                   capture_output=True, text=True, timeout=120)
+    launched = [ln for ln in calls.read_text().splitlines() if "_torch.py " in ln]
+    want = [" ".join(script_argv(run, out=str(out))[:2]) + " " + " ".join(
+        script_argv(run, out=str(out))[2]) for run in runs]
+    assert launched == [f"OMP=1 {w}" for w in want]
 
 
 @pytest.mark.parametrize("protocol", PROTOCOLS)

@@ -73,11 +73,12 @@ def _j(arrs):
 @pytest.mark.parametrize("basis", ["tri", "sincos"])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("need_dx", [False, True])
-# the last case is the nerfacto field's base MLP (H = 128), which the
-# semantics path runs alone in this kernel; 130 points are ragged against
-# JAX's 128-point tile
+# the last two cases are the nerfacto field's base MLP (H = 128) and
+# semantic-nerfw's 2-layer base, which the semantics path runs alone in this
+# kernel; 130 and 300 points are ragged against JAX's 128-point tile
 @pytest.mark.parametrize("dims,n", [((24, 16, 5), 300), ((24, 16, 1), 190),
-                                    ((256, 128, 128, 16), 130)])
+                                    ((256, 128, 128, 16), 130),
+                                    ((256, 128, 16), 300)])
 def test_fourier_mlp_vjp_matches_jax_kernel(basis, bf16, need_dx, dims, n):
     H = dims[0] // 2
     rng, x, B = _case(0, H, n, basis)

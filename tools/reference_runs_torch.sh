@@ -109,6 +109,14 @@ if [ "$PRINT" = 1 ]; then
     exit 0
 fi
 
+# The host sampler's draw depends on the OpenMP thread count: each thread
+# seeds its own generator with its thread id and takes a static share of the
+# batch (nerf_kbs_tpu_torch/native/ray_sampler.cpp). The JAX runs drew on a
+# one-core host (tools/tune_decoder.py:16-17), so at one thread the port
+# trains on their batches: sem30k-flagship2-s42 then logs JAX's depth_loss at
+# steps 1k to 5k within 0.4% (PERF.md), against 46% off at the default count
+# of an 8-core host.
+export OMP_NUM_THREADS=1
 mkdir -p "$O"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$O/card.txt"
 [ -d outputs/kitti_syn ] || python3 tools/regen_data_torch.py || exit 1
