@@ -204,7 +204,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    sem30k-flagship2; no WMMA body), every
    logged loss finite, and the final PSNR of the split at least 2 dB above
    the eval images' PSNR against their own mean colour (a run stalled at the
-   background fails); then a profile of one sem30k-flagship2 step;
+   background fails); then a profile of one sem30k-flagship2 step; then
+   (phase reference_vs_cpu) both protocols at full width, f32, 256 rays, 3
+   steps on the card against the CPU plain path, the Fourier window open
+   from step 2: the total and every logged loss term per step, the
+   semantics and interlevel terms apart;
 19. the port's tools (phase tools_torch): the nine tools/*_torch.py as
    programs, started together at cut sizes (the orbit scene at 64x64, 50 to
    200 steps; regen_data_torch at 3 frames of 94x310): their JAX twins'
@@ -2756,18 +2760,20 @@ def to_f64(trainer) -> None:
 
 
 def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 3,
-                 tangents: bool = False, f64: bool = False) -> None:
+                 tangents: bool = False, f64: bool = False, terms: tuple = ()) -> None:
     """3 f32 steps of ``method`` on the card against the same 3 steps on the
     CPU plain path: same seeds, batches and jitter (drawn on the CPU in
     both); the losses of the first ``checked_steps`` must agree to 2e-3 (the
     others are recorded); with ``tangents`` the camera optimizer's
     tangents are compared too (see TANGENT_GRAD_TOL). With ``f64`` the CPU
     runs the 3 steps once more in float64, and each f32 run's distance from
-    it is recorded per step (losses, and tangent gradients)."""
+    it is recorded per step (losses, and tangent gradients). Each logged
+    loss term named in ``terms`` is recorded per step on both sides and
+    held to 2e-3 too."""
     import dataclasses
 
     spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv))
-    runs, tang, grads = {}, {}, {}
+    runs, tang, grads, parts = {}, {}, {}, {}
     for where in ("cuda", "cpu") + (("f64",) if f64 else ()):
         t = cli.build_trainer(dataclasses.replace(
             spec, trainer=dataclasses.replace(spec.trainer, experiment_name=f"f32_{where}")),
@@ -2775,9 +2781,11 @@ def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 
         check(t.model_config.compute_dtype == "float32", "f32 steps")
         if where == "f64":
             to_f64(t)
-        runs[where], grads[where] = [], []
+        runs[where], grads[where], parts[where] = [], [], []
         for s in range(3):
-            runs[where].append(float(t.train_step(t._to_device(t.dm.next_train(s)))["total_loss"]))
+            m = t.train_step(t._to_device(t.dm.next_train(s)))
+            runs[where].append(float(m["total_loss"]))
+            parts[where].append({k: float(m[k]) for k in terms})
             if tangents:
                 grads[where].append(t.params["camera_opt"].grad.cpu().double())
         if tangents:
@@ -2797,8 +2805,18 @@ def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 
                     / float(last_cpu.abs().max()),
                     "tangent_max_abs": float(t_cpu.abs().max()),
                     "tangent_max_diff_in_lr": float((t_gpu - t_cpu).abs().max()) / lr})
+    # relative to the term, or to 1e-6 where it is smaller (the interlevel
+    # term starts near 1e-10, where the proposals still equal the field)
+    term_rels = {k: [abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                     for a, b in zip(parts["cuda"], parts["cpu"])] for k in terms}
+    for k in terms:
+        rec[f"{k}_card"] = [p[k] for p in parts["cuda"]]
+        rec[f"{k}_cpu"] = [p[k] for p in parts["cpu"]]
+        rec[f"{k}_rel_diff_per_step"] = term_rels[k]
     if f64:
         rec["losses_f64"] = runs["f64"]
+        for k in terms:
+            rec[f"{k}_f64"] = [p[k] for p in parts["f64"]]
         for where in ("cuda", "cpu"):
             label = "card" if where == "cuda" else "cpu"
             rec[f"rel_diff_{label}_vs_f64"] = [abs(a - b) / abs(b)
@@ -2809,6 +2827,9 @@ def _card_vs_cpu(cli, method: str, argv: list, phase: str, checked_steps: int = 
                     for a, b in zip(grads[where], grads["f64"])]
     emit(rec)
     check(rel <= 2e-3, f"{phase}: card vs CPU f32 steps: {runs}")
+    for k in terms:
+        check(max(term_rels[k][:checked_steps]) <= 2e-3,
+              f"{phase}: card vs CPU {k}: {rec[f'{k}_card']} against {rec[f'{k}_cpu']}")
     check(not tangents or (scale > 0 and rec["tangent_grad_rel_diff"] <= TANGENT_GRAD_TOL),
           f"{phase}: card vs CPU tangent gradients: {rec}")
 
@@ -4504,6 +4525,35 @@ def phase_reference_runs(records, scene: str) -> None:
             del trainer
 
 
+# phase reference_vs_cpu: the logged loss terms of both protocols, held card
+# against CPU per step (f32, 3 steps; the largest gap seen on an H100 was
+# 2.4e-5, the interlevel term's); ilf050 logs no depth or semantics term
+REFERENCE_VS_CPU_TERMS = {
+    "ilf050": ("rgb_loss", "distortion_loss", "interlevel_loss"),
+    "sem30k-flagship2": ("rgb_loss", "distortion_loss", "interlevel_loss", "depth_loss",
+                         "semantics_loss"),
+}
+
+
+def phase_reference_vs_cpu(scene: str) -> None:
+    """Both protocols of tools/reference_runs_torch.sh at full width on the
+    card against the CPU plain path (_card_vs_cpu): the protocol's model,
+    optimizers and data (reference_argv's scene), in f32, 256 rays a step,
+    the Fourier window open from step 2 so that every level of the encoding
+    takes part; the total and each loss term per step
+    (REFERENCE_VS_CPU_TERMS), the semantics and interlevel terms apart."""
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.engine import cli
+
+    for protocol, terms in REFERENCE_VS_CPU_TERMS.items():
+        out = tempfile.mkdtemp(prefix=f"nkt_ref_cpu_{protocol}_")
+        method, argv, _ = reference_argv(protocol, scene, out)
+        _card_vs_cpu(cli, method, argv + [
+            "--trainer.mixed_precision", "false", "--datamanager.train_num_rays_per_batch", "256",
+            "--model.fourier_anneal_steps", "2", "--trainer.max_num_iterations", "3"],
+            f"reference_vs_cpu_{protocol}", terms=terms)
+
+
 def _pairs(argv: list) -> dict:
     """--k v pairs of an argv list as override paths."""
     return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
@@ -4550,6 +4600,7 @@ def main() -> int:
         phase_stream(scene)
         phase_preprocess(scene, tmp)
         phase_reference_runs(records, scene)
+        phase_reference_vs_cpu(scene)
     phase_tools_torch(records)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]

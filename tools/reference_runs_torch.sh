@@ -25,7 +25,8 @@
 #
 # out_dir defaults to outputs/reference_torch; runs is a space-separated list
 # of ilf050-s42 ilf050-s43 sem30k-flagship2-s42 sem30k-flagship2-s43 (default
-# all four).
+# all four). A suffix -d<n> (ilf050-s42-d1) also sets --datamanager.seed n,
+# which varies the batches (the JAX runs drew at the default, 0).
 set -u
 cd "$(dirname "$0")/.."
 
@@ -84,11 +85,13 @@ FLAG_W="--dataparser.data_dir outputs/kitti_syn --dataparser.first_frame 0 --dat
  --trainer.steps_per_eval_batch 5000 --trainer.steps_per_eval_all_images 30000 \
  --trainer.steps_per_save 30000 --trainer.log_every 1000 --trainer.max_num_iterations 30000"
 
-# the launcher, method and argv of run $1 (<protocol>-s<seed>), on one line;
-# the JAX run's own --trainer.output_dir stands, and the later one wins
+# the launcher, method and argv of run $1 (<protocol>-s<seed>, or
+# <protocol>-s<seed>-d<batch seed>, which adds --datamanager.seed), on one
+# line; the JAX run's own --trainer.output_dir stands, and the later one wins
 run_argv() {
     local protocol=${1%-s*} seed=${1##*-s}
-    local tail="--trainer.output_dir $O/$1 --trainer.seed $seed --trainer.steps_per_save 5000"
+    local tail="--trainer.output_dir $O/$1 --trainer.seed ${seed%-d*} --trainer.steps_per_save 5000"
+    [ "${seed%-d*}" = "$seed" ] || tail="$tail --datamanager.seed ${seed#*-d}"
     case $protocol in
         # tools/tpu_queue_q.sh:17-19
         ilf050) echo train_nerfacto_torch.py nerfacto-tpu $FLAG_Q \
