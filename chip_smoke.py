@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
-1. device: the card (nvidia-smi name and power limit), then the four kernel
-   sources (each with a wgmma body for the flagship widths, a WMMA body for
-   other widths and an f32 body; the two fused-MLP sources also a wgmma body
-   for the field's base widths) are built from csrc/ into build/ (one nvcc
-   per source, started together), with ptxas' registers and spills of every
-   wgmma kernel;
+1. device: the card (nvidia-smi name and power limit), then the five kernel
+   sources (the four fused-field kernels, each with a wgmma body for the
+   flagship widths, a WMMA body for other widths and an f32 body, the two
+   fused-MLP sources also a wgmma body for the field's base widths; and the
+   fixed-order segment sum) are built from csrc/ into build/ (one nvcc per
+   source, started together), with ptxas' registers and spills of every
+   wgmma kernel and of the segment sum;
 2. kernel parity: each kernel against its plain PyTorch version on the card,
    both bases and both compute dtypes, at the main paths' shapes and a
    ragged N, and every wgmma body also at N below and around one tile, one
@@ -209,14 +210,26 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    steps on the card against the CPU plain path, the Fourier window open
    from step 2: the total and every logged loss term per step, the
    semantics and interlevel terms apart;
-19. the port's tools (phase tools_torch): the nine tools/*_torch.py as
+19. (phase repeat_bits) ilf050 and sem30k-flagship2 at full width (100
+   steps each, reference_argv) and runs 3 and 7 (20 steps each), each trained
+   twice from one seed in this process: every parameter, Adam moment and
+   logged loss equal bit for bit after every step (state_checksums, and
+   torch.equal at the end), and the segment_sum launches a step by call
+   site (REPEAT_SEGMENT_SUMS); then the fixed-order segment sum
+   (csrc/segment_sum.cu, the backward of the interlevel bounds, the pdf
+   sampler's brackets and running maximum, and the hash table's gather)
+   against its plain
+   version in f64 (long runs, empty runs, one-element rows, a shared index
+   row) and, in f32, at each call site's inputs, a repeat bit-identical,
+   timed against the plain version and scatter_add_;
+20. the port's tools (phase tools_torch): the nine tools/*_torch.py as
    programs, started together at cut sizes (the orbit scene at 64x64, 50 to
    200 steps; regen_data_torch at 3 frames of 94x310): their JAX twins'
    committed result keys, the studies' launches a step (A 2 / B 1 / C 2 /
    D 1, C and D all with dx in the camera arms) and an eval chunk (A 2 / B
    1) from their '# launches' lines, and that they learn (see
    phase_tools_torch);
-20. a {"kernels": [...]} line, each record's "launches" counted per
+21. a {"kernels": [...]} line, each record's "launches" counted per
    "launches_per" (a frame, a bench step, a run-2 or a run-7 step, a run-2
    step with the camera optimizer; A to D also with
    "parallel_launches_per_rank_step" and "per_rank_n_max_err", and the
@@ -388,7 +401,8 @@ def phase_device():
         for ln in log.splitlines():
             if "Compiling entry function" in ln or "Function properties" in ln:
                 name = ln.split("_Z")[-1][:60]
-            if ("wgmma" in name or "nkt_field_dw" in name) and ("registers" in ln or "spill" in ln):
+            if (any(k in name for k in ("wgmma", "nkt_field_dw", "segment_sum"))
+                    and ("registers" in ln or "spill" in ln)):
                 regs.setdefault(n, []).append(
                     f"{name}: " + ln.replace("ptxas info    : ", "").strip())
     emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -4069,23 +4083,17 @@ def _train_vs_cpu(make) -> dict:
             "finite": all(math.isfinite(x) for x in loss_1 + loss_2)}
 
 
-def phase_preprocess_train() -> None:
-    """Each preprocessing trainer in f32 on the card against the CPU, on
-    the same seeded weights and inputs (the masks passed in), two steps
-    (``_train_vs_cpu``): RAFT at 640x192, 12 iterations, batch 1 (the
-    sequence loss under AdamW with the one-cycle rate and the global-norm
-    clip); the segmenter at 640x192 (Adam, boundary-weighted targets of an
-    instance map); the inpainter at 432x240, T = 10 (Adam, random stroke
-    masks). On the card the ms of a third step and its peak memory; and the
-    memory counters of ``utils/profiling.device_memory_stats`` under the
-    JAX package's keys."""
+def preprocess_trainers() -> dict:
+    """``make(device)`` -> (module, step) of each preprocessing trainer, from
+    seeded weights and inputs (step() -> the loss before its update): RAFT at
+    PRE_HW, RAFT_TRAIN_ITERS iterations, batch 1; the segmenter at PRE_HW;
+    the inpainter at INPAINT_HW, T = INPAINT_WINDOW."""
     import torch
 
     from nerf_kbs_tpu_torch.process_data import inpaint as inp
     from nerf_kbs_tpu_torch.process_data import raft_driver as rd
     from nerf_kbs_tpu_torch.process_data.networks import init_weights
     from nerf_kbs_tpu_torch.process_data.networks import segmenter as seg
-    from nerf_kbs_tpu_torch.utils import profiling
 
     g = torch.Generator().manual_seed(5)
     h, w = PRE_HW
@@ -4122,10 +4130,23 @@ def phase_preprocess_train() -> None:
         f, m = frames.to(dev), masks.to(dev)
         return gen, lambda: step(f, m)
 
-    rows = []
-    for name, make in (("raft", raft_step), ("segmenter", segmenter_step),
-                       ("inpaint", inpaint_step)):
-        rows.append({"trainer": name, **_train_vs_cpu(make)})
+    return {"raft": raft_step, "segmenter": segmenter_step, "inpaint": inpaint_step}
+
+
+def phase_preprocess_train() -> None:
+    """Each preprocessing trainer in f32 on the card against the CPU, on
+    the same seeded weights and inputs (the masks passed in), two steps
+    (``_train_vs_cpu``): RAFT at 640x192, 12 iterations, batch 1 (the
+    sequence loss under AdamW with the one-cycle rate and the global-norm
+    clip); the segmenter at 640x192 (Adam, boundary-weighted targets of an
+    instance map); the inpainter at 432x240, T = 10 (Adam, random stroke
+    masks). On the card the ms of a third step and its peak memory; and the
+    memory counters of ``utils/profiling.device_memory_stats`` under the
+    JAX package's keys."""
+    from nerf_kbs_tpu_torch.utils import profiling
+
+    rows = [{"trainer": name, **_train_vs_cpu(make)}
+            for name, make in preprocess_trainers().items()]
     mem = profiling.device_memory_stats()
     emit({"phase": "preprocess_train_vs_cpu", "raft_hw": list(PRE_HW),
           "raft_iters": RAFT_TRAIN_ITERS, "inpaint_hw": list(INPAINT_HW),
@@ -4554,6 +4575,264 @@ def phase_reference_vs_cpu(scene: str) -> None:
             f"reference_vs_cpu_{protocol}", terms=terms)
 
 
+# phase repeat_bits: the paths run twice from one seed and their steps
+REPEAT_BITS = {"ilf050": 100, "sem30k-flagship2": 100, "run3": 20, "run7": 20}
+# segment_sum launches a step by call site: one a proposal round for the
+# interlevel bounds; where sampling is not detached (semantic-nerfw as
+# registered; both reference protocols detach it) two a round in the pdf
+# sampler (its running maximum, its brackets); one a hash level (16 of the
+# field, 5 of each proposal field)
+REPEAT_SEGMENT_SUMS = {"ilf050": {"interlevel": 2}, "sem30k-flagship2": {"interlevel": 2},
+                       "run3": {"interlevel": 2, "sampler": 4, "hash": 26},
+                       "run7": {"interlevel": 2}}
+
+
+def repeat_trainer(path: str, scene: str, out: str, extra: tuple = (), device=None):
+    """A Trainer of one of the smoke's training paths, from its seed:
+    'ilf050' and 'sem30k-flagship2' (reference_argv: full width, 16,384
+    rays), 'run1', 'run2', 'run3' and 'run7' (the CLI runs' argvs, 4,096
+    rays); ``extra`` override pairs go last."""
+    import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
+    from nerf_kbs_tpu_torch.engine import cli
+
+    if path in REFERENCE_RUNS:
+        method, argv, _ = reference_argv(path, scene, out)
+    else:
+        method, more = {"run1": ("nerfacto-tpu", []),
+                        "run2": ("semantic-nerfw", RUN2_MODEL + _run2_data(scene)),
+                        "run3": ("semantic-nerfw", _run2_data(scene)),
+                        "run7": ("nerfacto-tpu", CAMERA_OPT)}[path]
+        argv = _run_argv(scene, out) + more
+    spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv + list(extra)))
+    return cli.build_trainer(spec, device=device)
+
+
+def state_checksums(trainer) -> dict:
+    """Per parameter group, of its parameters ('/p') and Adam moments ('/mu',
+    '/nu'): two sums over their float32 words read as int32, plain and
+    weighted by position mod 1,009, so that a change of any bit shows."""
+    import torch
+
+    from nerf_kbs_tpu_torch.engine.optimizers import tree_leaves
+
+    opt = trainer.optimizer
+    keys, sums = [], []
+    for g in opt.configs:
+        for kind, tree in (("p", opt.params[g]), ("mu", opt.state[g]["mu"]),
+                           ("nu", opt.state[g]["nu"])):
+            words = torch.cat([t.detach().reshape(-1).view(torch.int32).long()
+                               for t in tree_leaves(tree)])
+            weight = torch.arange(words.numel(), device=words.device) % 1009 + 1
+            keys.append(f"{g}/{kind}")
+            sums.append(torch.stack([words.sum(), (words * weight).sum()]))
+    return dict(zip(keys, torch.stack(sums).tolist()))
+
+
+def _state_leaves(trainer) -> list:
+    from nerf_kbs_tpu_torch.engine.optimizers import tree_leaves
+
+    opt = trainer.optimizer
+    return [t for g in opt.configs
+            for tree in (opt.params[g], opt.state[g]["mu"], opt.state[g]["nu"])
+            for t in tree_leaves(tree)]
+
+
+def final_state(trainer) -> list:
+    """Every parameter and Adam moment, copied to the host."""
+    return [t.detach().to("cpu", copy=True) for t in _state_leaves(trainer)]
+
+
+def restart(trainer, start: list) -> None:
+    """Puts back the parameters and Adam moments ``start`` (final_state of
+    the trainer as built) and the step and update counts 0: the trainer then
+    trains as a new one from the same seed would (its batches and jitter
+    are functions of the step)."""
+    import torch
+
+    with torch.no_grad():
+        for t, s in zip(_state_leaves(trainer), start):
+            t.copy_(s)
+    for st in trainer.optimizer.state.values():
+        st["count"] = 0
+    trainer.step = 0
+
+
+def train_record(trainer, steps: int) -> list:
+    """``steps`` steps from the trainer's batches; after each, its logged
+    losses (the metrics as floats) and its state's checksums."""
+    rec = []
+    for _ in range(steps):
+        metrics = trainer.train_step(trainer.dm.next_train(trainer.step))
+        rec.append({"losses": {k: float(v) for k, v in metrics.items()},
+                    "state": state_checksums(trainer)})
+    return rec
+
+
+def first_divergence(a: list, b: list):
+    """None when two train_record lists agree in every checksum and every
+    loss's bits, else the first step (from 1) that differs with the state
+    keys and the losses that differ there."""
+    def same(x, y):
+        return x == y or (x != x and y != y)  # NaN in both
+
+    for i, (x, y) in enumerate(zip(a, b)):
+        state = [k for k in x["state"] if x["state"][k] != y["state"].get(k)]
+        losses = [k for k in x["losses"] if not same(x["losses"][k], y["losses"].get(k))]
+        if state or losses:
+            return {"step": i + 1, "state": state, "losses": losses}
+    return None if len(a) == len(b) else {"step": min(len(a), len(b)) + 1, "state": ["length"],
+                                          "losses": []}
+
+
+def _segment_sum_spy():
+    """Replaces segment_sum in the three modules that call it by a wrapper
+    that counts the calls by site and keeps each site's first call's inputs
+    (cloned); returns (the inputs by site, the counts, restore)."""
+    from nerf_kbs_tpu_torch.ops import losses, samplers
+    from nerf_kbs_tpu_torch.ops import segment_sum as seg
+
+    seen, counts, saved = {}, {}, {}
+    # the hash table's gather (seg.gather_columns) sums through seg's own name
+    for site, mod in (("interlevel", losses), ("sampler", samplers), ("hash", seg)):
+        saved[mod] = mod.segment_sum
+
+        def spy(values, idx, n, _site=site, _fn=mod.segment_sum):
+            seen.setdefault(_site, (values.clone(), idx.clone(), n))
+            if _site == "hash" and n < seen.get("hash_coarse", (0, 0, n + 1))[2]:
+                seen["hash_coarse"] = (values.clone(), idx.clone(), n)  # the longest runs
+            counts[_site] = counts.get(_site, 0) + 1
+            return _fn(values, idx, n)
+        mod.segment_sum = spy
+
+    def restore():
+        for mod, fn in saved.items():
+            mod.segment_sum = fn
+    return seen, counts, restore
+
+
+def phase_repeat_bits(records, scene: str) -> None:
+    """Each path of REPEAT_BITS built once from its seed and trained twice
+    from that start in this process (``restart``; tools/repeat_bits_torch.py
+    builds each run anew, in this process and another), ``steps`` steps
+    each: after every step every parameter's and Adam
+    moment's checksum and every logged loss must be equal, and at the end
+    every parameter and moment bit for bit (torch.equal); the segment_sum
+    launches a step must be REPEAT_SEGMENT_SUMS'. Then the segment_sum
+    kernel (csrc/segment_sum.cu) against its plain version: in f64 on long
+    runs, empty runs, one-element rows and a shared index row (bit for bit
+    where a row holds at most one 256-entry piece); at each
+    call site's inputs of the first ilf050, sem30k-flagship2 and run-3 step
+    (the interlevel bounds, the pdf sampler, a hash level) in f32 against the
+    plain version in f64, a repeat bit-identical; timed there against the
+    plain version and scatter_add_ (the ``segment_sum*`` records)."""
+    import numpy as np
+    import torch
+
+    from nerf_kbs_tpu_torch.ops import segment_sum as seg
+
+    seen, counts, restore = _segment_sum_spy()
+    try:
+        for path, steps in REPEAT_BITS.items():
+            runs = []
+            t0 = time.perf_counter()
+            trainer = repeat_trainer(path, scene, tempfile.mkdtemp(prefix=f"nkt_rep_{path}_"))
+            start = final_state(trainer)
+            for _ in range(2):
+                restart(trainer, start)
+                seg.reset_launches()
+                counts.clear()
+                rec = train_record(trainer, steps)
+                runs.append((rec, final_state(trainer), seg.LAUNCHES["segment_sum"], dict(counts)))
+            del trainer
+            torch.cuda.empty_cache()
+            (ra, fa, la, ca), (rb, fb, lb, cb) = runs
+            div = first_divergence(ra, rb)
+            equal = len(fa) == len(fb) and all(torch.equal(x, y) for x, y in zip(fa, fb))
+            want = {k: steps * v for k, v in REPEAT_SEGMENT_SUMS[path].items()}
+            emit({"phase": "repeat_bits", "path": path, "steps": steps,
+                  "seconds": time.perf_counter() - t0, "first_divergence": div,
+                  "final_state_bit_identical": equal, "tensors": len(fa),
+                  "segment_sum_launches": [la, lb], "segment_sum_calls_by_site": ca,
+                  "loss_last": ra[-1]["losses"].get("total_loss")})
+            check(div is None and equal, f"repeat_bits {path}: the two runs part at {div} "
+                  f"(final state equal: {equal})")
+            check(ca == cb == want and la == lb == sum(want.values()),
+                  f"repeat_bits {path}: segment_sum launches {la}, {lb}, by site {ca}, "
+                  f"{cb}; want {want}")
+    finally:
+        restore()
+
+    # the kernel against its plain version in f64: long runs, empty runs,
+    # one-element rows, a shared index row; bit for bit on a repeat
+    dev = seen["interlevel"][0].device
+    rng = np.random.default_rng(18)
+    long_idx = np.full((3, 200_000), 4)
+    long_idx[:, :3], long_idx[:, -2:] = 1, 9
+    cases = {
+        "long_runs": (rng.normal(size=(3, 200_000)), long_idx, 10),
+        "empty_runs": (rng.normal(size=(64, 300)),
+                       np.sort(rng.integers(0, 100, (64, 300)), axis=-1) * 3, 301),
+        "one_element_rows": (rng.normal(size=(1000, 1)), rng.integers(0, 5, (1000, 1)), 5),
+        "shared_index_row": (rng.normal(size=(2, 100_000)),
+                             np.sort(rng.integers(0, 4096, (1, 100_000)), axis=-1), 4096),
+        "no_targets_named": (rng.normal(size=(4, 50)), np.zeros((4, 50), np.int64), 1),
+    }
+    f64 = {}
+    for case, (v, i, n) in cases.items():
+        vt = torch.as_tensor(v, device=dev)
+        it = torch.as_tensor(i, device=dev, dtype=torch.int32)
+        got, again = seg.segment_sum(vt, it, n), seg.segment_sum(vt, it, n)
+        want = seg.segment_sum_reference(vt.cpu(), it.cpu(), n).to(dev)
+        # any order of a row's Q adds stays within Q eps of its sum of |v|;
+        # rows whose runs sit inside 256-entry pieces are the serial sum's bits
+        scale = float(vt.abs().sum(-1).max())
+        f64[case] = float((got - want).abs().max()) / scale
+        check(f64[case] <= v.shape[1] * 2.0**-52 and torch.equal(got, again)
+              and (v.shape[1] > 256 or torch.equal(got, want)),
+              f"segment_sum f64 {case}: err {f64[case]} of the row's sum of |v|")
+    emit({"phase": "segment_sum_f64", "max_rel_err": f64})
+
+    # the call sites' inputs: f32 against the plain version in f64, timed
+    # against the plain version (scatter_add_ into zeros) and scatter_add_
+    # into a zeroed buffer
+    for site, path, what in (
+            ("interlevel", "ilf050", "16,384-ray ilf050 (and sem30k-flagship2) train step"),
+            ("sampler", "run3", "4,096-ray run-3 train step (its pdf samplers)"),
+            ("hash", "run3", "4,096-ray run-3 train step (its hash levels; the record: "
+             "the first, the field's finest)"),
+            ("hash_coarse", "run3", "4,096-ray run-3 train step (its hash levels; the record: "
+             "the coarsest, the longest runs)")):
+        launches_per = REPEAT_SEGMENT_SUMS[path][site.split("_")[0]]
+        v, i, n = seen[site]
+        got, again = seg.segment_sum(v, i, n), seg.segment_sum(v, i, n)
+        want = seg.segment_sum_reference(v.double(), i, n)
+        err = float((got.double() - want).abs().max())
+        check(torch.equal(got, again), f"segment_sum {site}: a repeat differs")
+        check(err <= 1e-6 * max(float(want.abs().max()), 1.0), f"segment_sum {site}: err {err}")
+        ms = time_ms(lambda: seg.segment_sum(v, i, n), 50)
+        plain_ms = time_ms(lambda: seg.segment_sum_reference(v, i, n), 50)
+        buf = torch.zeros(v.shape[0], n, device=dev)
+        lidx = i.long().expand(v.shape).contiguous()
+        library_ms = time_ms(lambda: buf.scatter_add_(1, lidx, v), 50)
+        _, events = device_events(lambda: [seg.segment_sum(v, i, n) for _ in range(20)])
+        R, Q = v.shape
+        rec = {"name": "segment_sum" if site == "interlevel" else f"segment_sum_{site}",
+               "route": "cuda", "source": "nerf_kbs_tpu_torch/csrc/segment_sum.cu",
+               "replaces": "nerf_kbs_tpu/ops/losses.py:76 _outer_cw_bwd and "
+                           "nerf_kbs_tpu/ops/samplers.py:175 _bracket_bwd (XLA, not Pallas)",
+               "site": site, "launches": launches_per, "launches_per": what,
+               "max_abs_err": err, "err_is": "f32 kernel against the plain version in f64",
+               "ms": ms, "plain_ms": plain_ms,
+               **bound(4 * (R * Q + i.shape[0] * Q + R * n), 0.0, R * Q, bf16=False),
+               "library_ms": library_ms, "library_call": "Tensor.scatter_add_ (atomics)",
+               "device_ms": sum(us for name, us, _ in events if "segment_" in name) / 20e3,
+               "device_ms_by_kernel": {name: us / 20e3 for name, us, _ in events},
+               "rows": R, "entries_per_row": Q, "targets": n, "index_rows": i.shape[0],
+               "dtype": "float32"}
+        emit({"phase": "timing", **rec})
+        records.append(rec)
+
+
 def _pairs(argv: list) -> dict:
     """--k v pairs of an argv list as override paths."""
     return {k[2:]: v for k, v in zip(argv[::2], argv[1::2])}
@@ -4601,6 +4880,7 @@ def main() -> int:
         phase_preprocess(scene, tmp)
         phase_reference_runs(records, scene)
         phase_reference_vs_cpu(scene)
+        phase_repeat_bits(records, scene)
     phase_tools_torch(records)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_kbs_tpu", "PIL", "cv2")]

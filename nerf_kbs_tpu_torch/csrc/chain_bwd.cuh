@@ -34,6 +34,15 @@
 
 #include "mma_chain.cuh"
 
+// The SM count that sizes the grid of every backward body: a fixed 132 (an
+// H100 SXM's), not the card's own. A block's partial holds the sums of the
+// tiles it walks, and the grid decides that partition, so with a fixed grid
+// the weight gradients' order of summation, and so their bits, depends on
+// the shape alone: a training step repeats bit for bit on any card. On a card
+// with fewer SMs the persistent blocks queue; on one with more, SMs idle.
+// The wrappers size the partials to match (ops/fused_field.py BWD_GRID_SMS).
+#define NKT_BWD_GRID_SMS 132
+
 // Placement of one chain's weight-gradient partial: layer l's dW as (kp, np)
 // f32 row-major at w[l], its db (np) at b[l]; all offsets in floats.
 struct GradLayout {

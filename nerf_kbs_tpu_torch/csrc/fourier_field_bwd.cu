@@ -389,10 +389,7 @@ static int launch_mma(const float* x, const float* feats, int n, int F, const fl
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)S.total);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
+  const int sms = NKT_BWD_GRID_SMS;
   const int ntiles = (n + NKT_D_ROWS - 1) / NKT_D_ROWS;
   int grid = sms;
   if (grid > ntiles) grid = ntiles;
@@ -621,10 +618,7 @@ static int launch_wgmma(const float* x, const float* feats, int n, const float* 
   cudaError_t err = cudaFuncSetAttribute(fourier_field_bwd_wgmma_kernel<TRI, KR, NEED_DX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
+  const int sms = NKT_BWD_GRID_SMS;
   const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
   int grid = sms;
   if (grid > ntiles) grid = ntiles;

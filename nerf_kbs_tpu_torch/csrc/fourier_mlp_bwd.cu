@@ -311,10 +311,8 @@ static int launch_mma(const float* x, int n, const float* Bm, int H, const float
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)S.total);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
+  const int sms = NKT_BWD_GRID_SMS;
+  int per_sm = 0;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, fourier_mlp_bwd_mma_kernel<TRI>, NKT_MMA_THREADS, S.total)) != cudaSuccess)
     return (int)err;
@@ -567,10 +565,7 @@ static int launch_wgmma(const float* x, int n, const float* Bm, const void* imag
   cudaError_t err = cudaFuncSetAttribute(fourier_mlp_bwd_wgmma_kernel<TRI, NEED_DX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, NKT_C_SMEM);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
+  const int sms = NKT_BWD_GRID_SMS;
   const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
   int grid = (ntiles + NKT_C_WARPGROUPS - 1) / NKT_C_WARPGROUPS;
   if (grid > sms * NKT_C_BLOCKS_PER_SM) grid = sms * NKT_C_BLOCKS_PER_SM;
@@ -736,10 +731,7 @@ static int launch_base_wgmma(const float* x, int n, const float* Bm, const void*
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
+  const int sms = NKT_BWD_GRID_SMS;
   const int ntiles = (n + NKT_WG_ROWS - 1) / NKT_WG_ROWS;
   int grid = sms * Shape::blocks;
   if (grid > ntiles) grid = ntiles;

@@ -20,7 +20,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("fourier_mlp_fwd", "fourier_field_fwd", "fourier_mlp_bwd", "fourier_field_bwd")
+SOURCES = ("fourier_mlp_fwd", "fourier_field_fwd", "fourier_mlp_bwd", "fourier_field_bwd",
+           "segment_sum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +49,7 @@ _SIGNATURES = {
         [_P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P,
          _I, _I, _P, _P, _I, _P, _I, _P, _L, _P],
     ),
+    "segment_sum": ("nkt_segment_sum", [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P]),
     # a test bench for the wgmma wrappers, built only when a test asks for it
     "wgmma_probe": (
         "nkt_wgmma_probe",

@@ -7,7 +7,8 @@ The hash grid keeps the JAX package's parameter layout: one flat 1-D table,
 feature-major, entry (f, level, slot) at ``f * L * T + level * T + slot``, so
 a JAX ``hash_table`` converts leaf for leaf. Its evaluation is a gather of the
 8 corners of each level and a sum over the corners, one level at a time; the
-table's gradient is the gather's, a scatter-add.
+table's gradient is the gather's, a sum into each slot in a fixed order
+(``ops.segment_sum.gather_columns``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.ops.fused_field import tri_c, tri_s
+from nerf_kbs_tpu_torch.ops.segment_sum import gather_columns
 
 
 def _clip01(x: torch.Tensor) -> torch.Tensor:
@@ -224,11 +226,15 @@ def hash_encoding_apply(table: torch.Tensor, positions: torch.Tensor,
     for lvl, res in enumerate(config.resolutions):
         idx, w = _level_corners(p, res, T)
         r1 = res + 1
-        if r1**3 <= T and lvl * T + r1 * (1 + r1 + r1 * r1) > L * T - 1:
-            # a point on the far face reaches corner res + 1 (weight 0); keep
-            # its index inside the table
-            idx = idx.clamp_max(L * T - 1 - lvl * T)
-        g = rows.index_select(1, (idx + lvl * T).reshape(-1)).view(F, n, 8)
+        span = T
+        if r1**3 <= T:
+            # a point on the far face reaches corner res + 1 (weight 0), up to
+            # index r1 (1 + r1 + r1^2) past the level's start; keep it inside
+            # the table
+            span = min(max(T, r1 * (1 + r1 + r1 * r1) + 1), (L - lvl) * T)
+            if lvl * T + r1 * (1 + r1 + r1 * r1) > L * T - 1:
+                idx = idx.clamp_max(L * T - 1 - lvl * T)
+        g = gather_columns(rows, (idx + lvl * T).reshape(-1), lvl * T, span).view(F, n, 8)
         feats.append(torch.sum(g * w[None], dim=-1).T)  # (B, F)
     return torch.cat(feats, dim=-1).reshape(*batch_shape, config.output_dim)
 

@@ -515,8 +515,10 @@ def _mlp_base_scratch_bytes(n: int, dims) -> int:
     return tiles * 64 * (256 * (len(dims) - 2) + 16) * 2
 
 
-def _sm_count(t: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+# the SM count that sizes the backwards' grids and partials, fixed (an H100
+# SXM's 132, csrc/chain_bwd.cuh NKT_BWD_GRID_SMS) so that their weight
+# gradients' bits depend on the shape alone, not on the card's SM count
+BWD_GRID_SMS = 132
 
 
 # the weight image each wgmma body of the fused-MLP kernels stages
@@ -570,7 +572,7 @@ def _mlp_backward(spec: FusedMLPSpec, x_t, B, ws, bs, g):
     wb = _pack(ws, bs, spec.layer_dims, False)
     dwb = torch.empty_like(wb)
     dx = torch.empty(3, n, device=x.device, dtype=torch.float32) if spec.need_dx else None
-    rows, stride = 4 * _sm_count(x), _partial_stride(spec.layer_dims)
+    rows, stride = 4 * BWD_GRID_SMS, _partial_stride(spec.layer_dims)
     partials = torch.empty(rows * stride, device=x.device, dtype=torch.float32)
     body = _mlp_body(spec, "fourier_mlp_bwd")
     image = _mlp_images[body](wb, spec.layer_dims) if body else None
@@ -687,7 +689,7 @@ def _field_backward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_w
     d_base, d_rgb = torch.empty_like(base_wb), torch.empty_like(rgb_wb)
     dx = torch.empty(3, n, device=x.device, dtype=torch.float32) if spec.need_dx else None
     dfeats = torch.empty(F, n, device=x.device, dtype=torch.float32)
-    rows, stride = _sm_count(x), _partial_stride(spec.base_dims, spec.rgb_dims)
+    rows, stride = BWD_GRID_SMS, _partial_stride(spec.base_dims, spec.rgb_dims)
     partials = torch.empty(rows * stride, device=x.device, dtype=torch.float32)
     wgmma = _wgmma_field(spec) and "fourier_field_mlp_bwd" not in FORCE_WMMA
     image = scratch = None

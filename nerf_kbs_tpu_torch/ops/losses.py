@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from nerf_kbs_tpu_torch.ops.segment_sum import segment_sum
 from nerf_kbs_tpu_torch.parallel.mesh import batch_sum
 
 
@@ -26,7 +27,11 @@ class _OuterCwBounds(torch.autograd.Function):
 
     t_env rows are sorted, so both selections are index searches. Only cw
     carries gradient: the cotangents go to the selected env indices, and to
-    cw[:, -1] where no env edge lies past t1; t_env, t0 and t1 only select."""
+    cw[:, -1] where no env edge lies past t1; t_env, t0 and t1 only select.
+    t0 and t1 rows are sorted too, so both index rows are non-decreasing and
+    the backward sums each env edge's cotangents in query order
+    (``segment_sum``), as the JAX package's one-hot sum does, with no
+    atomics."""
 
     @staticmethod
     def forward(ctx, t_env, cw, t0, t1):
@@ -47,11 +52,12 @@ class _OuterCwBounds(torch.autograd.Function):
     def backward(ctx, g_lo, g_hi):
         i_lo, i_hi = ctx.saved_tensors
         n_env = ctx.n_env
-        d_cw = g_lo.new_zeros(g_lo.shape[0], n_env)
-        d_cw.scatter_add_(1, torch.clamp_min(i_lo - 1, 0), g_lo * (i_lo > 0).to(g_lo.dtype))
+        # the lower and the upper bounds' cotangents as the rows of one sum;
         # no edge past t1: the clamp selected cw[:, -1], index n_env - 1
-        d_cw.scatter_add_(1, torch.clamp_max(i_hi, n_env - 1), g_hi)
-        return None, d_cw, None, None
+        idx = torch.cat([torch.clamp_min(i_lo - 1, 0), torch.clamp_max(i_hi, n_env - 1)])
+        sums = segment_sum(torch.cat([g_lo * (i_lo > 0).to(g_lo.dtype), g_hi]), idx, n_env)
+        R = g_lo.shape[0]
+        return None, sums[:R] + sums[R:], None, None
 
 
 def _outer_cw_bounds(t_env, cw, t0, t1):

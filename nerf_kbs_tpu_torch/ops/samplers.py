@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 
 from nerf_kbs_tpu_torch.ops.rendering import render_weights
+from nerf_kbs_tpu_torch.ops.segment_sum import segment_sum
 from nerf_kbs_tpu_torch.parallel.mesh import global_rows
 
 
@@ -105,20 +106,54 @@ def uniform_sampler(rays, num_samples: int, spacing: str = "piecewise", generato
     return _samples(rays, edges, spacing)
 
 
-def _bracket_values(cdf: torch.Tensor, edges: torch.Tensor, u: torch.Tensor):
-    """With b(q) = max{s : cdf_s <= u_q}, returns (cdf_b, cdf_{b+1}, edge_b,
+class _BracketValues(torch.autograd.Function):
+    """With b(q) = max{s : cdf_s <= u_q}, (cdf_b, cdf_{b+1}, edge_b,
     edge_{b+1}), each (R, Q). Needs 0 = cdf_0 <= u <= cdf_last = 1 and sorted
     rows, which pdf_sampler guarantees. The index search carries no
-    gradient; the gathers scatter the cotangents back to cdf and edges at b
-    and b + 1."""
-    # a jittered quantile can round up to 1.0 = cdf_last: it then belongs to
-    # the last bin, as the masked reductions of the JAX package place it
-    b = torch.clamp_max(torch.searchsorted(cdf.detach(), u, right=True) - 1, cdf.shape[1] - 2)
-    b1 = b + 1
-    return (
-        torch.gather(cdf, 1, b), torch.gather(cdf, 1, b1),
-        torch.gather(edges, 1, b), torch.gather(edges, 1, b1),
-    )
+    gradient; the backward sums the cotangents into cdf and edges at b and
+    b + 1 in query order (``segment_sum``: u is sorted, so b is), as the JAX
+    package's ``_bracket_bwd`` does, with no atomics."""
+
+    @staticmethod
+    def forward(ctx, cdf, edges, u):
+        # a jittered quantile can round up to 1.0 = cdf_last: it then belongs
+        # to the last bin, as the masked reductions of the JAX package place it
+        b = torch.clamp_max(torch.searchsorted(cdf, u, right=True) - 1, cdf.shape[1] - 2)
+        b1 = b + 1
+        ctx.save_for_backward(b)
+        ctx.n_edges = cdf.shape[1]
+        return (torch.gather(cdf, 1, b), torch.gather(cdf, 1, b1),
+                torch.gather(edges, 1, b), torch.gather(edges, 1, b1))
+
+    @staticmethod
+    def backward(ctx, g_cdf_lo, g_cdf_hi, g_edge_lo, g_edge_hi):
+        (b,) = ctx.saved_tensors
+        R = b.shape[0]
+        sums = segment_sum(torch.cat([g_cdf_lo, g_edge_lo, g_cdf_hi, g_edge_hi]),
+                           torch.cat([b, b, b + 1, b + 1]), ctx.n_edges)
+        return sums[:R] + sums[2 * R:3 * R], sums[R:2 * R] + sums[3 * R:], None
+
+
+def _bracket_values(cdf: torch.Tensor, edges: torch.Tensor, u: torch.Tensor):
+    return _BracketValues.apply(cdf, edges, u)
+
+
+class _RunningMax(torch.autograd.Function):
+    """The running maximum along rows (``torch.cummax``). The backward adds
+    each position's cotangent at the index of its running maximum, which is
+    non-decreasing along a row, with ``segment_sum``: in position order and
+    with no atomics (torch's own backward is a scatter_add_)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        values, idx = torch.cummax(x, dim=1)
+        ctx.save_for_backward(idx)
+        return values
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(g, idx, g.shape[1])
 
 
 def pdf_sampler(
@@ -171,7 +206,7 @@ def pdf_sampler(
     frac = torch.clamp((u - cdf_lo) / denom, 0.0, 1.0)
     new_edges = edge_lo + frac * (edge_hi - edge_lo)
     # monotone up to float rounding; the running max removes the wiggle
-    new_edges = torch.cummax(new_edges, dim=1).values
+    new_edges = _RunningMax.apply(new_edges)
     if include_original:
         new_edges = torch.sort(torch.cat([edges, new_edges], dim=-1), dim=-1).values
     return _samples(rays, new_edges, spacing)

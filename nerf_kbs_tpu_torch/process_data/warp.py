@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.cameras.transforms import pose_vec2mat
+from nerf_kbs_tpu_torch.ops.segment_sum import gather_columns
 
 
 def _pixel_grid(h: int, w: int, device) -> torch.Tensor:
@@ -67,15 +68,17 @@ def grid_sample_bilinear(img: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
     u, v = coords[:, 0], coords[:, 1]
     u0, v0 = torch.floor(u), torch.floor(v)
     du, dv = u - u0, v - v0
-    flat_img = img.reshape(b, c, h * w)
+    # the batch's pixels as the columns of one (C, B H W) table: the taps'
+    # gradient then sums into each pixel in a fixed order (gather_columns)
+    columns = img.reshape(b, c, h * w).transpose(0, 1).reshape(c, b * h * w)
+    first = (torch.arange(b, device=img.device) * (h * w)).reshape(b, 1, 1)
 
     def tap(ui, vi, wgt):
         inb = (ui >= 0) & (ui <= w - 1) & (vi >= 0) & (vi <= h - 1)
         uc = ui.clamp(0, w - 1).long()
         vc = vi.clamp(0, h - 1).long()
-        flat = (vc * w + uc).reshape(b, 1, -1).expand(b, c, ho * wo)
-        g = torch.gather(flat_img, 2, flat).reshape(b, c, ho, wo)
-        return g * (wgt * inb)[:, None]
+        g = gather_columns(columns, (first + vc * w + uc).reshape(-1))
+        return g.reshape(c, b, ho, wo).transpose(0, 1) * (wgt * inb)[:, None]
 
     return (tap(u0, v0, (1 - du) * (1 - dv)) + tap(u0 + 1, v0, du * (1 - dv))
             + tap(u0, v0 + 1, (1 - du) * dv) + tap(u0 + 1, v0 + 1, du * dv))

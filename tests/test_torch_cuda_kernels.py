@@ -514,3 +514,56 @@ def test_fourier_mlp_backward_kernel_base(dev, basis, need_dx, n, dims):
     again = ff._mlp_backward(spec, x, B, ws, bs, g)
     for a, b in zip(flat(again), flat(got)):
         assert torch.equal(a, b)
+
+
+def _segment_sum_in_pieces(v: np.ndarray, idx: np.ndarray, n: int, piece: int = 256):
+    """The kernel's order in NumPy scalars of v's dtype: each run in ascending
+    q within pieces of ``piece`` entries, the pieces' sums in order."""
+    out = np.zeros((v.shape[0], n), v.dtype)
+    for r in range(v.shape[0]):
+        row = idx[min(r, idx.shape[0] - 1)]
+        for e in range(n):
+            lo, hi = np.searchsorted(row, e), np.searchsorted(row, e + 1)
+            s, k = v.dtype.type(0), lo
+            while k < hi:
+                end = min(hi, (k // piece + 1) * piece)
+                p = v.dtype.type(0)
+                for j in range(k, end):
+                    p = p + v[r, j]
+                s, k = s + p, end
+            out[r, e] = s
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["short_rows", "long_runs", "shared_index_row", "one_element"])
+def test_segment_sum_kernel(dev, dtype, case):
+    """The fixed-order segment sum against its order written out in NumPy
+    (bit for bit) and against scatter_add_ on the CPU (serial: the same bits
+    where no run crosses a 256-entry piece, else within the rounding of a
+    sum in any order); a repeat gives the same bits."""
+    from nerf_kbs_tpu_torch.ops import segment_sum as seg
+
+    rng = np.random.default_rng(1)
+    if case == "short_rows":
+        v, i, n = rng.normal(size=(3000, 48)), np.sort(rng.integers(0, 97, (3000, 48)), -1), 97
+    elif case == "long_runs":
+        v, i, n = rng.normal(size=(2, 7000)), np.full((2, 7000), 3), 8
+        i[:, :5], i[:, -7:] = 0, 7
+    elif case == "shared_index_row":
+        v, i, n = rng.normal(size=(2, 5000)), np.sort(rng.integers(0, 300, (1, 5000)), -1), 300
+    else:
+        v, i, n = rng.normal(size=(500, 1)), rng.integers(0, 3, (500, 1)), 3
+    v = v.astype(dtype)
+    vt, it = torch.as_tensor(v), torch.as_tensor(i, dtype=torch.int32)
+    before = seg.LAUNCHES["segment_sum"]
+    got = seg.segment_sum(vt.to(dev), it.to(dev), n)
+    again = seg.segment_sum(vt.to(dev), it.to(dev), n)
+    torch.cuda.synchronize()
+    assert seg.LAUNCHES["segment_sum"] == before + 2 and torch.equal(got, again)
+    np.testing.assert_array_equal(got.cpu().numpy(), _segment_sum_in_pieces(v, i, n))
+    serial = seg.segment_sum_reference(vt, it, n)
+    if v.shape[1] <= 256:
+        assert torch.equal(got.cpu(), serial)
+    bound = v.shape[1] * np.finfo(dtype).eps * np.abs(v).sum(-1, keepdims=True)
+    assert np.all(np.abs(got.cpu().numpy() - serial.numpy()) <= bound)
