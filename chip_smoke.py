@@ -8,9 +8,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    sources (the four fused-field kernels, each with a wgmma body for the
    flagship widths, a WMMA body for other widths and an f32 body, the two
    fused-MLP sources also a wgmma body for the field's base widths; and the
-   fixed-order segment sum) are built from csrc/ into build/ (one nvcc per
-   source, started together), with ptxas' registers and spills of every
-   wgmma kernel and of the segment sum;
+   fixed-order segment sums with their radix sort) are built from csrc/ into
+   build/ (one nvcc per source, started together), with ptxas' registers
+   and spills of every wgmma kernel, of the segment sums and of the sort;
 2. kernel parity: each kernel against its plain PyTorch version on the card,
    both bases and both compute dtypes, at the main paths' shapes and a
    ragged N, and every wgmma body also at N below and around one tile, one
@@ -197,7 +197,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 18. the reference operating point (phase reference_runs): the two
    protocols of tools/reference_runs_torch.sh (the JAX package's 30k-step
    runs), read from the script and cut to the street scene (split 6 / 2)
-   and to 1,500 steps of ilf050 (nerfacto-tpu) and 600 of sem30k-flagship2
+   and to 750 steps of ilf050 (nerfacto-tpu) and 450 of sem30k-flagship2
    (semantic-nerfw, tri Fourier field), the anneal and the cadences cut in
    proportion, 16,384 rays a step, through cli.main: the launch counts of
    each run (A 2 / B 1 / C 2 / D 1 a step for ilf050; A 2 + 1 on the
@@ -211,17 +211,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    from step 2: the total and every logged loss term per step, the
    semantics and interlevel terms apart;
 19. (phase repeat_bits) ilf050 and sem30k-flagship2 at full width (100
-   steps each, reference_argv) and runs 3 and 7 (20 steps each), each trained
-   twice from one seed in this process: every parameter, Adam moment and
-   logged loss equal bit for bit after every step (state_checksums, and
-   torch.equal at the end), and the segment_sum launches a step by call
-   site (REPEAT_SEGMENT_SUMS); then the fixed-order segment sum
-   (csrc/segment_sum.cu, the backward of the interlevel bounds, the pdf
-   sampler's brackets and running maximum, and the hash table's gather)
-   against its plain
-   version in f64 (long runs, empty runs, one-element rows, a shared index
-   row) and, in f32, at each call site's inputs, a repeat bit-identical,
-   timed against the plain version and scatter_add_;
+   steps each, reference_argv), runs 3 and 7 (20 steps each) and the three
+   preprocessing trainers (RAFT, the segmenter, the inpainter: 3 steps
+   each), each trained twice from one seed in this process: every
+   parameter, Adam moment and logged loss equal bit for bit after every
+   step (state_checksums, module_checksums, and torch.equal at the end),
+   and the segment sums' launches a step by call site and by wrapper
+   (REPEAT_SEGMENT_SUMS); then the fixed-order segment sums
+   (csrc/segment_sum.cu: the short-row kernel for the interlevel bounds and
+   the pdf sampler's brackets and running maximum, the radix sort and the
+   by-key kernel for the hash table's gather) against their plain versions
+   in f64 (long runs, empty runs, one-element rows, a shared index row, a
+   run across many tiles) and, in f32, at each call site's inputs (three
+   hash levels), a repeat bit-identical, timed against the plain version
+   and scatter_add_; the radix sort against torch.sort(stable=True), and a
+   hash level's whole backward against index_add_'s;
 20. the port's tools (phase tools_torch): the nine tools/*_torch.py as
    programs, started together at cut sizes (the orbit scene at 64x64, 50 to
    200 steps; regen_data_torch at 3 frames of 94x310): their JAX twins'
@@ -401,7 +405,7 @@ def phase_device():
         for ln in log.splitlines():
             if "Compiling entry function" in ln or "Function properties" in ln:
                 name = ln.split("_Z")[-1][:60]
-            if (any(k in name for k in ("wgmma", "nkt_field_dw", "segment_sum"))
+            if (any(k in name for k in ("wgmma", "nkt_field_dw", "segment_", "radix_"))
                     and ("registers" in ln or "spill" in ln)):
                 regs.setdefault(n, []).append(
                     f"{name}: " + ln.replace("ptxas info    : ", "").strip())
@@ -4407,16 +4411,17 @@ def phase_tools_torch(records) -> None:
 
 # phase reference_runs: the two protocols of tools/reference_runs_torch.sh
 # (the JAX package's 30,000-step reference runs) cut to the smoke's scene and
-# time. Per protocol: the steps, and the launches of a train step and of an
-# eval chunk (an eval batch is one chunk). ilf050 runs the flagship field (A
-# and C at the proposal widths, B and D); sem30k-flagship2's split field has
-# a 2-layer base MLP, (256, 128, 16), which A and C run on their base-width
+# time. Per protocol: the steps (a multiple of 30, so that the log's cadence,
+# steps / 30, divides them), and the launches of a train step and of an eval
+# chunk (an eval batch is one chunk). ilf050 runs the flagship field (A and C
+# at the proposal widths, B and D); sem30k-flagship2's split field has a
+# 2-layer base MLP, (256, 128, 16), which A and C run on their base-width
 # wgmma bodies. The counts are exact: a launch of a WMMA body fails the phase.
 REFERENCE_RUNS = {
-    "ilf050": (1500, {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1,
+    "ilf050": (750, {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1,
                       "fourier_mlp_bwd_wgmma": 2, "fourier_field_mlp_bwd_wgmma": 1},
                {"fourier_mlp_wgmma": 2, "fourier_field_mlp_wgmma": 1}),
-    "sem30k-flagship2": (600, {"fourier_mlp_wgmma": 2, "fourier_mlp_base_wgmma": 1,
+    "sem30k-flagship2": (450, {"fourier_mlp_wgmma": 2, "fourier_mlp_base_wgmma": 1,
                                "fourier_mlp_bwd_wgmma": 2, "fourier_mlp_bwd_base_wgmma": 1},
                          {"fourier_mlp_wgmma": 2, "fourier_mlp_base_wgmma": 1}),
 }
@@ -4575,13 +4580,16 @@ def phase_reference_vs_cpu(scene: str) -> None:
             f"reference_vs_cpu_{protocol}", terms=terms)
 
 
-# phase repeat_bits: the paths run twice from one seed and their steps
-REPEAT_BITS = {"ilf050": 100, "sem30k-flagship2": 100, "run3": 20, "run7": 20}
-# segment_sum launches a step by call site: one a proposal round for the
-# interlevel bounds; where sampling is not detached (semantic-nerfw as
-# registered; both reference protocols detach it) two a round in the pdf
-# sampler (its running maximum, its brackets); one a hash level (16 of the
-# field, 5 of each proposal field)
+# phase repeat_bits: the paths run twice from one seed and their steps (the
+# preprocessing trainers of preprocess_trainers too)
+REPEAT_BITS = {"ilf050": 100, "sem30k-flagship2": 100, "run3": 20, "run7": 20,
+               "raft": 3, "segmenter": 3, "inpaint": 3}
+PREPROCESS_TRAINERS = ("raft", "segmenter", "inpaint")
+# segment sums a step by call site: one a proposal round for the interlevel
+# bounds; where sampling is not detached (semantic-nerfw as registered; both
+# reference protocols detach it) two a round in the pdf sampler (its running
+# maximum, its brackets), all through the short-row kernel; one a hash level
+# (16 of the field, 5 of each proposal field), a radix sort and a by-key sum
 REPEAT_SEGMENT_SUMS = {"ilf050": {"interlevel": 2}, "sem30k-flagship2": {"interlevel": 2},
                        "run3": {"interlevel": 2, "sampler": 4, "hash": 26},
                        "run7": {"interlevel": 2}}
@@ -4684,90 +4692,96 @@ def first_divergence(a: list, b: list):
                                           "losses": []}
 
 
+def module_checksums(module) -> dict:
+    """state_checksums' sums over one module's parameters."""
+    import torch
+
+    words = torch.cat([p.detach().reshape(-1).view(torch.int32).long()
+                       for p in module.parameters()])
+    weight = torch.arange(words.numel(), device=words.device) % 1009 + 1
+    return {"params/p": torch.stack([words.sum(), (words * weight).sum()]).tolist()}
+
+
+def trainer_record(name: str, steps: int) -> tuple[list, list]:
+    """A preprocessing trainer of preprocess_trainers, built from its seed
+    on the card and trained ``steps`` steps: (per step its loss and its
+    parameters' checksums, as train_record gives them; its parameters
+    copied to the host)."""
+    from nerf_kbs_tpu_torch.device import resolve_device
+
+    model, step = preprocess_trainers()[name](resolve_device(None))
+    rec = [{"losses": {"loss": float(step())}, "state": module_checksums(model)}
+           for _ in range(steps)]
+    return rec, [p.detach().to("cpu", copy=True) for p in model.parameters()]
+
+
 def _segment_sum_spy():
-    """Replaces segment_sum in the three modules that call it by a wrapper
-    that counts the calls by site and keeps each site's first call's inputs
-    (cloned); returns (the inputs by site, the counts, restore)."""
+    """Replaces segment_sum in losses and samplers (the short-row sites) and
+    segment_sum_by_key in segment_sum (the gathers' sum: the hash levels, and
+    the preprocessing warp's taps, which it passes through while
+    ``state["on"]`` is false) by wrappers that count the calls by site and
+    keep inputs (cloned): each
+    short-row site's first call; of the hash levels the first call of the
+    largest span (the field's finest level: the backward visits a field's
+    levels last to first), the last of that span (its coarsest, the longest
+    runs: 'hash_dense') and the first of the smallest span (a proposal
+    field's finest: 'hash_coarse'). Returns (the inputs by site, the counts,
+    state, restore)."""
     from nerf_kbs_tpu_torch.ops import losses, samplers
     from nerf_kbs_tpu_torch.ops import segment_sum as seg
 
-    seen, counts, saved = {}, {}, {}
-    # the hash table's gather (seg.gather_columns) sums through seg's own name
-    for site, mod in (("interlevel", losses), ("sampler", samplers), ("hash", seg)):
-        saved[mod] = mod.segment_sum
-
-        def spy(values, idx, n, _site=site, _fn=mod.segment_sum):
-            seen.setdefault(_site, (values.clone(), idx.clone(), n))
-            if _site == "hash" and n < seen.get("hash_coarse", (0, 0, n + 1))[2]:
-                seen["hash_coarse"] = (values.clone(), idx.clone(), n)  # the longest runs
-            counts[_site] = counts.get(_site, 0) + 1
-            return _fn(values, idx, n)
-        mod.segment_sum = spy
+    seen, counts, saved, state = {}, {}, [], {"on": True}
+    for site, mod, attr in (("interlevel", losses, "segment_sum"),
+                            ("sampler", samplers, "segment_sum"),
+                            ("hash", seg, "segment_sum_by_key")):
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+        if site != "hash":
+            def spy(values, idx, n, _site=site, _fn=fn):
+                seen.setdefault(_site, (values.clone(), idx.clone(), n))
+                counts[_site] = counts.get(_site, 0) + 1
+                return _fn(values, idx, n)
+        else:
+            def spy(values, keys, perm, out, own=None, _fn=fn):
+                if not state["on"]:
+                    return _fn(values, keys, perm, out, own)
+                counts["hash"] = counts.get("hash", 0) + 1
+                span = out.shape[1]
+                # the gradient's width and the level's first column (out is a
+                # column span of it)
+                call = (values.clone(), keys.clone(), perm.clone(), span, own, out.stride(0),
+                        out.storage_offset())
+                if span > seen.get("hash", (0, 0, 0, -1))[3]:
+                    seen["hash"] = call
+                if span == seen["hash"][3]:
+                    seen["hash_dense"] = call
+                if span < seen.get("hash_coarse", (0, 0, 0, span + 1))[3]:
+                    seen["hash_coarse"] = call
+                return _fn(values, keys, perm, out, own)
+        setattr(mod, attr, spy)
 
     def restore():
-        for mod, fn in saved.items():
-            mod.segment_sum = fn
-    return seen, counts, restore
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return seen, counts, state, restore
 
 
-def phase_repeat_bits(records, scene: str) -> None:
-    """Each path of REPEAT_BITS built once from its seed and trained twice
-    from that start in this process (``restart``; tools/repeat_bits_torch.py
-    builds each run anew, in this process and another), ``steps`` steps
-    each: after every step every parameter's and Adam
-    moment's checksum and every logged loss must be equal, and at the end
-    every parameter and moment bit for bit (torch.equal); the segment_sum
-    launches a step must be REPEAT_SEGMENT_SUMS'. Then the segment_sum
-    kernel (csrc/segment_sum.cu) against its plain version: in f64 on long
-    runs, empty runs, one-element rows and a shared index row (bit for bit
-    where a row holds at most one 256-entry piece); at each
-    call site's inputs of the first ilf050, sem30k-flagship2 and run-3 step
-    (the interlevel bounds, the pdf sampler, a hash level) in f32 against the
-    plain version in f64, a repeat bit-identical; timed there against the
-    plain version and scatter_add_ (the ``segment_sum*`` records)."""
+def _segment_sum_checks(dev) -> None:
+    """The segment sums against their plain version in f64: long runs, empty
+    runs, one-element rows, a shared index row (the by-key kernel), a run
+    across many of its tiles and a row that names no target but 0; within
+    Q eps of a row's sum of |v| (any order of Q adds), bit for bit on a
+    repeat and, for rows of their own of at most 256 entries, bit for bit
+    against the serial sum."""
     import numpy as np
     import torch
 
     from nerf_kbs_tpu_torch.ops import segment_sum as seg
 
-    seen, counts, restore = _segment_sum_spy()
-    try:
-        for path, steps in REPEAT_BITS.items():
-            runs = []
-            t0 = time.perf_counter()
-            trainer = repeat_trainer(path, scene, tempfile.mkdtemp(prefix=f"nkt_rep_{path}_"))
-            start = final_state(trainer)
-            for _ in range(2):
-                restart(trainer, start)
-                seg.reset_launches()
-                counts.clear()
-                rec = train_record(trainer, steps)
-                runs.append((rec, final_state(trainer), seg.LAUNCHES["segment_sum"], dict(counts)))
-            del trainer
-            torch.cuda.empty_cache()
-            (ra, fa, la, ca), (rb, fb, lb, cb) = runs
-            div = first_divergence(ra, rb)
-            equal = len(fa) == len(fb) and all(torch.equal(x, y) for x, y in zip(fa, fb))
-            want = {k: steps * v for k, v in REPEAT_SEGMENT_SUMS[path].items()}
-            emit({"phase": "repeat_bits", "path": path, "steps": steps,
-                  "seconds": time.perf_counter() - t0, "first_divergence": div,
-                  "final_state_bit_identical": equal, "tensors": len(fa),
-                  "segment_sum_launches": [la, lb], "segment_sum_calls_by_site": ca,
-                  "loss_last": ra[-1]["losses"].get("total_loss")})
-            check(div is None and equal, f"repeat_bits {path}: the two runs part at {div} "
-                  f"(final state equal: {equal})")
-            check(ca == cb == want and la == lb == sum(want.values()),
-                  f"repeat_bits {path}: segment_sum launches {la}, {lb}, by site {ca}, "
-                  f"{cb}; want {want}")
-    finally:
-        restore()
-
-    # the kernel against its plain version in f64: long runs, empty runs,
-    # one-element rows, a shared index row; bit for bit on a repeat
-    dev = seen["interlevel"][0].device
     rng = np.random.default_rng(18)
     long_idx = np.full((3, 200_000), 4)
     long_idx[:, :3], long_idx[:, -2:] = 1, 9
+    across = np.repeat(np.arange(4), [1000, 100_000, 3, 20_000])[None]
     cases = {
         "long_runs": (rng.normal(size=(3, 200_000)), long_idx, 10),
         "empty_runs": (rng.normal(size=(64, 300)),
@@ -4775,6 +4789,7 @@ def phase_repeat_bits(records, scene: str) -> None:
         "one_element_rows": (rng.normal(size=(1000, 1)), rng.integers(0, 5, (1000, 1)), 5),
         "shared_index_row": (rng.normal(size=(2, 100_000)),
                              np.sort(rng.integers(0, 4096, (1, 100_000)), axis=-1), 4096),
+        "run_across_many_tiles": (rng.normal(size=(2, across.shape[1])), across, 4),
         "no_targets_named": (rng.normal(size=(4, 50)), np.zeros((4, 50), np.int64), 1),
     }
     f64 = {}
@@ -4783,26 +4798,193 @@ def phase_repeat_bits(records, scene: str) -> None:
         it = torch.as_tensor(i, device=dev, dtype=torch.int32)
         got, again = seg.segment_sum(vt, it, n), seg.segment_sum(vt, it, n)
         want = seg.segment_sum_reference(vt.cpu(), it.cpu(), n).to(dev)
-        # any order of a row's Q adds stays within Q eps of its sum of |v|;
-        # rows whose runs sit inside 256-entry pieces are the serial sum's bits
         scale = float(vt.abs().sum(-1).max())
         f64[case] = float((got - want).abs().max()) / scale
+        own_rows = i.shape[0] == v.shape[0]
         check(f64[case] <= v.shape[1] * 2.0**-52 and torch.equal(got, again)
-              and (v.shape[1] > 256 or torch.equal(got, want)),
+              and (not own_rows or v.shape[1] > 256 or torch.equal(got, want)),
               f"segment_sum f64 {case}: err {f64[case]} of the row's sum of |v|")
     emit({"phase": "segment_sum_f64", "max_rel_err": f64})
 
-    # the call sites' inputs: f32 against the plain version in f64, timed
-    # against the plain version (scatter_add_ into zeros) and scatter_add_
-    # into a zeroed buffer
-    for site, path, what in (
-            ("interlevel", "ilf050", "16,384-ray ilf050 (and sem30k-flagship2) train step"),
-            ("sampler", "run3", "4,096-ray run-3 train step (its pdf samplers)"),
-            ("hash", "run3", "4,096-ray run-3 train step (its hash levels; the record: "
-             "the first, the field's finest)"),
-            ("hash_coarse", "run3", "4,096-ray run-3 train step (its hash levels; the record: "
-             "the coarsest, the longest runs)")):
-        launches_per = REPEAT_SEGMENT_SUMS[path][site.split("_")[0]]
+
+def _by_key_site_records(site: str, call: tuple, what: str, dev) -> list:
+    """The by-key sum at a hash level's inputs (the spy's ``call``) in f32
+    against its plain version in f64 and bit for bit on a repeat, timed
+    against its plain version and scatter_add_ (of the values gathered
+    into sorted order beforehand); for the field's finest
+    level also the radix sort against torch.sort(stable=True), and the
+    level's whole backward (sort and sum into its span of the table's
+    gradient) against index_add_'s (a zero-filled gradient of the whole
+    table, then the atomic index_add_ of the unsorted slots: what the
+    gather's backward was before the fixed order)."""
+    import torch
+
+    from nerf_kbs_tpu_torch.ops import segment_sum as seg
+
+    v, k, p, span, own, width, lo = call
+    F, M = v.shape
+    table = torch.zeros(F, width, device=dev)
+    out = table[:, lo:lo + span]
+    got = seg.segment_sum_by_key(v, k, p, out, own).clone()
+    again = seg.segment_sum_by_key(v, k, p, out, own)
+    want = seg.segment_sum_by_key_reference(v.double(), k, p,
+                                            torch.zeros(F, span, device=dev, dtype=torch.float64),
+                                            own)
+    err = float((got.double() - want).abs().max())
+    check(torch.equal(got, again), f"segment_sum_by_key {site}: a repeat differs")
+    check(err <= 1e-6 * max(float(want.abs().max()), 1.0), f"segment_sum_by_key {site}: err {err}")
+    runs = torch.unique_consecutive(k, return_counts=True)[1]
+    ms = time_ms(lambda: seg.segment_sum_by_key(v, k, p, out, own), 50)
+    plain_ms = time_ms(lambda: seg.segment_sum_by_key_reference(v, k, p, out, own), 50)
+    sorted_v = v.index_select(1, p)
+    buf = torch.zeros(F, span, device=dev)
+    lk = k.long().expand(F, M).contiguous()
+    library_ms = time_ms(lambda: buf.scatter_add_(1, lk, sorted_v), 50)
+    _, events = device_events(lambda: [seg.segment_sum_by_key(v, k, p, out, own)
+                                       for _ in range(20)])
+    common = {"route": "cuda", "source": "nerf_kbs_tpu_torch/csrc/segment_sum.cu",
+              "site": site, "launches": REPEAT_SEGMENT_SUMS["run3"]["hash"],
+              "launches_per": what, "rows": F, "entries_per_row": M, "targets": span,
+              "longest_run": int(runs.max()), "runs": int(runs.numel()), "dtype": "float32"}
+    recs = [{"name": f"segment_sum_{site}", **common,
+             "replaces": "nerf_kbs_tpu/ops/encoding.py:345 the transpose of jnp.take in "
+                         "hash_encoding_apply (XLA, not Pallas)",
+             "max_abs_err": err, "err_is": "f32 kernel against the plain version in f64",
+             "ms": ms, "plain_ms": plain_ms,
+             **bound(4 * (F * M + 2 * M + F * span), 0.0, F * M, bf16=False),
+             "library_ms": library_ms,
+             "library_call": "Tensor.scatter_add_ (atomics) of the values in sorted order",
+             "device_ms": sum(us for _, us, _ in events) / 20e3,
+             "device_ms_by_kernel": {name: us / 20e3 for name, us, _ in events}}]
+    if site != "hash":
+        return recs
+    # the slots in entry order, as the gather's forward saw them
+    slots = torch.empty_like(k)
+    slots[p.long()] = k
+    sk, sp = seg.sort_keys(slots, span)
+    ts = torch.sort(slots, stable=True)
+    check(torch.equal(sk, ts.values) and torch.equal(sp.long(), ts.indices),
+          "radix_sort: not torch.sort(stable=True)'s permutation")
+    sort_ms = time_ms(lambda: seg.sort_keys(slots, span), 50)
+    torch_sort_ms = time_ms(lambda: torch.sort(slots, stable=True), 50)
+    plain_sort_ms = time_ms(lambda: [t.to(torch.int32) for t in torch.sort(slots, stable=True)],
+                            50)
+    _, sort_events = device_events(lambda: [seg.sort_keys(slots, span) for _ in range(20)])
+    recs.append({"name": "radix_sort", **common,
+                 "replaces": "nerf_kbs_tpu/ops/encoding.py:345 (XLA's scatter of jnp.take's "
+                             "transpose needs no sort; no Pallas kernel)",
+                 "key_bits": max(1, (span - 1).bit_length()), "max_abs_err": 0.0,
+                 "err_is": "keys and permutation equal to torch.sort(stable=True)'s",
+                 "ms": sort_ms, "plain_ms": plain_sort_ms,
+                 **bound(12 * M, 0.0, M, bf16=False),
+                 "library_ms": torch_sort_ms, "library_call": "torch.sort(stable=True)",
+                 "device_ms": sum(us for _, us, _ in sort_events) / 20e3,
+                 "device_ms_by_kernel": {name: us / 20e3 for name, us, _ in sort_events}})
+
+    def level_bwd():
+        sk, sp = seg.sort_keys(slots, span)
+        seg.segment_sum_by_key(v, sk, sp, out, own)
+
+    def level_bwd_plain():
+        ts = torch.sort(slots, stable=True)
+        seg.segment_sum_by_key_reference(v, ts.values, ts.indices, out, own)
+
+    flat = slots.long() + lo
+    whole = torch.zeros(F, width, device=dev)
+    level_bwd()
+    check(torch.equal(out, got), "segment_sum_hash_level_bwd: differs from the sum alone")
+    _, bwd_events = device_events(lambda: [level_bwd() for _ in range(20)])
+    recs.append({"name": "segment_sum_hash_level_bwd", **common,
+                 "replaces": "nerf_kbs_tpu/ops/encoding.py:345 the transpose of jnp.take "
+                             "in hash_encoding_apply, whole (XLA, not Pallas)",
+                 "kernels": "radix_sort + segment_sum_by_key", "max_abs_err": err,
+                 "err_is": "f32 against the plain version in f64 (the sum's)",
+                 "ms": time_ms(level_bwd, 50), "plain_ms": time_ms(level_bwd_plain, 50),
+                 **bound(4 * (F * M + M + F * span), 0.0, F * M, bf16=False),
+                 "library_ms": time_ms(lambda: torch.zeros(F, width, device=dev).index_add_(
+                     1, flat, v), 50),
+                 "library_call": "torch.zeros(F, L*T).index_add_ (atomics): index_select's "
+                                 "backward",
+                 "library_ms_index_add_only": time_ms(lambda: whole.index_add_(1, flat, v), 50),
+                 "table_columns": width,
+                 "device_ms": sum(us for _, us, _ in bwd_events) / 20e3,
+                 "device_ms_by_kernel": {name: us / 20e3 for name, us, _ in bwd_events}})
+    return recs
+
+
+def phase_repeat_bits(records, scene: str) -> None:
+    """Each path of REPEAT_BITS built once from its seed and trained twice
+    from that start in this process (``restart``; tools/repeat_bits_torch.py
+    builds each run anew, in this process and another), ``steps`` steps
+    each: after every step every parameter's and Adam moment's checksum and
+    every logged loss must be equal, and at the end every parameter and
+    moment bit for bit (torch.equal); the segment sums' launches a step must
+    be REPEAT_SEGMENT_SUMS'. The preprocessing trainers (PREPROCESS_TRAINERS)
+    are built twice from their seed, every parameter and loss held the
+    same way. Then the segment sums (csrc/segment_sum.cu) against their
+    plain version in f64 (_segment_sum_checks), and at each call site's
+    inputs of the first ilf050, sem30k-flagship2 and run-3 step (the
+    interlevel bounds, the pdf sampler: the short-row kernel; three hash
+    levels: the by-key kernel, with the radix sort and a level's whole
+    backward, _by_key_site_records) in f32 against the plain version in
+    f64, a repeat bit-identical, timed against the plain version and
+    scatter_add_ (the ``segment_sum*`` and ``radix_sort`` records)."""
+    import torch
+
+    from nerf_kbs_tpu_torch.ops import segment_sum as seg
+
+    seen, counts, spy_state, restore = _segment_sum_spy()
+    try:
+        for path, steps in REPEAT_BITS.items():
+            runs = []
+            t0 = time.perf_counter()
+            spy_state["on"] = path not in PREPROCESS_TRAINERS
+            if path in PREPROCESS_TRAINERS:
+                for _ in range(2):
+                    seg.reset_launches()
+                    rec, final = trainer_record(path, steps)
+                    runs.append((rec, final, dict(seg.LAUNCHES), {}))
+            else:
+                trainer = repeat_trainer(path, scene, tempfile.mkdtemp(prefix=f"nkt_rep_{path}_"))
+                start = final_state(trainer)
+                for _ in range(2):
+                    restart(trainer, start)
+                    seg.reset_launches()
+                    counts.clear()
+                    rec = train_record(trainer, steps)
+                    runs.append((rec, final_state(trainer), dict(seg.LAUNCHES), dict(counts)))
+                del trainer
+            torch.cuda.empty_cache()
+            (ra, fa, la, ca), (rb, fb, lb, cb) = runs
+            div = first_divergence(ra, rb)
+            equal = len(fa) == len(fb) and all(torch.equal(x, y) for x, y in zip(fa, fb))
+            emit({"phase": "repeat_bits", "path": path, "steps": steps,
+                  "seconds": time.perf_counter() - t0, "first_divergence": div,
+                  "final_state_bit_identical": equal, "tensors": len(fa),
+                  "segment_sum_launches": [la, lb], "segment_sum_calls_by_site": ca,
+                  "loss_last": ra[-1]["losses"].get("total_loss", ra[-1]["losses"].get("loss"))})
+            check(div is None and equal, f"repeat_bits {path}: the two runs part at {div} "
+                  f"(final state equal: {equal})")
+            if path in REPEAT_SEGMENT_SUMS:
+                sites = {k: steps * n for k, n in REPEAT_SEGMENT_SUMS[path].items()}
+                hash_calls = sites.get("hash", 0)
+                want = {"segment_sum": sites["interlevel"] + sites.get("sampler", 0),
+                        "segment_sum_by_key": hash_calls, "radix_sort": hash_calls}
+                check(ca == cb == sites and la == lb == want,
+                      f"repeat_bits {path}: segment-sum launches {la}, {lb}, by site {ca}, "
+                      f"{cb}; want {want}, {sites}")
+    finally:
+        restore()
+
+    dev = seen["interlevel"][0].device
+    _segment_sum_checks(dev)
+
+    # the short-row sites' inputs: f32 against the plain version in f64,
+    # timed against the plain version (scatter_add_ into zeros) and
+    # scatter_add_ into a zeroed buffer
+    for site, what in (("interlevel", "16,384-ray ilf050 (and sem30k-flagship2) train step"),
+                       ("sampler", "4,096-ray run-3 train step (its pdf samplers)")):
+        launches_per = {"interlevel": 2, "sampler": 4}[site]
         v, i, n = seen[site]
         got, again = seg.segment_sum(v, i, n), seg.segment_sum(v, i, n)
         want = seg.segment_sum_reference(v.double(), i, n)
@@ -4831,6 +5013,12 @@ def phase_repeat_bits(records, scene: str) -> None:
                "dtype": "float32"}
         emit({"phase": "timing", **rec})
         records.append(rec)
+    # the hash levels: the field's finest, its coarsest, a proposal field's finest
+    what = "4,096-ray run-3 train step (its hash levels, one call each)"
+    for site in ("hash", "hash_dense", "hash_coarse"):
+        for rec in _by_key_site_records(site, seen[site], what, dev):
+            emit({"phase": "timing", **rec})
+            records.append(rec)
 
 
 def _pairs(argv: list) -> dict:

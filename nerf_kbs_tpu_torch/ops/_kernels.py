@@ -49,13 +49,19 @@ _SIGNATURES = {
         [_P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P,
          _I, _I, _P, _P, _I, _P, _I, _P, _L, _P],
     ),
-    "segment_sum": ("nkt_segment_sum", [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P]),
+    "segment_sum": ("nkt_segment_sum", [_P, _P, _I, _I, _I, _P, _P, _I, _P]),
+    "segment_sum_by_key": ("nkt_segment_sum_by_key",
+                           [_P, _L, _L, _P, _P, _L, _I, _P, _L, _I, _I, _P, _L, _I, _P]),
+    "radix_sort": ("nkt_radix_sort", [_P, _L, _I, _P, _P, _P, _P, _P, _L, _P]),
     # a test bench for the wgmma wrappers, built only when a test asks for it
     "wgmma_probe": (
         "nkt_wgmma_probe",
         [_P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     ),
 }
+
+# entry points that live in another entry point's source
+_SOURCE_OF = {"segment_sum_by_key": "segment_sum", "radix_sort": "segment_sum"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -108,15 +114,17 @@ def build(names=SOURCES) -> dict[str, Path]:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if needed."""
+    """The loaded library of one source, built first if needed, with the
+    argument types of every entry point it holds set."""
     with _lock:
         if name not in _libs:
             path = build((name,))[name]
             dll = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(dll, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for entry in [name] + [e for e, src in _SOURCE_OF.items() if src == name]:
+                fn_name, argtypes = _SIGNATURES[entry]
+                fn = getattr(dll, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             dll.nkt_error_string.argtypes = [ctypes.c_int]
             dll.nkt_error_string.restype = ctypes.c_char_p
             _libs[name] = dll
@@ -124,9 +132,10 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def call(name: str, *args) -> None:
-    """Launch through the C entry point of ``name``; raises on a non-zero
-    return (argument error or cudaGetLastError after the launch)."""
-    dll = lib(name)
+    """Launch through the C entry point ``name`` (of its own source or of
+    the one ``_SOURCE_OF`` names); raises on a non-zero return (argument
+    error or cudaGetLastError after the launch)."""
+    dll = lib(_SOURCE_OF.get(name, name))
     fn_name, _ = _SIGNATURES[name]
     code = getattr(dll, fn_name)(*args)
     if code != 0:

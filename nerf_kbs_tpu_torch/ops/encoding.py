@@ -6,9 +6,9 @@ CP-decomposed line grid, and the spherical-harmonics view-direction encoding.
 The hash grid keeps the JAX package's parameter layout: one flat 1-D table,
 feature-major, entry (f, level, slot) at ``f * L * T + level * T + slot``, so
 a JAX ``hash_table`` converts leaf for leaf. Its evaluation is a gather of the
-8 corners of each level and a sum over the corners, one level at a time; the
-table's gradient is the gather's, a sum into each slot in a fixed order
-(``ops.segment_sum.gather_columns``).
+8 corners of each level and a sum over the corners; the table's gradient is
+the gathers', a sum into each slot in a fixed order
+(``ops.segment_sum.gather_column_sets``, one call for all levels).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.ops.fused_field import tri_c, tri_s
-from nerf_kbs_tpu_torch.ops.segment_sum import gather_columns
+from nerf_kbs_tpu_torch.ops.segment_sum import gather_column_sets
 
 
 def _clip01(x: torch.Tensor) -> torch.Tensor:
@@ -215,27 +215,36 @@ def hash_encoding_apply(table: torch.Tensor, positions: torch.Tensor,
     Positions are clamped into [0, 1] first: an outside point reads its edge
     cell (a caller that wants zero density outside multiplies a selector on
     the density, as ``models.fields`` does). Each level gathers its 8 corners'
-    features from the table and sums them with the trilinear weights; one
-    level at a time, so no intermediate grows with the number of levels."""
+    features from the table and sums them with the trilinear weights. The
+    gathers of all levels are one ``gather_column_sets`` call, whose backward
+    writes each level's slots of one table gradient once, as the transpose
+    of the JAX package's single ``jnp.take``; the corner slots are kept as
+    int32, and the gathered features are corner-major."""
     L, F, T = config.num_levels, config.features_per_level, config.table_size
     batch_shape = positions.shape[:-1]
     p = _clip01(positions.reshape(-1, 3).float())
     n = p.shape[0]
     rows = table.view(F, L * T)  # row f: feature f of every level's slots
-    feats = []
+    sets, slots, weights = [], [], []
     for lvl, res in enumerate(config.resolutions):
         idx, w = _level_corners(p, res, T)
         r1 = res + 1
         span = T
         if r1**3 <= T:
             # a point on the far face reaches corner res + 1 (weight 0), up to
-            # index r1 (1 + r1 + r1^2) past the level's start; keep it inside
-            # the table
+            # index r1 (1 + r1 + r1^2) past the level's start: into the next
+            # levels' slots (the level owns its T, and its gradient adds into
+            # theirs); keep it inside the table
             span = min(max(T, r1 * (1 + r1 + r1 * r1) + 1), (L - lvl) * T)
             if lvl * T + r1 * (1 + r1 + r1 * r1) > L * T - 1:
                 idx = idx.clamp_max(L * T - 1 - lvl * T)
-        g = gather_columns(rows, (idx + lvl * T).reshape(-1), lvl * T, span).view(F, n, 8)
-        feats.append(torch.sum(g * w[None], dim=-1).T)  # (B, F)
+        sets.append((lvl * T, T, span))
+        slots.append(idx.reshape(-1).to(torch.int32))
+        weights.append(w)
+    # corner-major (M, F): a corner's F features in one place
+    gathered = gather_column_sets(rows, sets, slots, entry_major=True)
+    feats = [torch.sum(g.view(n, 8, F) * w[:, :, None], dim=1)  # (B, F)
+             for g, w in zip(gathered, weights)]
     return torch.cat(feats, dim=-1).reshape(*batch_shape, config.output_dim)
 
 

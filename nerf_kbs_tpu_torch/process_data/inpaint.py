@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.device import resolve_device
+from nerf_kbs_tpu_torch.process_data import networks
 from nerf_kbs_tpu_torch.process_data.motion_mask import dilate_mask
 from nerf_kbs_tpu_torch.process_data.motion_mask_driver import list_frames, load_frame
 from nerf_kbs_tpu_torch.utils.images import read_image, resize_nearest
@@ -152,15 +153,17 @@ def make_inpaint_train_step(generator, lr: float = 1e-4):
     clips, the L1 reconstruction error weighted 4x inside the hole, Adam
     (optax's defaults: b1 0.9, b2 0.999, eps 1e-8). Returns step(frames,
     masks) -> loss, one update of ``generator`` in place; frames (B, T, 3,
-    H, W) in [0, 1], masks (B, T, H, W) (1 = hole), on its device."""
+    H, W) in [0, 1], masks (B, T, H, W) (1 = hole), on its device; the
+    convolutions on cuDNN's deterministic algorithms."""
     opt = torch.optim.Adam([p for p in generator.parameters() if p.requires_grad], lr=lr,
                            betas=(0.9, 0.999), eps=1e-8)
 
     def step(frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-        pred = generator(frames, masks)
-        loss = torch.mean(torch.abs(pred - frames) * (1.0 + 3.0 * masks[:, :, None]))
-        opt.zero_grad()
-        loss.backward()
+        with networks.deterministic_convolutions():
+            pred = generator(frames, masks)
+            loss = torch.mean(torch.abs(pred - frames) * (1.0 + 3.0 * masks[:, :, None]))
+            opt.zero_grad()
+            loss.backward()
         opt.step()
         return loss.detach()
 

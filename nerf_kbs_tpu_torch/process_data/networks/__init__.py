@@ -6,10 +6,15 @@ module's parameter names follow the flax module's, so that
 
 ``init_weights`` gives a module seeded weights from a ``torch.Generator``,
 from the same families as flax's defaults (LeCun-normal kernels, zero
-biases, unit norm scales); the numbers differ from a JAX seed's."""
+biases, unit norm scales); the numbers differ from a JAX seed's.
+
+``deterministic_convolutions`` scopes cuDNN to its deterministic
+algorithms; the three trainers' steps run under it. ``pad_edge`` is
+``F.pad``'s "replicate" at the far end with a backward in a fixed order."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -48,3 +53,32 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 m.bias.zero_()
     return module
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN restricted to deterministic algorithms, and not benchmarking,
+    for the duration; the previous settings come back after. A training
+    step's convolution backwards then repeat their bits (cuDNN's fastest
+    backward algorithms may add with atomics). Only the deterministic and
+    benchmark flags change: ``torch.backends.cudnn.flags`` would also set
+    every other flag (cuDNN on or off, TF32) to its own defaults."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def pad_edge(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """x with n copies of its last slice along ``dim`` appended (``F.pad``'s
+    "replicate" at the far end of one dimension). The copies' gradients sum
+    in a reduction, where ``replication_pad2d``'s backward adds with atomics
+    on the card."""
+    if n == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = n
+    return torch.cat([x, x.narrow(dim, x.shape[dim] - 1, 1).expand(shape)], dim)

@@ -6,17 +6,22 @@ attention and a convolutional decoder.
 Three flax defaults are kept: LayerNorm's epsilon 1e-6, the tanh GELU, and
 attention with a bias on each of q, k, v and the output (the per-head
 kernels (C, heads, head_dim) and (heads, head_dim, C) become (C, C)
-matrices, heads major). ``F.scaled_dot_product_attention`` computes the
-attention."""
+matrices, heads major). The attention is the explicit product
+softmax(q k^T / sqrt(head_dim)) v that flax computes, and the decoder's x2
+bilinear upsampling a fixed stencil, and the attention window's edge
+padding a concatenation (``networks.pad_edge``): the backward of each sums in
+one order (no atomic adds), so a training step repeats bit for bit."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nerf_kbs_tpu_torch.process_data.networks import pad_edge
 from nerf_kbs_tpu_torch.process_data.warp import flow_warp
 
 
@@ -88,12 +93,15 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x):
         n, l, c = x.shape
+        d = c // self.heads
 
         def split(t):
-            return t.reshape(n, l, self.heads, c // self.heads).transpose(1, 2)
+            return t.reshape(n, l, self.heads, d).transpose(1, 2)
 
-        y = F.scaled_dot_product_attention(split(self.query(x)), split(self.key(x)),
-                                           split(self.value(x)))
+        # flax scales the query, then takes the product and its softmax in f32
+        q = split(self.query(x)) / math.sqrt(d)
+        w = torch.softmax(q @ split(self.key(x)).transpose(-2, -1), dim=-1)
+        y = w @ split(self.value(x))
         return self.out(y.transpose(1, 2).reshape(n, l, c))
 
 
@@ -122,6 +130,24 @@ class WindowAttentionBlock(nn.Module):
         return x + z
 
 
+def upsample2_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C, 2H, 2W), what ``jax.image.resize(...,
+    "bilinear")`` gives at twice the size (half-pixel centres; an edge
+    sample's weight outside the image falls to its neighbour): along each
+    axis output 2i is 0.75 x[i] + 0.25 x[i - 1] and output 2i + 1 is
+    0.75 x[i] + 0.25 x[i + 1], the neighbour replicated at the edges. Slices
+    and weighted sums, whose backward adds in a fixed order (the backward of
+    ``F.interpolate`` adds with atomics on the card)."""
+    def along(t, dim):
+        n = t.shape[dim]
+        prev = torch.cat([t.narrow(dim, 0, 1), t.narrow(dim, 0, n - 1)], dim)
+        nxt = torch.cat([t.narrow(dim, 1, n - 1), t.narrow(dim, n - 1, 1)], dim)
+        pair = torch.stack([0.75 * t + 0.25 * prev, 0.75 * t + 0.25 * nxt], dim + 1)
+        return pair.flatten(dim, dim + 1)
+
+    return along(along(x, 2), 3)
+
+
 class Decoder(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
@@ -131,11 +157,8 @@ class Decoder(nn.Module):
         self.out = nn.Conv2d(ch // 4, 3, 3, 1, 1)
 
     def forward(self, x):
-        def up(t):
-            return F.interpolate(t, scale_factor=2, mode="bilinear", align_corners=False)
-
-        y = up(F.relu(self.conv1(x)))
-        y = up(F.relu(self.conv2(y)))
+        y = upsample2_bilinear(F.relu(self.conv1(x)))
+        y = upsample2_bilinear(F.relu(self.conv2(y)))
         y = F.relu(self.conv3(y))
         return torch.tanh(self.out(y)) * 0.5 + 0.5
 
@@ -180,9 +203,7 @@ class InpaintGenerator(nn.Module):
         win = self.cfg.window
         hq, wq = x.shape[2], x.shape[3]
         hp, wp = (-hq) % win, (-wq) % win
-        if hp or wp:
-            x = F.pad(x.reshape(b * t, hq, wq, ch).permute(0, 3, 1, 2), (0, wp, 0, hp),
-                      mode="replicate").permute(0, 2, 3, 1).reshape(b, t, hq + hp, wq + wp, ch)
+        x = pad_edge(pad_edge(x, 3, wp), 2, hp)
         for i in range(self.cfg.num_attention_blocks):
             x = getattr(self, f"block_{i}")(x)
         x = x[:, :, :hq, :wq].permute(0, 1, 4, 2, 3).reshape(b * t, ch, hq, wq)

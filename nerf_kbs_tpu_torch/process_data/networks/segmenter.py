@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nerf_kbs_tpu_torch.device import resolve_device
+from nerf_kbs_tpu_torch.process_data import networks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,9 +74,8 @@ class InstanceSegmenter(nn.Module):
             skip = skips[i]
             # an odd skip shrank through the pool (floor): pad up with the
             # edge, never crop
-            dh, dw = skip.shape[2] - x.shape[2], skip.shape[3] - x.shape[3]
-            if dh or dw:
-                x = F.pad(x, (0, dw, 0, dh), mode="replicate")
+            x = networks.pad_edge(networks.pad_edge(x, 3, skip.shape[3] - x.shape[3]), 2,
+                                  skip.shape[2] - x.shape[2])
             x = getattr(self, f"up_{i}")(torch.cat([x, skip], dim=1))
         return self.head(x)
 
@@ -223,13 +223,15 @@ def segmenter_loss(model: InstanceSegmenter, batch: dict):
 
 def make_segmenter_train_step(model: InstanceSegmenter, lr: float = 3e-4):
     """step(batch) -> (loss, metrics): one Adam update (optax's defaults)
-    of ``segmenter_loss``, ``model`` changed in place."""
+    of ``segmenter_loss``, ``model`` changed in place, its convolutions on
+    cuDNN's deterministic algorithms."""
     opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
     def step(batch: dict):
-        loss, metrics = segmenter_loss(model, batch)
-        opt.zero_grad()
-        loss.backward()
+        with networks.deterministic_convolutions():
+            loss, metrics = segmenter_loss(model, batch)
+            opt.zero_grad()
+            loss.backward()
         opt.step()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.device import resolve_device
+from nerf_kbs_tpu_torch.process_data import networks
 from nerf_kbs_tpu_torch.process_data.motion_mask_driver import list_frames, load_frame
 from nerf_kbs_tpu_torch.process_data.networks.raft_port import make_raft
 from nerf_kbs_tpu_torch.process_data.warp import flow_to_image
@@ -161,7 +162,8 @@ def make_raft_train_step(raft, tx: ClippedAdamW, cfg: RaftTrainConfig, mesh=None
     batch is this rank's rows of the global batch: the loss and metrics are
     the global batch's, and the gradients are averaged over the ranks
     before the global-norm clip, as the gradient of the global loss is
-    clipped in one process."""
+    clipped in one process. The convolutions run on cuDNN's deterministic
+    algorithms."""
     from nerf_kbs_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, global_batch
     from nerf_kbs_tpu_torch.process_data.networks.raft import sequence_loss
 
@@ -169,12 +171,13 @@ def make_raft_train_step(raft, tx: ClippedAdamW, cfg: RaftTrainConfig, mesh=None
         mesh = Mesh(0, 1, next(raft.parameters()).device, None)
 
     def step(batch: dict):
-        with global_batch(mesh):
-            flows = raft.compute_flow(batch["img1"], batch["img2"], iters=cfg.iters,
-                                      all_iters=True)
-            loss, metrics = sequence_loss(flows, batch["flow"], batch["valid"], cfg.gamma)
-        tx.zero_grad()
-        loss.backward()
+        with networks.deterministic_convolutions():
+            with global_batch(mesh):
+                flows = raft.compute_flow(batch["img1"], batch["img2"], iters=cfg.iters,
+                                          all_iters=True)
+                loss, metrics = sequence_loss(flows, batch["flow"], batch["valid"], cfg.gamma)
+            tx.zero_grad()
+            loss.backward()
         all_reduce_grads(mesh, tx.params)
         tx.step()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}

@@ -517,8 +517,9 @@ def test_fourier_mlp_backward_kernel_base(dev, basis, need_dx, n, dims):
 
 
 def _segment_sum_in_pieces(v: np.ndarray, idx: np.ndarray, n: int, piece: int = 256):
-    """The kernel's order in NumPy scalars of v's dtype: each run in ascending
-    q within pieces of ``piece`` entries, the pieces' sums in order."""
+    """The short-row kernel's order in NumPy scalars of v's dtype: each run
+    in ascending q within pieces of ``piece`` entries, the pieces' sums in
+    order."""
     out = np.zeros((v.shape[0], n), v.dtype)
     for r in range(v.shape[0]):
         row = idx[min(r, idx.shape[0] - 1)]
@@ -535,12 +536,109 @@ def _segment_sum_in_pieces(v: np.ndarray, idx: np.ndarray, n: int, piece: int = 
     return out
 
 
+def _segment_sum_by_key_order(v, keys, perm=None, span=None, own=None, out=None,
+                              tile=1024, items=4, threads=256):
+    """The by-key kernel's order (csrc/segment_sum.cu, regime 2) in NumPy
+    scalars of v's dtype: tiles of ``tile`` sorted positions, ``items``
+    consecutive positions a thread added serially from a run's head, the
+    threads' last partials scanned Kogge-Stone within each warp, the warps'
+    totals combined in ascending order, and runs that cross tiles finished
+    from their tiles' partials in ascending tile order."""
+    F, M = v.shape[0], len(keys)
+    span = int(keys.max()) + 1 if span is None else span
+    own = span if own is None else own
+    out = np.zeros((F, span), v.dtype) if out is None else out.copy()
+    out[:, :own] = 0
+    vals = v if perm is None else v[:, perm]
+    head = np.ones(M, bool)
+    head[1:] = keys[1:] != keys[:-1]
+    end = np.ones(M, bool)
+    end[:-1] = keys[1:] != keys[:-1]
+    ntiles = -(-M // tile)
+    part = np.zeros((F, 2, ntiles), v.dtype)
+
+    def put(f, k, x):
+        if 0 <= k < span:
+            out[f, k] = x if k < own else out[f, k] + x
+
+    def comb(c, x):  # (h, a) + (h', a')
+        return (c[0] or x[0], x[1] if x[0] else c[1] + x[1])
+
+    for f in range(F):
+        for tl in range(ntiles):
+            base, last = tl * tile, min(tl * tile + tile, M) - 1
+            s, agg = {}, []
+            for t in range(threads):
+                sv, hd = None, False
+                for i in range(items):
+                    p = base + t * items + i
+                    if p >= M:
+                        break
+                    x = vals[f, p]
+                    sv = x if (i == 0 or head[p]) else sv + x
+                    s[p] = sv
+                    hd |= bool(head[p])
+                agg.append((hd, sv if sv is not None else v.dtype.type(0)))
+            warps = threads // 32
+            incl = []
+            for w in range(warps):
+                a = agg[w * 32:(w + 1) * 32]
+                for d in (1, 2, 4, 8, 16):
+                    a = [a[l] if l < d else comb(a[l - d], a[l]) for l in range(32)]
+                incl.append(a)
+            wc = [None] * warps
+            c = incl[0][31]
+            for w in range(1, warps):
+                wc[w] = c
+                c = comb(c, incl[w][31])
+            for t in range(threads):
+                w, lane = divmod(t, 32)
+                if t == 0:
+                    carry = None
+                elif w == 0:
+                    carry = incl[0][lane - 1]
+                else:
+                    carry = wc[w] if lane == 0 else comb(wc[w], incl[w][lane - 1])
+                for i in range(items):
+                    p = base + t * items + i
+                    if p >= M:
+                        break
+                    if not end[p] and p != last:
+                        continue
+                    in_thread = any(head[base + t * items + j] for j in range(i + 1))
+                    total, began = s[p], in_thread
+                    if not in_thread and carry is not None:
+                        total, began = carry[1] + s[p], carry[0]
+                    if began and end[p]:
+                        put(f, int(keys[p]), total)
+                    else:
+                        part[f, 0 if end[p] else 1, tl] = total
+        for tl in range(ntiles - 1):
+            lp = (tl + 1) * tile - 1
+            k = keys[lp]
+            if keys[lp + 1] != k or (tl > 0 and keys[tl * tile - 1] == k):
+                continue
+            sm, u = part[f, 1, tl], tl + 1
+            while True:
+                ul = min((u + 1) * tile, M) - 1
+                if ul + 1 < M and keys[ul] == k and keys[ul + 1] == k:
+                    sm = sm + part[f, 1, u]
+                    u += 1
+                else:
+                    sm = sm + part[f, 0, u]
+                    break
+            put(f, int(k), sm)
+    return out
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("case", ["short_rows", "long_runs", "shared_index_row", "one_element"])
 def test_segment_sum_kernel(dev, dtype, case):
     """The fixed-order segment sum against its order written out in NumPy
-    (bit for bit) and against scatter_add_ on the CPU (serial: the same bits
-    where no run crosses a 256-entry piece, else within the rounding of a
+    (bit for bit: the pieces of the short-row kernel, or the by-key kernel's
+    tiles for an index row that the value rows share) and against
+    scatter_add_ on the CPU (serial: the same bits where no run of a row's
+    own index row crosses a 256-entry piece, else within the rounding of a
     sum in any order); a repeat gives the same bits."""
     from nerf_kbs_tpu_torch.ops import segment_sum as seg
 
@@ -556,14 +654,128 @@ def test_segment_sum_kernel(dev, dtype, case):
         v, i, n = rng.normal(size=(500, 1)), rng.integers(0, 3, (500, 1)), 3
     v = v.astype(dtype)
     vt, it = torch.as_tensor(v), torch.as_tensor(i, dtype=torch.int32)
-    before = seg.LAUNCHES["segment_sum"]
+    shared = case == "shared_index_row"
+    counter = "segment_sum_by_key" if shared else "segment_sum"
+    before = seg.LAUNCHES[counter]
     got = seg.segment_sum(vt.to(dev), it.to(dev), n)
     again = seg.segment_sum(vt.to(dev), it.to(dev), n)
     torch.cuda.synchronize()
-    assert seg.LAUNCHES["segment_sum"] == before + 2 and torch.equal(got, again)
-    np.testing.assert_array_equal(got.cpu().numpy(), _segment_sum_in_pieces(v, i, n))
+    assert seg.LAUNCHES[counter] == before + 2 and torch.equal(got, again)
+    want = _segment_sum_by_key_order(v, i[0], span=n) if shared else _segment_sum_in_pieces(v, i, n)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
     serial = seg.segment_sum_reference(vt, it, n)
-    if v.shape[1] <= 256:
+    if v.shape[1] <= 256 and not shared:
         assert torch.equal(got.cpu(), serial)
     bound = v.shape[1] * np.finfo(dtype).eps * np.abs(v).sum(-1, keepdims=True)
     assert np.all(np.abs(got.cpu().numpy() - serial.numpy()) <= bound)
+
+
+def _by_key_case(case, rng):
+    """(keys (M,) sorted, span) of one case of the by-key kernel."""
+    if case == "long_runs":  # a run of 7,000 between short ones
+        keys = np.full(9000, 5)
+        keys[:1000], keys[8000:] = np.sort(rng.integers(0, 5, 1000)), 6 + np.arange(1000) % 3
+        return np.sort(keys), 10
+    if case == "empty_targets_one_entry_runs":
+        return np.sort(rng.choice(200_000, 9000, replace=False)), 200_000
+    if case == "run_across_many_tiles":  # edges on and off the 1,024-entry tiles
+        keys = np.repeat(np.arange(6), [1024, 3 * 1024, 5000, 1, 1023, 30_000])
+        return keys, 6
+    return np.sort(rng.integers(0, 300, 20_000)), 300  # a shared row, many short runs
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["long_runs", "empty_targets_one_entry_runs",
+                                  "run_across_many_tiles", "short_runs"])
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("rows", ["three_rows", "two_interleaved"])
+def test_segment_sum_by_key_kernel(dev, dtype, case, permuted, rows):
+    """The by-key kernel (F = 3 rows, or 2 interleaved as the hash levels'
+    (M, 2) cotangents, sharing one sorted index row, read through a
+    permutation or not) against its order written out in NumPy, bit for
+    bit, into a column span of a wider output whose targets past ``own``
+    keep what they held and add the sums; a repeat gives the same bits."""
+    from nerf_kbs_tpu_torch.ops import segment_sum as seg
+
+    rng = np.random.default_rng(2)
+    keys, n = _by_key_case(case, rng)
+    M = len(keys)
+    F = 3 if rows == "three_rows" else 2
+    v = rng.normal(size=(F, M)).astype(dtype)
+    perm = rng.permutation(M) if permuted else None
+    own = n - n // 4
+    pre = rng.normal(size=(F, n + 7)).astype(dtype)
+    wide = torch.as_tensor(pre, device=dev)
+    wide2 = wide.clone()
+    vt = torch.as_tensor(v, device=dev) if F == 3 else \
+        torch.as_tensor(np.ascontiguousarray(v.T), device=dev).t()
+    args = (vt, torch.as_tensor(keys, device=dev, dtype=torch.int32),
+            None if perm is None else torch.as_tensor(perm, device=dev, dtype=torch.int32))
+    before = seg.LAUNCHES["segment_sum_by_key"]
+    seg.segment_sum_by_key(*args, wide[:, 3:3 + n], own)
+    seg.segment_sum_by_key(*args, wide2[:, 3:3 + n], own)
+    torch.cuda.synchronize()
+    assert seg.LAUNCHES["segment_sum_by_key"] == before + 2 and torch.equal(wide, wide2)
+    got = wide.cpu().numpy()
+    np.testing.assert_array_equal(got[:, :3], pre[:, :3])
+    np.testing.assert_array_equal(got[:, 3 + n:], pre[:, 3 + n:])
+    want = _segment_sum_by_key_order(v, keys, perm, n, own, pre[:, 3:3 + n])
+    np.testing.assert_array_equal(got[:, 3:3 + n], want)
+
+
+@pytest.mark.parametrize("span", [1, 300, 2**17, 2**19, 2**22 + 5, 2**27])
+def test_radix_sort_kernel(dev, span):
+    """The radix sort's keys and permutation against torch.sort(stable=True)
+    exactly (one to three passes of up to 9-bit digits; duplicates
+    everywhere); a repeat gives the same permutation."""
+    from nerf_kbs_tpu_torch.ops import segment_sum as seg
+
+    rng = np.random.default_rng(3)
+    keys = torch.as_tensor(rng.integers(0, span, 1_000_003), dtype=torch.int32)
+    keys[:5000] = span - 1
+    want_keys, want_perm = torch.sort(keys, stable=True)
+    before = seg.LAUNCHES["radix_sort"]
+    got_keys, got_perm = seg.sort_keys(keys.to(dev), span)
+    _, again = seg.sort_keys(keys.to(dev), span)
+    torch.cuda.synchronize()
+    assert seg.LAUNCHES["radix_sort"] == before + 2
+    assert got_keys.dtype == got_perm.dtype == torch.int32
+    assert torch.equal(got_keys.cpu(), want_keys)
+    assert torch.equal(got_perm.cpu().long(), want_perm) and torch.equal(got_perm, again)
+
+
+@pytest.mark.parametrize("entry_major", [False, True])
+def test_gather_column_sets_backward_on_the_card(dev, entry_major):
+    """The hash levels' gather on the card (entry-major as the hash
+    encoding calls it, or feature-major): four levels whose second spills
+    its far face into the third's slots, the table's gradient against the
+    plain path on the CPU in f64 (f32 sums in another order), bit for bit on
+    a repeat."""
+    from nerf_kbs_tpu_torch.ops import segment_sum as seg
+
+    rng = np.random.default_rng(4)
+    F, T, n = 2, 4096, 50_000
+    spans = [T, T + 300, T, T]
+    slots = [rng.integers(0, s, n * 8) for s in spans]
+    slots[0][: n * 4] = 7  # a busy slot: a run across tiles
+    rows = rng.normal(size=(F, 4 * T)).astype(np.float32)
+    cot = [rng.normal(size=(F, n * 8)).astype(np.float32) for _ in spans]
+    sets = [(lvl * T, T, s) for lvl, s in enumerate(spans)]
+
+    def grad(device, dtype=torch.float32, cot_of=lambda c: c):
+        r = torch.tensor(rows, device=device, dtype=dtype, requires_grad=True)
+        outs = seg.gather_column_sets(r, sets, [torch.as_tensor(s, device=device, dtype=torch.int32)
+                                                for s in slots], entry_major)
+        cots = [torch.as_tensor(cot_of(c), device=device, dtype=dtype) for c in cot]
+        if entry_major:
+            cots = [c.t().contiguous() for c in cots]
+        torch.autograd.backward(outs, cots)
+        return r.grad
+
+    got, again = grad(dev), grad(dev)
+    want = grad("cpu", torch.float64).numpy()
+    scale = grad("cpu", torch.float64, np.abs).numpy()  # each slot's sum of |cotangent|
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # f32 sums of up to 200,000 cotangents in a tree order
+    assert np.all(np.abs(got.cpu().numpy() - want) <= 1e-5 * scale + 1e-6)

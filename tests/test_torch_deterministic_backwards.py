@@ -34,9 +34,11 @@ TOL = 1e-6
 
 @pytest.fixture
 def sorted_calls(monkeypatch):
-    """Replaces segment_sum in the three modules by the plain version after
-    a check that every index row is non-decreasing; returns the calls'
-    (rows, entries, targets)."""
+    """Replaces segment_sum in the three modules, and the gathers' sorted
+    sum (ops.segment_sum.segment_sum_by_key), by the plain versions after a
+    check that every index row is non-decreasing and inside the targets (and
+    a gather's permutation a permutation); returns the calls' (rows,
+    entries, targets)."""
     calls = []
 
     def checked(values, idx, num_targets):
@@ -45,10 +47,17 @@ def sorted_calls(monkeypatch):
         calls.append((values.shape[0], values.shape[1], num_targets))
         return tseg.segment_sum_reference(values, idx, num_targets)
 
-    # the hash table's gather (ops.segment_sum.gather_columns) sums through
-    # its own module's segment_sum
+    by_key = tseg.segment_sum_by_key
+
+    def checked_by_key(values, keys, perm, out, own=None):
+        checked(values.index_select(1, perm), keys[None], out.shape[1])
+        assert torch.equal(torch.sort(perm.long()).values, torch.arange(len(perm)))
+        return by_key(values, keys, perm, out, own)
+
     for mod in (tlosses, tsamp, tseg):
         monkeypatch.setattr(mod, "segment_sum", checked)
+    # the gathers of the hash table's levels (ops.segment_sum.gather_column_sets)
+    monkeypatch.setattr(tseg, "segment_sum_by_key", checked_by_key)
     return calls
 
 
@@ -273,8 +282,9 @@ def test_hash_table_gradient_matches_jax(points, sorted_calls):
     (tenc.hash_encoding_apply(tb, torch.as_tensor(pts), tc) * torch.as_tensor(cot)).sum().backward()
     # a slot sums ~60 to ~500 products of order 1
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=2e-5)
-    # one sum a level over its 500 x 8 corners, F = 2 rows sharing the index row
-    # (the backward visits the levels last to first)
+    # one sum a level over its 500 x 8 corners, F = 2 rows sharing the index
+    # row (the backward visits the levels last to first: level 1's far face
+    # adds into level 2's slots)
     assert [c[:2] for c in sorted_calls] == [(2, 4000)] * 4
     assert [c[2] for c in sorted_calls] == [64, 64, 4 * (1 + 4 + 16) + 1, 64]
 
@@ -298,15 +308,21 @@ def test_first_divergence_names_the_first_step_and_what_parts():
     assert chip_smoke.first_divergence(a, a[:2])["step"] == 3
 
 
-def test_compare_logs_skips_only_time_and_rate_fields(tmp_path, capsys):
+def _repeat_tool():
     import importlib.util
-    import json
     from pathlib import Path
 
     spec = importlib.util.spec_from_file_location(
         "repeat_bits_torch", Path(__file__).resolve().parents[1] / "tools" / "repeat_bits_torch.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def test_compare_logs_skips_only_time_and_rate_fields(tmp_path, capsys):
+    import json
+
+    tool = _repeat_tool()
     line = {"step": 1000, "psnr": 20.5, "eval_all_ssim": 0.8, "rays_per_sec": 6.0e5,
             "elapsed_s": 64.0}
     paths = [tmp_path / f"{k}.jsonl" for k in "abc"]
@@ -319,3 +335,29 @@ def test_compare_logs_skips_only_time_and_rate_fields(tmp_path, capsys):
     assert "eval_all_ssim" in out[0]["fields_compared"]
     assert "rays_per_sec" not in out[0]["fields_compared"]
     assert out[1]["first"][0]["fields"] == {"eval_all_ssim": [0.8, 0.81]}
+
+
+def test_compare_checksums_names_the_first_step_where_two_trees_part(tmp_path, capsys):
+    """Two OUT.json files of tools/repeat_bits_torch.py (two trees' runs of
+    one path): equal checksums and losses compare equal; a checksum that
+    differs at step 2 is named there."""
+    import json
+
+    tool = _repeat_tool()
+    sums = [{"fields/p": [1, 2]}, {"fields/p": [3, 4]}, {"fields/p": [5, 6]}]
+    losses = [{"total_loss": 0.5}, {"total_loss": 0.25}, {"total_loss": 0.125}]
+
+    def write(name, checks):
+        f = tmp_path / name
+        f.write_text(json.dumps({"paths": {"ilf050": {"checksums": checks,
+                                                      "losses": [losses, losses, losses]}}}))
+        return str(f)
+
+    a, b = write("a.json", sums), write("b.json", [dict(x) for x in sums])
+    c = write("c.json", [sums[0], {"fields/p": [3, 5]}, sums[2]])
+    assert tool.compare_checksums(a, b) == 0
+    assert tool.compare_checksums(a, c) == 1
+    out = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert out[0]["ilf050"] == {"steps": [3, 3], "first_divergence": None}
+    assert out[1]["ilf050"]["first_divergence"] == {"step": 2, "state": ["fields/p"],
+                                                    "losses": []}

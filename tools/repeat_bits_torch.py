@@ -3,6 +3,7 @@
     OMP_NUM_THREADS=1 python3 tools/repeat_bits_torch.py OUT.json \\
         [--paths ilf050,sem30k-flagship2,run1,run2,run3,run7,run8] [--steps 20] [--diagnose]
     OMP_NUM_THREADS=1 python3 tools/repeat_bits_torch.py OUT.json --paths raft,segmenter,inpaint --steps 3
+    python3 tools/repeat_bits_torch.py --compare-checksums A.json B.json
 
 Writes chip_smoke.py's 8-frame 376x1241 street scene, then trains each path
 (chip_smoke.repeat_trainer: the two reference protocols at full width and
@@ -14,11 +15,16 @@ step it compares every parameter group's parameters and Adam moments
 (chip_smoke.state_checksums) and every logged loss, and at the end every
 parameter and moment bit for bit. OUT.json gets, per path, the first step
 at which each repeat parts from the first run and the groups and losses
-that part there (null when none), and each run's losses.
+that part there (null when none), each run's losses, and the first run's
+checksums after every step (to compare two trees: ``--compare-checksums``).
 
 ``--compare-logs A B`` instead compares two runs' ``metrics.jsonl`` line for
 line in every field but the time and rate ones (``is_time``) and prints the
 lines and fields that differ (exit code 1 when any does).
+
+``--compare-checksums A B`` compares two OUT.json files path by path,
+step by step (chip_smoke.first_divergence on their first runs) and prints
+where they part (exit code 1 when any path does).
 
 ``--diagnose`` also runs one step of each path in a child process under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
@@ -59,7 +65,7 @@ SUMMING_OPS = {"scatter_add": "atomic adds on CUDA", "index_add": "atomic adds o
 def is_time(key: str) -> bool:
     return key.endswith(("_s", "_sec", "_seconds", "_ms")) or "time" in key
 PATHS = ("ilf050", "sem30k-flagship2", "run1", "run2", "run3", "run7", "run8")
-# the preprocessing trainers (chip_smoke.preprocess_trainers): a step each time
+# the preprocessing trainers (chip_smoke.preprocess_trainers, chip_smoke.trainer_record)
 TRAINERS = ("raft", "segmenter", "inpaint")
 
 
@@ -87,26 +93,14 @@ def build(path: str, scene: str, out: str):
     return Trainer(tcfg, mcfg, spec.optimizers, dm), dm.close
 
 
-def module_checksums(module) -> dict:
-    """state_checksums' sums over one module's parameters."""
-    import torch
-
-    words = torch.cat([p.detach().reshape(-1).view(torch.int32).long()
-                       for p in module.parameters()])
-    weight = torch.arange(words.numel(), device=words.device) % 1009 + 1
-    return {"params/p": torch.stack([words.sum(), (words * weight).sum()]).tolist()}
-
-
 def run(path: str, scene: str, steps: int) -> tuple[list, list, float]:
     """(train_record, final_state, seconds) of one run of ``path``."""
     import torch
 
     if path in TRAINERS:
-        model, step = cs.preprocess_trainers()[path](torch.device("cuda"))
         t0 = time.perf_counter()
-        rec = [{"losses": {"loss": float(step())}, "state": module_checksums(model)}
-               for _ in range(steps)]
-        return rec, [p.detach().cpu() for p in model.parameters()], time.perf_counter() - t0
+        rec, final = cs.trainer_record(path, steps)
+        return rec, final, time.perf_counter() - t0
     trainer, close = build(path, scene, tempfile.mkdtemp(prefix=f"nkt_repeat_{path}_"))
     try:
         t0 = time.perf_counter()
@@ -200,6 +194,20 @@ def compare_logs(a: str, b: str) -> int:
     return int(bool(differ) or len(la) != len(lb))
 
 
+def compare_checksums(a: str, b: str) -> int:
+    ra, rb = (json.loads(Path(p).read_text())["paths"] for p in (a, b))
+    out = {}
+    for path in sorted(set(ra) & set(rb)):
+        out[path] = {"steps": [len(ra[path]["checksums"]), len(rb[path]["checksums"])],
+                     "first_divergence": cs.first_divergence(
+                         [{"state": c, "losses": x} for c, x in zip(ra[path]["checksums"],
+                                                                  ra[path]["losses"][0])],
+                         [{"state": c, "losses": x} for c, x in zip(rb[path]["checksums"],
+                                                                  rb[path]["losses"][0])])}
+    print(json.dumps(out))
+    return int(any(v["first_divergence"] is not None for v in out.values()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out")
@@ -236,6 +244,7 @@ def main() -> int:
                                  torch.equal(x, y) for x, y in zip(final_a, final))}
             res["losses"] = [[r["losses"] for r in first], [r["losses"] for r in second],
                              [r["losses"] for r in third["record"]]]
+            res["checksums"] = [r["state"] for r in first]  # the first run's, step by step
             result["paths"][path] = res
             print(json.dumps({"path": path, **{k: v for k, v in res.items() if k != "losses"}}),
                   flush=True)
@@ -258,6 +267,8 @@ if __name__ == "__main__":
         sys.exit(child(sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:2] == ["--compare-logs"]:
         sys.exit(compare_logs(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--compare-checksums"]:
+        sys.exit(compare_checksums(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--diagnose-child"]:
         sys.exit(diagnose(sys.argv[2].split(","), sys.argv[3], sys.argv[4]))
     sys.exit(main())

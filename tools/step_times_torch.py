@@ -12,10 +12,13 @@ scene, written into ``--scene`` when that holds none). Per path: the host
 time of each of ``--steps`` steps after 5 warm-up steps, each ended by a
 synchronise (median and all), and one more step under torch.profiler: the
 device busy time and the device time of the fixed-order segment sums
-(csrc/segment_sum.cu), of sorting, of scatters, gathers and index adds, of
-kernels C and D and of their partials' reduction (GROUPS). Also the
-card's name and power limit. Run from two trees in one chip call (parent,
-change, change, parent) to compare them.
+(csrc/segment_sum.cu), of sorting, of fills and memsets, of scatters,
+gathers and index adds, of kernels C and D and of their partials'
+reduction (GROUPS). Then the preprocessing trainers' steps
+(chip_smoke.preprocess_trainers; ``trainer_times``). Also the card's name
+and power limit. Run from two trees in one chip call (parent, change,
+change, parent) to compare them: the script runs from a copy of the parent
+tree too (copy it there).
 """
 
 from __future__ import annotations
@@ -35,8 +38,11 @@ import chip_smoke as cs  # noqa: E402
 
 # device kernel names by group (substrings of the profiler's kernel names)
 GROUPS = {
-    "segment_sum": ("segment_pieces_kernel", "segment_runs_kernel"),
-    "sort": ("RadixSort", "sortKeyValueInplace", "bitonicSort"),
+    "segment_sum": ("segment_pieces_kernel", "segment_runs_kernel", "segment_tiles_kernel",
+                    "segment_carry_kernel"),
+    "sort": ("RadixSort", "sortKeyValueInplace", "bitonicSort", "radix_hist_kernel",
+             "radix_scan_kernel", "radix_scatter_kernel"),
+    "fills_and_memsets": ("FillFunctor", "Memset"),
     "scatter_gather_and_index_adds": ("scatter_gather", "indexFuncLargeIndex",
                                       "indexFuncSmallIndex", "indexing_backward"),
     "kernel_C": ("fourier_mlp_bwd",),
@@ -97,6 +103,48 @@ def measure(step, steps: int) -> dict:
             "top_kernels_ms": {name: us / 1e3 for name, us, _ in events[:12]}}
 
 
+def trainer_times(steps: int) -> dict:
+    """Host ms a step of each preprocessing trainer: the median of ``steps``
+    steps after 2 warm-up steps, each ended by a synchronise, twice. On a
+    tree whose steps run under ``networks.deterministic_convolutions``, each
+    turn also times them with that scope replaced by a null context (cuDNN
+    then picks its algorithms as outside the trainers), in turns."""
+    import contextlib
+
+    import torch
+
+    from nerf_kbs_tpu_torch.process_data import networks
+
+    scoped = hasattr(networks, "deterministic_convolutions")
+    arms = ("as_built", "unrestricted") if scoped else ("as_built",)
+    result = {}
+    for name in ("raft", "segmenter", "inpaint"):
+        result[name] = {arm: [] for arm in arms}
+        for _ in range(2):
+            for arm in arms:
+                saved = getattr(networks, "deterministic_convolutions", None)
+                if arm == "unrestricted":
+                    networks.deterministic_convolutions = contextlib.nullcontext
+                try:
+                    model, step = cs.preprocess_trainers()[name](torch.device("cuda"))
+                    for _ in range(2):
+                        step()
+                    times = []
+                    for _ in range(steps):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        step()
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    if scoped:
+                        networks.deterministic_convolutions = saved
+                result[name][arm].append(sorted(times)[len(times) // 2])
+                del model, step
+                torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out")
@@ -125,6 +173,8 @@ def main() -> int:
         result["paths"][path] = measure(step, args.steps)
         del step
         torch.cuda.empty_cache()
+    result["trainers_ms"] = trainer_times(10)
+    print(json.dumps({"tree": str(ROOT), "trainers_ms": result["trainers_ms"]}), flush=True)
     for path, r in result["paths"].items():
         print(json.dumps({"tree": str(ROOT), "path": path, "median_ms": r["median_ms"],
                           "device_busy_ms": r["device_busy_ms"],
