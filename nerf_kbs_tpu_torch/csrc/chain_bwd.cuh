@@ -156,7 +156,6 @@ __device__ __forceinline__ void nkt_bwd_gemm(const __nv_bfloat16* A, int lda,
         wmma::mma_sync(acc, a, b, acc);
       }
     }
-    NKT_CLK(WT ? NKT_PH_WDH_PRODUCT : NKT_PH_PRODUCT)
     wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
     __syncwarp();
 #pragma unroll
@@ -172,7 +171,6 @@ __device__ __forceinline__ void nkt_bwd_gemm(const __nv_bfloat16* A, int lda,
       colsum[t * 16 + lane] += s;
     }
     __syncwarp();
-    NKT_CLK(WT ? NKT_PH_WDH_EPILOGUE : NKT_PH_EPILOGUE)
   }
 }
 
@@ -201,7 +199,6 @@ __device__ __forceinline__ void nkt_bwd_dw(const __nv_bfloat16* act, int lda, in
     }
     wmma::store_matrix_sync(dst, acc, np, wmma::mem_row_major);
   }
-  NKT_CLK(NKT_PH_DW)
 }
 
 // The activations a chain keeps for its backward: acts[l] is layer l's input
@@ -228,7 +225,6 @@ __device__ __forceinline__ void nkt_bwd_forward(const MmaChain& m, const __nv_bf
     nkt_bwd_gemm<ROWS, false>(acts.a[l], acts.ld[l], ws + m.w_s[l], m.np[l] + 8, m.kp[l],
                               m.np[l], scratch, nullptr, relu_store);
     __syncthreads();
-    NKT_CLK(NKT_PH_BARRIER)
   }
 }
 
@@ -248,7 +244,6 @@ __device__ __forceinline__ void nkt_bwd_chain(const MmaChain& m, const GradLayou
   for (int i = top; i >= 0; --i) {
     nkt_bwd_dw<ROWS>(acts.a[i], acts.ld[i], m.kp[i], dh, lddh, m.np[i], gpart + gl.w[i]);
     __syncthreads();
-    NKT_CLK(NKT_PH_BARRIER)
     if (i == 0) break;
     __nv_bfloat16* a = acts.a[i];
     const int la = acts.ld[i];
@@ -260,7 +255,6 @@ __device__ __forceinline__ void nkt_bwd_chain(const MmaChain& m, const GradLayou
     nkt_bwd_gemm<ROWS, true>(dh, lddh, ws + m.w_s[i], m.np[i] + 8, m.np[i], m.kp[i], scratch,
                              db + m.b_s[i - 1], mask_store);
     __syncthreads();
-    NKT_CLK(NKT_PH_BARRIER)
     dh = a;
     lddh = la;
   }

@@ -257,7 +257,6 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
   float* gpart = partials + (size_t)blockIdx.x * stride;
   float* db = db_s + (warp % RS) * b_floats;  // this warp's slab's accumulators
 
-  NKT_CLK_BEGIN()
   nkt_mma_stage(base, mb, base_wb, ws, bs);
   nkt_mma_stage(rgb, mr, rgb_wb, ws, bs);
   for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) Bs[i] = Bm[i];
@@ -268,14 +267,11 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long p0 = (long long)tile * ROWS;
     __syncthreads();
-    NKT_CLK(tile == (int)blockIdx.x ? NKT_PH_STAGE : NKT_PH_BARRIER)
     nkt_bwd_load_rows<ROWS>(x, 3, n, p0, xs);
     nkt_bwd_load_rows<ROWS>(g, 4, n, p0, gs);
     __syncthreads();
-    NKT_CLK(NKT_PH_LOAD)
     nkt_mma_encode<TRI, ROWS>(xs, Bs, H, mb.kp[0], ab.a[0], ab.ld[0]);
     __syncthreads();
-    NKT_CLK(NKT_PH_ENCODE)
 
     // ---- forward, keeping every layer's input
     nkt_bwd_forward<ROWS>(mb, ws, bs, ab, Lb - 1, scratch);
@@ -295,9 +291,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
         const float v = (f < F && p0 + r < n) ? feats[(size_t)f * n + p0 + r] : 0.0f;
         rgb_in[r * ldri + G + f] = __float2bfloat16_rn(v);
       }
-      NKT_CLK(NKT_PH_OTHER)
       __syncthreads();
-      NKT_CLK(NKT_PH_BARRIER)
     }
     nkt_bwd_forward<ROWS>(mr, ws, bs, ar, Lr - 1, scratch);
     {
@@ -317,7 +311,6 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
       nkt_bwd_gemm<ROWS, false>(ar.a[l], ar.ld[l], ws + mr.w_s[l], mr.np[l] + 8, mr.kp[l],
                                 mr.np[l], scratch, db + mr.b_s[l], sigmoid_grad);
       __syncthreads();
-      NKT_CLK(NKT_PH_BARRIER)
     }
 
     // ---- rgb chain backward
@@ -347,9 +340,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
         dbo[r * npb + o] = v;
         dh_b[r * ldhb + o] = __float2bfloat16_rn(v);
       }
-      NKT_CLK(NKT_PH_OTHER)
       __syncthreads();
-      NKT_CLK(NKT_PH_BARRIER)
       // bias gradient of the last base layer: f32 column sums per slab
       for (int i = threadIdx.x; i < RS * npb; i += blockDim.x) {
         const int slab = i / npb, o = i % npb;
@@ -357,18 +348,15 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
         for (int r = slab * 16; r < slab * 16 + 16; ++r) s += dbo[r * npb + o];
         db_s[slab * b_floats + mb.b_s[Lb - 1] + o] += s;
       }
-      NKT_CLK(NKT_PH_OTHER)
     }
 
     // ---- base chain backward
     nkt_bwd_chain<ROWS>(mb, glb, ws, ab, Lb - 1, dh_b, ldhb, gpart, db, scratch, &dh0, &ld0);
     if (need_dx) nkt_bwd_dx<ROWS, TRI>(mb, ws, dh0, ld0, xs, Bs, H, scratch, dxp, dx, n, p0);
-    NKT_CLK(NKT_PH_OTHER)
   }
   __syncthreads();
   nkt_bwd_flush_bias<ROWS>(mb, glb, db_s, b_floats, gpart);
   nkt_bwd_flush_bias<ROWS>(mr, glr, db_s, b_floats, gpart);
-  NKT_CLK_END()
 }
 
 template <bool TRI>

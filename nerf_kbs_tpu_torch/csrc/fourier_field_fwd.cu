@@ -134,7 +134,6 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
   __nv_bfloat16* cur = reinterpret_cast<__nv_bfloat16*>(smem + L.act0);
   __nv_bfloat16* nxt = reinterpret_cast<__nv_bfloat16*>(smem + L.act1);
 
-  NKT_CLK_BEGIN()
   nkt_mma_stage(base, mbase, base_wb, ws, bs);
   nkt_mma_stage(rgb, mrgb, rgb_wb, ws, bs);
   for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) Bs[i] = Bm[i];
@@ -146,13 +145,10 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
     const long long p0 = (long long)tile * NKT_MMA_ROWS;
     // the barrier also keeps this tile's writes behind the last tile's reads
     __syncthreads();
-    NKT_CLK(tile == (int)blockIdx.x ? NKT_PH_STAGE : NKT_PH_BARRIER)
     nkt_mma_load_x(x, n, p0, xs);
     __syncthreads();
-    NKT_CLK(NKT_PH_LOAD)
     nkt_mma_encode<TRI>(xs, Bs, H, mbase.kp[0], cur, ld);
     __syncthreads();
-    NKT_CLK(NKT_PH_ENCODE)
 
     for (int l = 0; l < base.n_layers - 1; ++l) {
       __nv_bfloat16* out_buf = nxt;
@@ -162,7 +158,6 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
       nkt_mma_layer(cur, ld, ws + mbase.w_s[l], mbase.np[l] + 8, bs + mbase.b_s[l],
                     mbase.kp[l], mbase.np[l], scratch, relu_store);
       __syncthreads();
-      NKT_CLK(NKT_PH_BARRIER)
       __nv_bfloat16* t = cur;
       cur = nxt;
       nxt = t;
@@ -187,9 +182,7 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
         const float v = (f < F && p0 + r < n) ? feats[(size_t)f * n + p0 + r] : 0.0f;
         rgb_in[r * ld + G + f] = __float2bfloat16_rn(v);
       }
-      NKT_CLK(NKT_PH_OTHER)
       __syncthreads();
-      NKT_CLK(NKT_PH_BARRIER)
       nxt = cur;
       cur = rgb_in;
     }
@@ -201,7 +194,6 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
       nkt_mma_layer(cur, ld, ws + mrgb.w_s[l], mrgb.np[l] + 8, bs + mrgb.b_s[l],
                     mrgb.kp[l], mrgb.np[l], scratch, relu_store);
       __syncthreads();
-      NKT_CLK(NKT_PH_BARRIER)
       __nv_bfloat16* t = cur;
       cur = nxt;
       nxt = t;
@@ -215,7 +207,6 @@ __global__ void __launch_bounds__(NKT_MMA_THREADS, 1)
                     mrgb.kp[l], mrgb.np[l], scratch, sigmoid_store);
     }
   }
-  NKT_CLK_END()
 }
 
 template <bool TRI>

@@ -159,56 +159,6 @@ static inline void nkt_chain_rows(const Chain& ch, int first, int in_rows, int r
 
 __host__ __device__ static inline size_t nkt_round16(size_t v) { return (v + 15) / 16 * 16; }
 
-// Phase clocks, compiled in only with -DNKT_PHASE_CLOCKS (a measurement
-// build): thread 0 of block 0 adds the clock64() ticks since its last mark to
-// the phase it names, in shared memory, and leaves the sums in
-// nkt_phase_clocks when the kernel ends. The marks sit behind the work of the
-// thread's own warp and behind the block's barriers.
-enum {
-  NKT_PH_STAGE,         // weights into shared memory, once per block
-  NKT_PH_LOAD,          // a tile's inputs
-  NKT_PH_ENCODE,        // the Fourier encoding
-  NKT_PH_PRODUCT,       // forward products (fragment loads and mma)
-  NKT_PH_EPILOGUE,      // forward epilogues (scratch round trip, bias, relu, store)
-  NKT_PH_WDH_PRODUCT,   // W . dh products
-  NKT_PH_WDH_EPILOGUE,  // their epilogues (mask, bias sums, store)
-  NKT_PH_DW,            // act^T . dh into the block's partial
-  NKT_PH_BARRIER,       // waiting at block barriers
-  NKT_PH_OTHER,         // feats, the output gradient, dx
-  NKT_N_PHASES
-};
-#ifdef NKT_PHASE_CLOCKS
-__device__ long long nkt_phase_clocks[NKT_N_PHASES];
-__device__ __forceinline__ long long* nkt_clk_slots() {
-  __shared__ long long slots[NKT_N_PHASES + 1];
-  return slots;
-}
-#define NKT_CLK_ON (blockIdx.x == 0 && threadIdx.x == 0)
-#define NKT_CLK_BEGIN()                                                \
-  if (NKT_CLK_ON) {                                                    \
-    for (int i_ = 0; i_ < NKT_N_PHASES; ++i_) nkt_clk_slots()[i_] = 0; \
-    nkt_clk_slots()[NKT_N_PHASES] = clock64();                         \
-  }
-#define NKT_CLK(phase)                                \
-  if (NKT_CLK_ON) {                                   \
-    long long* c_ = nkt_clk_slots();                  \
-    const long long now_ = clock64();                 \
-    c_[phase] += now_ - c_[NKT_N_PHASES];             \
-    c_[NKT_N_PHASES] = now_;                          \
-  }
-#define NKT_CLK_END() \
-  if (NKT_CLK_ON)     \
-    for (int i_ = 0; i_ < NKT_N_PHASES; ++i_) nkt_phase_clocks[i_] = nkt_clk_slots()[i_];
-// Copies the last launch's phase sums (NKT_N_PHASES values) to the host.
-extern "C" int nkt_read_phase_clocks(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, nkt_phase_clocks, sizeof(long long) * NKT_N_PHASES);
-}
-#else
-#define NKT_CLK_BEGIN()
-#define NKT_CLK(phase)
-#define NKT_CLK_END()
-#endif
-
 extern "C" const char* nkt_error_string(int code) {
   switch (code) {
     case NKT_ERR_LAYERS: return "layer count outside [1, 8]";

@@ -128,7 +128,6 @@ __device__ __forceinline__ void nkt_mma_warp(const __nv_bfloat16* act, int lda,
 #pragma unroll
     for (int t = 0; t < NTW; ++t) wmma::mma_sync(acc[t], a, b[t], acc[t]);
   }
-  NKT_CLK(NKT_PH_PRODUCT)
 #pragma unroll
   for (int t = 0; t < NTW; ++t) {
     wmma::store_matrix_sync(scratch, acc[t], 16, wmma::mem_row_major);
@@ -140,7 +139,6 @@ __device__ __forceinline__ void nkt_mma_warp(const __nv_bfloat16* act, int lda,
     }
     __syncwarp();
   }
-  NKT_CLK(NKT_PH_EPILOGUE)
 }
 
 // Device, whole block: one layer of the chain for the tile, np <= 32 * MAXT

@@ -20,6 +20,7 @@ import numpy as np
 from nerf_kbs_tpu_torch import native
 from nerf_kbs_tpu_torch.data.outputs import DataparserOutputs
 from nerf_kbs_tpu_torch.utils.images import decode_png, read_image
+from nerf_kbs_tpu_torch.utils.profiling import span, spanned
 
 
 def _load_image(path: str) -> np.ndarray:
@@ -102,6 +103,7 @@ class InMemoryDataManager:
         d = np.abs(flat[:, None, :] - class_colors[None, :, :]).sum(-1)
         return d.argmin(1).astype(np.int32).reshape(sem_img.shape[:2])
 
+    @spanned("next_train")
     def next_train(self, step: int) -> dict:
         """The batch of ``step``: uniform (camera, row, col) draws from the
         host sampler (``native.sample_ray_batch``, seed ``seed * 1_000_003 +
@@ -110,9 +112,10 @@ class InMemoryDataManager:
         Depth comes from the sampler, masks and semantic labels are gathered
         at the drawn pixels."""
         a = self.train_assets
-        batch = native.sample_ray_batch(a["images"], self.config.train_num_rays_per_batch,
-                                        seed=self.config.seed * 1_000_003 + step,
-                                        depths=a.get("depths"))
+        with span("next_train.sample"):
+            batch = native.sample_ray_batch(a["images"], self.config.train_num_rays_per_batch,
+                                            seed=self.config.seed * 1_000_003 + step,
+                                            depths=a.get("depths"))
         cam, row, col = batch["ray_indices"].T
         if "masks" in a:
             batch["mask"] = a["masks"][cam, row, col][:, None].astype(np.float32)

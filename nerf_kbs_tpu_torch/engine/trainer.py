@@ -79,6 +79,7 @@ from nerf_kbs_tpu_torch.parallel.mesh import (
 from nerf_kbs_tpu_torch.parallel.multihost import all_sum_host_values
 from nerf_kbs_tpu_torch.utils import images
 from nerf_kbs_tpu_torch.utils.lpips import load_lpips
+from nerf_kbs_tpu_torch.utils.profiling import span, spanned
 from nerf_kbs_tpu_torch.utils.tboard import TensorboardWriter
 
 
@@ -188,25 +189,35 @@ class Trainer:
     def _to_device(self, batch: dict) -> dict:
         return shard_batch(self.mesh, batch)
 
+    @spanned("train_step")
     def train_step(self, batch: dict, jitters=None) -> dict:
         """One update from this rank's rows of the global batch (NumPy
         arrays or tensors); returns the metrics, averaged over the ranks, as
         tensors (no synchronisation with one process). ``jitters`` (this
         rank's rows) replaces the generator's draws (see
-        ``ops.samplers.proposal_sample``)."""
-        batch = shard_batch(self.mesh, batch)
+        ``ops.samplers.proposal_sample``). The span ``train_step`` holds the
+        call, the release of its tensors included."""
+        dev = self.device
+        with span("train_step.h2d"):
+            batch = shard_batch(self.mesh, batch)
         with self.step_lock:
             self._jitter.manual_seed((self.config.seed + 1) * 1_000_003 + self.step)
             with global_batch(self.mesh):
-                delta = getattr(self.model, "camera_deltas", lambda _p: None)(self.params)
-                rays = generate_rays(self.train_cameras, batch["ray_indices"], c2w_delta=delta)
-                out = self.model.forward(self.params, self.model_config, rays, step=self.step,
-                                         train=True, generator=self._jitter, jitters=jitters)
-                total, metrics = self.model.loss(self.model_config, out, batch, train=True)
-            self.optimizer.zero_grad()
-            total.backward()
-            all_reduce_grads(self.mesh, self.params)
-            self.optimizer.step()
+                with span("train_step.forward", dev):
+                    delta = getattr(self.model, "camera_deltas", lambda _p: None)(self.params)
+                    rays = generate_rays(self.train_cameras, batch["ray_indices"],
+                                         c2w_delta=delta)
+                    out = self.model.forward(self.params, self.model_config, rays,
+                                             step=self.step, train=True, generator=self._jitter,
+                                             jitters=jitters)
+                with span("train_step.loss", dev):
+                    total, metrics = self.model.loss(self.model_config, out, batch, train=True)
+            with span("train_step.backward", dev):
+                self.optimizer.zero_grad()
+                total.backward()
+            with span("train_step.optimizer", dev):
+                all_reduce_grads(self.mesh, self.params)
+                self.optimizer.step()
             self.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()

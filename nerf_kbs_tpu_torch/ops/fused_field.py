@@ -25,7 +25,8 @@ CPU tensors it runs the plain version. ``LAUNCHES`` counts kernel launches
 ``DX_LAUNCHES`` the backward launches among them that ran their dx branch;
 they and the cache of weight-image indices on the device are shared by every
 thread that launches (a live viewer renders while the trainer steps), so
-both change under a lock.
+both change under a lock. A wrapper's call, its packing included, is the
+span ``fused_field`` (``utils/profiling.py``).
 Every kernel has a wgmma body for the flagship widths (``_wgmma_field``;
 ``_wgmma_mlp`` for the proposal fields), counted under the ``*_wgmma`` keys,
 and the WMMA body for every other shape. The two fused-MLP kernels have a
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.ops import _kernels
+from nerf_kbs_tpu_torch.utils.profiling import spanned
 
 # kernel launches per wrapper, added to only where a kernel is launched
 KERNELS = ("fourier_mlp", "fourier_field_mlp", "fourier_mlp_bwd", "fourier_field_mlp_bwd")
@@ -525,6 +527,7 @@ BWD_GRID_SMS = 132
 _mlp_images = {"_wgmma": _mlp_image, "_base_wgmma": _base_image}
 
 
+@spanned("fused_field")
 def _mlp_forward(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
     if _on_cpu(x_t, B, *ws, *bs):
         return fourier_mlp_reference(x_t, B, ws, bs, spec.basis, spec.bf16)
@@ -554,6 +557,7 @@ def _mlp_forward(spec: FusedMLPSpec, x_t, B, ws, bs) -> torch.Tensor:
     return out
 
 
+@spanned("fused_field")
 def _mlp_backward(spec: FusedMLPSpec, x_t, B, ws, bs, g):
     """(dx or None, dws, dbs): the backward kernel for CUDA tensors, the
     plain backward for CPU tensors."""
@@ -635,6 +639,7 @@ def _check_field_spec(spec: FusedFieldSpec) -> None:
         raise ValueError(f"inconsistent field spec {spec}")
 
 
+@spanned("fused_field")
 def _field_forward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_ws,
                    rgb_bs) -> torch.Tensor:
     if _on_cpu(x_t, feats, B, *base_ws, *base_bs, *rgb_ws, *rgb_bs):
@@ -669,6 +674,7 @@ def _field_forward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_ws
     return out
 
 
+@spanned("fused_field")
 def _field_backward(spec: FusedFieldSpec, x_t, feats, B, base_ws, base_bs, rgb_ws, rgb_bs, g):
     """(dx or None, dfeats, d_base_ws, d_base_bs, d_rgb_ws, d_rgb_bs): the
     backward kernel for CUDA tensors, the plain backward for CPU tensors."""

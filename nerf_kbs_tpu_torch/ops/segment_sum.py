@@ -29,7 +29,8 @@ A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version (``torch.sort(stable=True)``,
 ``scatter_add_``, which the CPU runs serially). ``LAUNCHES`` counts kernel
 launches by wrapper, under a lock (a live viewer's thread shares the module
-with the trainer's).
+with the trainer's). A launching wrapper's call is the span
+``segment_sum`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import threading
 import torch
 
 from nerf_kbs_tpu_torch.ops import _kernels
+from nerf_kbs_tpu_torch.utils.profiling import spanned
 
 LAUNCHES = {"segment_sum": 0, "segment_sum_by_key": 0, "radix_sort": 0}
 _lock = threading.Lock()
@@ -85,6 +87,7 @@ def segment_sum_reference(values: torch.Tensor, idx: torch.Tensor,
     return out.scatter_add_(1, idx.long().expand(values.shape), values)
 
 
+@spanned("segment_sum")
 def segment_sum(values: torch.Tensor, idx: torch.Tensor, num_targets: int) -> torch.Tensor:
     """values (R, Q) f32 or f64, idx (R, Q) or (1, Q) integer, non-decreasing
     along each row, in [0, num_targets) -> (R, num_targets) of the values'
@@ -102,7 +105,7 @@ def segment_sum(values: torch.Tensor, idx: torch.Tensor, num_targets: int) -> to
         raise ValueError(f"segment_sum: {R} x {Q} into {num_targets}: 32-bit indices")
     if idx.shape[0] != R:
         out = values.new_empty(R, num_targets)
-        segment_sum_by_key(values, idx[0], None, out)
+        _segment_sum_by_key(values, idx[0], None, out)
         return out
     v = values.contiguous()
     i = idx.to(torch.int32).contiguous()
@@ -133,8 +136,8 @@ def segment_sum_by_key_reference(values: torch.Tensor, keys: torch.Tensor,
     return out
 
 
-def segment_sum_by_key(values: torch.Tensor, keys: torch.Tensor, perm: torch.Tensor | None,
-                       out: torch.Tensor, own: int | None = None) -> torch.Tensor:
+def _segment_sum_by_key(values: torch.Tensor, keys: torch.Tensor, perm: torch.Tensor | None,
+                        out: torch.Tensor, own: int | None = None) -> torch.Tensor:
     """``out[f, e] = sum over k with keys[k] == e of values[f, perm[k]]``:
     values (F, W) f32 or f64 of any strides (two interleaved rows, the
     transpose of a contiguous (W, 2), are read a pair a load), keys (M,)
@@ -176,6 +179,10 @@ def segment_sum_by_key(values: torch.Tensor, keys: torch.Tensor, perm: torch.Ten
     return out
 
 
+segment_sum_by_key = spanned("segment_sum")(_segment_sum_by_key)
+
+
+@spanned("segment_sum")
 def sort_keys(keys: torch.Tensor, span: int) -> tuple[torch.Tensor, torch.Tensor]:
     """keys (M,) integer in [0, span) -> (the keys ascending, the positions
     that sort them), both int32, ties in ascending position:

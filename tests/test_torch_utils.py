@@ -4,7 +4,7 @@
 TensorBoard's own reader; LPIPS on seeded checkpoints in the official
 layout (``tools/make_lpips_ckpt.py``) against the JAX package's at two image
 sizes, f32, to 1e-5 relative; the trainer's ``lpips`` eval key and
-``require_lpips``; the step timer, the memory counters (None without a card;
+``require_lpips``; the memory counters (None without a card;
 ``chip_smoke.py`` reads them on one) and the profiler trace."""
 
 import dataclasses
@@ -172,18 +172,6 @@ def test_trainer_eval_reports_lpips(tmp_path, monkeypatch, lpips_dir):
     assert m["lpips"] == pytest.approx(float(tlpips.load_lpips(device="cpu")(pred, gt)), rel=1e-6)
     keys = list(tr.eval_all_images())
     assert keys[:3] == ["psnr", "ssim", "lpips"]
-
-
-def test_step_timer_counts_and_rates():
-    t = profiling.StepTimer()
-    for _ in range(3):
-        t.tick(100, sync_on=torch.zeros(2))
-    r = t.rates()
-    assert set(r) == {"steps_per_sec", "rays_per_sec", "elapsed_s"}
-    assert r["rays_per_sec"] == pytest.approx(100 * r["steps_per_sec"])
-    assert r["steps_per_sec"] * r["elapsed_s"] == pytest.approx(3)
-    t.reset()
-    assert t.rates()["steps_per_sec"] == 0.0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="the host has a card; chip_smoke.py "
