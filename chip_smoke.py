@@ -11,7 +11,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    fixed-order segment sums with their radix sort) are built from csrc/ into
    build/ (one nvcc per source, started together), with ptxas' registers
    and spills of every wgmma kernel, of the segment sums and of the sort;
-2. kernel parity: each kernel against its plain PyTorch version on the card,
+2. kernel parity: each kernel against its plain PyTorch version on the card
+   (the hash grid's at the hash-train-16k step's three fields, hash_grid_records),
    both bases and both compute dtypes, at the main paths' shapes and a
    ragged N, and every wgmma body also at N below and around one tile, one
    block's tiles and all resident tiles; the two backward kernels also with
@@ -217,15 +218,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    parameter, Adam moment and logged loss equal bit for bit after every
    step (state_checksums, module_checksums, and torch.equal at the end),
    and the segment sums' launches a step by call site and by wrapper
-   (REPEAT_SEGMENT_SUMS); then the fixed-order segment sums
+   (REPEAT_SEGMENT_SUMS) and the hash grid's (REPEAT_HASH_GRID: run 3 and
+   run 7b, semantic-nerfw's hash field with the camera optimizer, 20 steps
+   each); then the fixed-order segment sums
    (csrc/segment_sum.cu: the short-row kernel for the interlevel bounds and
    the pdf sampler's brackets and running maximum, the radix sort and the
-   by-key kernel for the hash table's gather) against their plain versions
+   by-key kernel for the hash table's gradient) against their plain versions
    in f64 (long runs, empty runs, one-element rows, a shared index row, a
-   run across many tiles) and, in f32, at each call site's inputs (three
-   hash levels), a repeat bit-identical, timed against the plain version
-   and scatter_add_; the radix sort against torch.sort(stable=True), and a
-   hash level's whole backward against index_add_'s;
+   run across many tiles) and, in f32, at each call site's inputs (the
+   field's and a proposal field's keys), a repeat bit-identical, timed
+   against the plain version and scatter_add_; the radix sort against
+   torch.sort(stable=True), and a field's whole table gradient against
+   index_add_'s;
 20. the port's tools (phase tools_torch): the nine tools/*_torch.py as
    programs, started together at cut sizes (the orbit scene at 64x64, 50 to
    200 steps; regen_data_torch at 3 frames of 94x310): their JAX twins'
@@ -1119,7 +1123,126 @@ def phase_kernels():
     ran = {k: v for k, v in ff.LAUNCHES.items() if v}
     check(set(ran) == {"fourier_mlp", "fourier_mlp_bwd", "fourier_mlp_base_wgmma",
                        "fourier_mlp_bwd_base_wgmma"}, f"the base widths' timing launched {ran}")
-    return records
+    return records + hash_grid_records()
+
+
+# the hash fields of a hash-train-16k step (semantic-nerfw as registered,
+# 16,384 rays): (name, levels, log2 T, base and max resolution, points, the
+# positions' gradient on)
+HASH_GRID_FIELDS = (("field", 16, 19, 16, 2048, 16384 * 48, True),
+                    ("proposal0", 5, 17, 16, 128, 16384 * 256, False),
+                    ("proposal1", 5, 17, 16, 256, 16384 * 96, True))
+
+
+def hash_grid_records() -> list:
+    """The hash grid's kernels (csrc/hash_grid.cu) at the hash-train-16k
+    step's three fields: the forward and the backward's emit against their
+    plain versions on the card (the same arithmetic and order: bit for bit)
+    and against the plain encoding (ops/encoding.py hash_encoding_plain: the
+    encoding within 8 ulps of the largest |entry|, the table's gradient
+    within 1e-5 of each slot's sum of |terms| plus 1e-6 of the largest, the
+    positions' within 1e-5 of the largest); a repeat bit-identical; timed
+    (CUDA events, back to back, and the profiler's device time) against the
+    plain encoding, alone and as a forward and backward."""
+    import torch
+
+    from nerf_kbs_tpu_torch.ops import hash_grid as hg
+    from nerf_kbs_tpu_torch.ops.encoding import HashEncodingConfig, hash_encoding_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    recs = []
+    for field, L, log2_t, base, top, n, dx in HASH_GRID_FIELDS:
+        cfg = HashEncodingConfig(num_levels=L, features_per_level=2, log2_hashmap_size=log2_t,
+                                 base_resolution=base, max_resolution=top)
+        F, T = cfg.features_per_level, cfg.table_size
+        table = (torch.rand(F * L * T, device=dev, generator=gen) - 0.5) * 2e-4
+        pts = torch.rand(n, 3, device=dev, generator=gen)
+        pts[: n // 100, 0] = 1.0  # far faces
+        cot = torch.randn(n, cfg.output_dim, device=dev, generator=gen)
+        hg.reset_launches()
+        enc, keys, entries = hg.hash_grid_fwd(table, pts, cfg, True)
+        vals, dpos = hg.hash_grid_bwd(entries, pts, cot, cfg, True, dx)
+        grad = hg.table_gradient(keys, vals, cfg)
+        again = hg.hash_grid_fwd(table, pts, cfg, True)
+        again_b = hg.hash_grid_bwd(entries, pts, cot, cfg, True, dx)
+        check(hg.LAUNCHES == {"hash_grid_fwd": 2, "hash_grid_bwd": 2,
+                              "hash_grid_bwd_dx": 2 * dx}, f"hash grid launches {hg.LAUNCHES}")
+        ref_enc, ref_keys = hg.hash_grid_fwd_reference(entries, pts, cfg, True)
+        ref_vals, ref_dpos = hg.hash_grid_bwd_reference(entries, pts, cot, cfg, True, dx)
+        same = {"fwd": torch.equal(enc, ref_enc) and torch.equal(keys, ref_keys),
+                "vals": torch.equal(vals, ref_vals),
+                "dpos": not dx or torch.equal(dpos, ref_dpos),
+                "repeat": torch.equal(enc, again[0]) and torch.equal(keys, again[1])
+                and torch.equal(vals, again_b[0]) and (not dx or torch.equal(dpos, again_b[1]))}
+        del ref_enc, ref_keys, ref_vals, ref_dpos, again, again_b
+        check(all(same.values()), f"hash_grid {field}: bits against the plain versions {same}")
+        tb = table.clone().requires_grad_()
+        p = pts.clone().requires_grad_(dx)
+        plain = hash_encoding_plain(tb, p, cfg)
+        torch.autograd.backward(plain, cot)
+        err_enc = float((enc - plain).abs().max())
+        check(err_enc <= 8 * 2.0**-24 * float(table.abs().max()), f"hash_grid {field}: {err_enc}")
+        tb2 = table.clone().requires_grad_()
+        torch.autograd.backward(hash_encoding_plain(tb2, pts, cfg), cot.abs())
+        err_grad = float(((grad - tb.grad).abs() - 1e-5 * tb2.grad).max())
+        check(err_grad <= 1e-6 * float(tb.grad.abs().max()),
+              f"hash_grid {field}: table gradient off by {err_grad} past the slots' limits")
+        err_dx = float((dpos - p.grad).abs().max()) / float(p.grad.abs().max()) if dx else None
+        check(not dx or err_dx <= 1e-5, f"hash_grid {field}: positions' gradient {err_dx}")
+        del plain, tb, tb2, p, vals, grad, dpos
+
+        def fwd():
+            hg.hash_grid_fwd(table, pts, cfg, True)
+
+        def bwd():
+            hg.hash_grid_bwd(entries, pts, cot, cfg, True, dx)
+
+        def table_grad():
+            hg.table_gradient(keys, v, cfg)
+
+        def step(encode):
+            tb = table.clone().requires_grad_()
+            p = pts.clone().requires_grad_(dx)
+            torch.autograd.backward(encode(tb, p, cfg), cot)
+
+        def plain_fwd():
+            with torch.no_grad():
+                hash_encoding_plain(table, pts, cfg)
+
+        v, _ = hg.hash_grid_bwd(entries, pts, cot, cfg, True, False)
+        points, pl = n, n * L
+        for name, fn, plain_fn, n_bytes in (
+                ("hash_grid_fwd", fwd, plain_fwd,
+                 12 * points + 4 * F * L * T + 4 * pl * F + 32 * pl),
+                ("hash_grid_bwd" + ("_dx" if dx else ""), bwd, None,
+                 12 * points + 4 * pl * F + 32 * pl * F + (4 * F * L * T + 12 * points) * dx),
+                ("hash_grid_table_gradient", table_grad, None,
+                 4 * (F * 8 * pl + 8 * pl + F * L * T)),
+                ("hash_grid_step", lambda: step(hg.hash_grid), lambda: step(hash_encoding_plain),
+                 None)):
+            ms = time_ms(fn, 5)
+            _, events = device_events(lambda: [fn() for _ in range(5)])
+            rec = {"name": f"{name}.{field}", "route": "cuda",
+                   "source": "nerf_kbs_tpu_torch/csrc/hash_grid.cu",
+                   "replaces": "nerf_kbs_tpu/ops/encoding.py hash_encoding_apply (XLA, not "
+                               "Pallas)",
+                   "launches": 1 if name.endswith(("_fwd", "_bwd", "_bwd_dx")) else None,
+                   "launches_per": "hash-train-16k step (a hash field each)",
+                   "levels": L, "table_size": T, "features_per_level": F, "n_points": n,
+                   "need_dx": dx, "ms": ms,
+                   "device_ms": sum(us for _, us, _ in events) / 5e3,
+                   "device_ms_by_kernel": {k[:60]: us / 5e3 for k, us, _ in events},
+                   "plain_ms": time_ms(plain_fn, 3) if plain_fn else None,
+                   "max_abs_err": {"hash_grid_fwd": err_enc}.get(name),
+                   "bit_identical_to_plain_versions": same}
+            if n_bytes is not None:
+                rec.update(bound(n_bytes, 0.0, 0.0, bf16=False))
+            emit({"phase": "timing", **rec})
+            recs.append(rec)
+        del table, pts, cot, enc, keys, entries, v
+        torch.cuda.empty_cache()
+    return recs
 
 # kernel name -> its wrapper's name in fused_field.KERNELS, and the launch
 # counter of the body the main paths run (the wgmma body of all four)
@@ -1164,7 +1287,8 @@ def device_events(work, by_op: bool = False):
     microseconds and call counts, longest first). An aten:: op's entry repeats
     the time of the kernels it launched and is left out; with ``by_op`` the
     ops' entries come instead (each with the device time of the kernels it
-    launched itself)."""
+    launched itself). The program's spans (``nkt.*``, ``utils/profiling.py``)
+    are ranges over the kernels, not device work, and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1179,7 +1303,8 @@ def device_events(work, by_op: bool = False):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-              if dev_us(e) > 0 and str(e.device_type).endswith("CUDA") != by_op]
+              if dev_us(e) > 0 and str(e.device_type).endswith("CUDA") != by_op
+              and not e.key.startswith("nkt.")]
     return wall_us, sorted(events, key=lambda e: e[1], reverse=True)
 
 
@@ -4582,24 +4707,31 @@ def phase_reference_vs_cpu(scene: str) -> None:
 
 # phase repeat_bits: the paths run twice from one seed and their steps (the
 # preprocessing trainers of preprocess_trainers too)
-REPEAT_BITS = {"ilf050": 100, "sem30k-flagship2": 100, "run3": 20, "run7": 20,
+REPEAT_BITS = {"ilf050": 100, "sem30k-flagship2": 100, "run3": 20, "run7": 20, "run7b": 20,
                "raft": 3, "segmenter": 3, "inpaint": 3}
 PREPROCESS_TRAINERS = ("raft", "segmenter", "inpaint")
 # segment sums a step by call site: one a proposal round for the interlevel
 # bounds; where sampling is not detached (semantic-nerfw as registered; both
 # reference protocols detach it) two a round in the pdf sampler (its running
-# maximum, its brackets), all through the short-row kernel; one a hash level
-# (16 of the field, 5 of each proposal field), a radix sort and a by-key sum
+# maximum, its brackets), all through the short-row kernel; one a hash field
+# (the field and the two proposal fields), a radix sort and a by-key sum
 REPEAT_SEGMENT_SUMS = {"ilf050": {"interlevel": 2}, "sem30k-flagship2": {"interlevel": 2},
-                       "run3": {"interlevel": 2, "sampler": 4, "hash": 26},
-                       "run7": {"interlevel": 2}}
+                       "run3": {"interlevel": 2, "sampler": 4, "hash": 3},
+                       "run7": {"interlevel": 2},
+                       "run7b": {"interlevel": 2, "sampler": 4, "hash": 3}}
+# the hash grid's launches a step (ops/hash_grid.py LAUNCHES): a forward and a
+# backward a hash field; the backward's dx branch where the positions carry a
+# gradient: the field's and the second proposal field's (sampling is not
+# detached), and with the camera optimizer the first proposal field's too
+REPEAT_HASH_GRID = {"run3": {"hash_grid_fwd": 3, "hash_grid_bwd": 3, "hash_grid_bwd_dx": 2},
+                    "run7b": {"hash_grid_fwd": 3, "hash_grid_bwd": 3, "hash_grid_bwd_dx": 3}}
 
 
 def repeat_trainer(path: str, scene: str, out: str, extra: tuple = (), device=None):
     """A Trainer of one of the smoke's training paths, from its seed:
     'ilf050' and 'sem30k-flagship2' (reference_argv: full width, 16,384
-    rays), 'run1', 'run2', 'run3' and 'run7' (the CLI runs' argvs, 4,096
-    rays); ``extra`` override pairs go last."""
+    rays), 'run1', 'run2', 'run3', 'run7' and 'run7b' (the CLI runs' argvs,
+    4,096 rays); ``extra`` override pairs go last."""
     import nerf_kbs_tpu_torch.methods  # noqa: F401  (fills cli.method_registry)
     from nerf_kbs_tpu_torch.engine import cli
 
@@ -4609,7 +4741,8 @@ def repeat_trainer(path: str, scene: str, out: str, extra: tuple = (), device=No
         method, more = {"run1": ("nerfacto-tpu", []),
                         "run2": ("semantic-nerfw", RUN2_MODEL + _run2_data(scene)),
                         "run3": ("semantic-nerfw", _run2_data(scene)),
-                        "run7": ("nerfacto-tpu", CAMERA_OPT)}[path]
+                        "run7": ("nerfacto-tpu", CAMERA_OPT),
+                        "run7b": ("semantic-nerfw", _run2_data(scene) + CAMERA_OPT)}[path]
         argv = _run_argv(scene, out) + more
     spec = cli.apply_overrides(cli.method_registry[method](), _pairs(argv + list(extra)))
     return cli.build_trainer(spec, device=device)
@@ -4717,23 +4850,19 @@ def trainer_record(name: str, steps: int) -> tuple[list, list]:
 
 def _segment_sum_spy():
     """Replaces segment_sum in losses and samplers (the short-row sites) and
-    segment_sum_by_key in segment_sum (the gathers' sum: the hash levels, and
-    the preprocessing warp's taps, which it passes through while
-    ``state["on"]`` is false) by wrappers that count the calls by site and
-    keep inputs (cloned): each
-    short-row site's first call; of the hash levels the first call of the
-    largest span (the field's finest level: the backward visits a field's
-    levels last to first), the last of that span (its coarsest, the longest
-    runs: 'hash_dense') and the first of the smallest span (a proposal
-    field's finest: 'hash_coarse'). Returns (the inputs by site, the counts,
-    state, restore)."""
+    segment_sum_by_key in hash_grid (the hash fields' table gradients) by
+    wrappers that count the calls by site and keep inputs (cloned): each
+    short-row site's first call; of the hash fields the first call of the
+    largest span (the field: 'hash') and the first of the smallest (a
+    proposal field: 'hash_coarse'). Returns (the inputs by site, the counts,
+    restore)."""
+    from nerf_kbs_tpu_torch.ops import hash_grid as hg
     from nerf_kbs_tpu_torch.ops import losses, samplers
-    from nerf_kbs_tpu_torch.ops import segment_sum as seg
 
-    seen, counts, saved, state = {}, {}, [], {"on": True}
+    seen, counts, saved = {}, {}, []
     for site, mod, attr in (("interlevel", losses, "segment_sum"),
                             ("sampler", samplers, "segment_sum"),
-                            ("hash", seg, "segment_sum_by_key")):
+                            ("hash", hg, "segment_sum_by_key")):
         fn = getattr(mod, attr)
         saved.append((mod, attr, fn))
         if site != "hash":
@@ -4743,18 +4872,13 @@ def _segment_sum_spy():
                 return _fn(values, idx, n)
         else:
             def spy(values, keys, perm, out, own=None, _fn=fn):
-                if not state["on"]:
-                    return _fn(values, keys, perm, out, own)
                 counts["hash"] = counts.get("hash", 0) + 1
                 span = out.shape[1]
-                # the gradient's width and the level's first column (out is a
-                # column span of it)
+                # the gradient's width and the span's first column
                 call = (values.clone(), keys.clone(), perm.clone(), span, own, out.stride(0),
                         out.storage_offset())
                 if span > seen.get("hash", (0, 0, 0, -1))[3]:
                     seen["hash"] = call
-                if span == seen["hash"][3]:
-                    seen["hash_dense"] = call
                 if span < seen.get("hash_coarse", (0, 0, 0, span + 1))[3]:
                     seen["hash_coarse"] = call
                 return _fn(values, keys, perm, out, own)
@@ -4763,7 +4887,7 @@ def _segment_sum_spy():
     def restore():
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
-    return seen, counts, state, restore
+    return seen, counts, restore
 
 
 def _segment_sum_checks(dev) -> None:
@@ -4811,11 +4935,10 @@ def _by_key_site_records(site: str, call: tuple, what: str, dev) -> list:
     """The by-key sum at a hash level's inputs (the spy's ``call``) in f32
     against its plain version in f64 and bit for bit on a repeat, timed
     against its plain version and scatter_add_ (of the values gathered
-    into sorted order beforehand); for the field's finest
-    level also the radix sort against torch.sort(stable=True), and the
-    level's whole backward (sort and sum into its span of the table's
-    gradient) against index_add_'s (a zero-filled gradient of the whole
-    table, then the atomic index_add_ of the unsorted slots: what the
+    into sorted order beforehand); for the field also the radix sort of
+    its keys against torch.sort(stable=True), and its whole table gradient
+    (sort and sum) against index_add_'s (a zero-filled gradient of the whole
+    table, then the atomic index_add_ of the unsorted keys: what the
     gather's backward was before the fixed order)."""
     import torch
 
@@ -4858,7 +4981,7 @@ def _by_key_site_records(site: str, call: tuple, what: str, dev) -> list:
              "device_ms_by_kernel": {name: us / 20e3 for name, us, _ in events}}]
     if site != "hash":
         return recs
-    # the slots in entry order, as the gather's forward saw them
+    # the keys in entry order, as the forward wrote them
     slots = torch.empty_like(k)
     slots[p.long()] = k
     sk, sp = seg.sort_keys(slots, span)
@@ -4881,25 +5004,25 @@ def _by_key_site_records(site: str, call: tuple, what: str, dev) -> list:
                  "device_ms": sum(us for _, us, _ in sort_events) / 20e3,
                  "device_ms_by_kernel": {name: us / 20e3 for name, us, _ in sort_events}})
 
-    def level_bwd():
+    def field_bwd():
         sk, sp = seg.sort_keys(slots, span)
         seg.segment_sum_by_key(v, sk, sp, out, own)
 
-    def level_bwd_plain():
+    def field_bwd_plain():
         ts = torch.sort(slots, stable=True)
         seg.segment_sum_by_key_reference(v, ts.values, ts.indices, out, own)
 
     flat = slots.long() + lo
     whole = torch.zeros(F, width, device=dev)
-    level_bwd()
-    check(torch.equal(out, got), "segment_sum_hash_level_bwd: differs from the sum alone")
-    _, bwd_events = device_events(lambda: [level_bwd() for _ in range(20)])
-    recs.append({"name": "segment_sum_hash_level_bwd", **common,
+    field_bwd()
+    check(torch.equal(out, got), "segment_sum_hash_field_bwd: differs from the sum alone")
+    _, bwd_events = device_events(lambda: [field_bwd() for _ in range(20)])
+    recs.append({"name": "segment_sum_hash_field_bwd", **common,
                  "replaces": "nerf_kbs_tpu/ops/encoding.py:345 the transpose of jnp.take "
                              "in hash_encoding_apply, whole (XLA, not Pallas)",
                  "kernels": "radix_sort + segment_sum_by_key", "max_abs_err": err,
                  "err_is": "f32 against the plain version in f64 (the sum's)",
-                 "ms": time_ms(level_bwd, 50), "plain_ms": time_ms(level_bwd_plain, 50),
+                 "ms": time_ms(field_bwd, 50), "plain_ms": time_ms(field_bwd_plain, 50),
                  **bound(4 * (F * M + M + F * span), 0.0, F * M, bf16=False),
                  "library_ms": time_ms(lambda: torch.zeros(F, width, device=dev).index_add_(
                      1, flat, v), 50),
@@ -4924,44 +5047,49 @@ def phase_repeat_bits(records, scene: str) -> None:
     same way. Then the segment sums (csrc/segment_sum.cu) against their
     plain version in f64 (_segment_sum_checks), and at each call site's
     inputs of the first ilf050, sem30k-flagship2 and run-3 step (the
-    interlevel bounds, the pdf sampler: the short-row kernel; three hash
-    levels: the by-key kernel, with the radix sort and a level's whole
-    backward, _by_key_site_records) in f32 against the plain version in
-    f64, a repeat bit-identical, timed against the plain version and
-    scatter_add_ (the ``segment_sum*`` and ``radix_sort`` records)."""
+    interlevel bounds, the pdf sampler: the short-row kernel; the hash
+    field and a proposal field: the by-key kernel, with the radix sort and
+    the field's whole table gradient, _by_key_site_records) in f32 against
+    the plain version in f64, a repeat bit-identical, timed against the
+    plain version and scatter_add_ (the ``segment_sum*`` and
+    ``radix_sort`` records). The hash grid's launches a step must be
+    REPEAT_HASH_GRID's."""
     import torch
 
+    from nerf_kbs_tpu_torch.ops import hash_grid as hg
     from nerf_kbs_tpu_torch.ops import segment_sum as seg
 
-    seen, counts, spy_state, restore = _segment_sum_spy()
+    seen, counts, restore = _segment_sum_spy()
     try:
         for path, steps in REPEAT_BITS.items():
             runs = []
             t0 = time.perf_counter()
-            spy_state["on"] = path not in PREPROCESS_TRAINERS
             if path in PREPROCESS_TRAINERS:
                 for _ in range(2):
                     seg.reset_launches()
                     rec, final = trainer_record(path, steps)
-                    runs.append((rec, final, dict(seg.LAUNCHES), {}))
+                    runs.append((rec, final, dict(seg.LAUNCHES), {}, {}))
             else:
                 trainer = repeat_trainer(path, scene, tempfile.mkdtemp(prefix=f"nkt_rep_{path}_"))
                 start = final_state(trainer)
                 for _ in range(2):
                     restart(trainer, start)
                     seg.reset_launches()
+                    hg.reset_launches()
                     counts.clear()
                     rec = train_record(trainer, steps)
-                    runs.append((rec, final_state(trainer), dict(seg.LAUNCHES), dict(counts)))
+                    runs.append((rec, final_state(trainer), dict(seg.LAUNCHES), dict(counts),
+                                 dict(hg.LAUNCHES)))
                 del trainer
             torch.cuda.empty_cache()
-            (ra, fa, la, ca), (rb, fb, lb, cb) = runs
+            (ra, fa, la, ca, ha), (rb, fb, lb, cb, hb) = runs
             div = first_divergence(ra, rb)
             equal = len(fa) == len(fb) and all(torch.equal(x, y) for x, y in zip(fa, fb))
             emit({"phase": "repeat_bits", "path": path, "steps": steps,
                   "seconds": time.perf_counter() - t0, "first_divergence": div,
                   "final_state_bit_identical": equal, "tensors": len(fa),
                   "segment_sum_launches": [la, lb], "segment_sum_calls_by_site": ca,
+                  "hash_grid_launches": [ha, hb],
                   "loss_last": ra[-1]["losses"].get("total_loss", ra[-1]["losses"].get("loss"))})
             check(div is None and equal, f"repeat_bits {path}: the two runs part at {div} "
                   f"(final state equal: {equal})")
@@ -4973,6 +5101,10 @@ def phase_repeat_bits(records, scene: str) -> None:
                 check(ca == cb == sites and la == lb == want,
                       f"repeat_bits {path}: segment-sum launches {la}, {lb}, by site {ca}, "
                       f"{cb}; want {want}, {sites}")
+            if path in REPEAT_HASH_GRID:
+                want = {k: steps * n for k, n in REPEAT_HASH_GRID[path].items()}
+                check(ha == hb == want, f"repeat_bits {path}: hash grid launches {ha}, {hb}; "
+                                        f"want {want}")
     finally:
         restore()
 
@@ -5013,9 +5145,9 @@ def phase_repeat_bits(records, scene: str) -> None:
                "dtype": "float32"}
         emit({"phase": "timing", **rec})
         records.append(rec)
-    # the hash levels: the field's finest, its coarsest, a proposal field's finest
-    what = "4,096-ray run-3 train step (its hash levels, one call each)"
-    for site in ("hash", "hash_dense", "hash_coarse"):
+    # the hash fields: the field, a proposal field
+    what = "4,096-ray run-3 train step (its hash fields, one call each)"
+    for site in ("hash", "hash_coarse"):
         for rec in _by_key_site_records(site, seen[site], what, dev):
             emit({"phase": "timing", **rec})
             records.append(rec)

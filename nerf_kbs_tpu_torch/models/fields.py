@@ -43,6 +43,7 @@ from nerf_kbs_tpu_torch.ops.encoding import (
     fourier_encoding_init,
     hash_encoding_apply,
     hash_encoding_init,
+    hash_encoding_plain,
     positional_encoding,
     sh_encoding,
 )
@@ -248,11 +249,16 @@ def _normalize(cfg, positions: torch.Tensor) -> torch.Tensor:
     return contract_to_unit_cube(positions)
 
 
-def _field_encode(params: dict, cfg, x: torch.Tensor, window=None) -> torch.Tensor:
+def _field_encode(params: dict, cfg, x: torch.Tensor, window=None,
+                  plain_hash: bool = False) -> torch.Tensor:
     """The encoding of normalised positions x (..., 3); ``window`` (fourier
-    only): the coarse-to-fine weights of ``ops.encoding.fourier_window``."""
+    only): the coarse-to-fine weights of ``ops.encoding.fourier_window``;
+    ``plain_hash``: ``ops.encoding.hash_encoding_plain``, which differentiates
+    twice, on every device, in place of the hash grid's once-differentiable
+    operation."""
     if cfg.encoding == "hash":
-        return hash_encoding_apply(params["hash_table"], x, cfg.hash)
+        encode = hash_encoding_plain if plain_hash else hash_encoding_apply
+        return encode(params["hash_table"], x, cfg.hash)
     if cfg.encoding == "cp":
         return cp_encoding_apply(params["cp_tables"], x, cfg.cp)
     return fourier_encoding_apply(params["fourier_B"], x, cfg.fourier, window=window)
@@ -270,10 +276,11 @@ def _in_box_selector(x: torch.Tensor) -> torch.Tensor:
     return torch.all((x >= 0.0) & (x <= 1.0), dim=-1).float()
 
 
-def _density(params: dict, cfg, mlp_key: str, positions: torch.Tensor, window):
+def _density(params: dict, cfg, mlp_key: str, positions: torch.Tensor, window,
+             plain_hash: bool = False):
     """(density, geo, x) of the non-fused path."""
     x = _normalize(cfg, positions)
-    h = mlp_apply(params[mlp_key], _field_encode(params, cfg, x, window),
+    h = mlp_apply(params[mlp_key], _field_encode(params, cfg, x, window, plain_hash),
                   getattr(cfg, mlp_key))
     density, geo = _density_from_base(h)
     if cfg.disable_scene_contraction:
@@ -282,9 +289,9 @@ def _density(params: dict, cfg, mlp_key: str, positions: torch.Tensor, window):
 
 
 def nerfacto_density(params: dict, cfg: NerfactoFieldConfig, positions: torch.Tensor,
-                     window=None) -> torch.Tensor:
+                     window=None, plain_hash: bool = False) -> torch.Tensor:
     """The nerfacto field's density alone, positions (..., 3) -> (...)."""
-    return _density(params, cfg, "base_mlp", positions, window)[0]
+    return _density(params, cfg, "base_mlp", positions, window, plain_hash)[0]
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -304,7 +311,9 @@ def _normals(params: dict, cfg: NerfactoFieldConfig, positions: torch.Tensor,
     with torch.enable_grad():
         p = positions if (grad_on and positions.requires_grad) else \
             positions.detach().requires_grad_(True)
-        density = nerfacto_density(params, cfg, p, window)
+        # differentiated twice: the plain hash encoding (the hash grid's
+        # operation is once differentiable)
+        density = nerfacto_density(params, cfg, p, window, plain_hash=True)
         (grad,) = torch.autograd.grad(density.sum(), p, create_graph=grad_on)
     return _unit(-grad)
 

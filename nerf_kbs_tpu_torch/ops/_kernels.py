@@ -21,7 +21,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("fourier_mlp_fwd", "fourier_field_fwd", "fourier_mlp_bwd", "fourier_field_bwd",
-           "segment_sum")
+           "segment_sum", "hash_grid")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "segment_sum_by_key": ("nkt_segment_sum_by_key",
                            [_P, _L, _L, _P, _P, _L, _I, _P, _L, _I, _I, _P, _L, _I, _P]),
     "radix_sort": ("nkt_radix_sort", [_P, _L, _I, _P, _P, _P, _P, _P, _L, _P]),
+    "hash_grid_fwd": ("nkt_hash_grid_fwd", [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "hash_grid_bwd": ("nkt_hash_grid_bwd", [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P]),
     # a test bench for the wgmma wrappers, built only when a test asks for it
     "wgmma_probe": (
         "nkt_wgmma_probe",
@@ -60,8 +62,10 @@ _SIGNATURES = {
     ),
 }
 
-# entry points that live in another entry point's source
-_SOURCE_OF = {"segment_sum_by_key": "segment_sum", "radix_sort": "segment_sum"}
+# entry points that live in another entry point's source, or in a source
+# named after none of them
+_SOURCE_OF = {"segment_sum_by_key": "segment_sum", "radix_sort": "segment_sum",
+              "hash_grid_fwd": "hash_grid", "hash_grid_bwd": "hash_grid"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -120,7 +124,8 @@ def lib(name: str) -> ctypes.CDLL:
         if name not in _libs:
             path = build((name,))[name]
             dll = ctypes.CDLL(str(path))
-            for entry in [name] + [e for e, src in _SOURCE_OF.items() if src == name]:
+            entries = [e for e, src in _SOURCE_OF.items() if src == name]
+            for entry in [name] * (name in _SIGNATURES) + entries:
                 fn_name, argtypes = _SIGNATURES[entry]
                 fn = getattr(dll, fn_name)
                 fn.argtypes = argtypes

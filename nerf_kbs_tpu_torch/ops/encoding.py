@@ -6,8 +6,13 @@ CP-decomposed line grid, and the spherical-harmonics view-direction encoding.
 The hash grid keeps the JAX package's parameter layout: one flat 1-D table,
 feature-major, entry (f, level, slot) at ``f * L * T + level * T + slot``, so
 a JAX ``hash_table`` converts leaf for leaf. Its evaluation is a gather of the
-8 corners of each level and a sum over the corners; the table's gradient is
-the gathers', a sum into each slot in a fixed order
+8 corners of each level and a sum over the corners, one operation a field
+(``ops.hash_grid``: a forward over all levels, a backward that emits the
+entries' cotangents and the positions' gradient, one sort and one by-key sum
+into the table's gradient), hand-written kernels on the card and their plain
+versions on the CPU. A caller that differentiates the encoding twice calls
+``hash_encoding_plain``, PyTorch operations whose table gradient is the
+gathers', a sum into each slot in a fixed order
 (``ops.segment_sum.gather_column_sets``, one call for all levels).
 """
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from nerf_kbs_tpu_torch.ops.fused_field import tri_c, tri_s
+from nerf_kbs_tpu_torch.ops.hash_grid import hash_grid
 from nerf_kbs_tpu_torch.ops.segment_sum import gather_column_sets
 
 
@@ -210,7 +216,15 @@ def _level_corners(p: torch.Tensor, res: int, table_size: int):
 def hash_encoding_apply(table: torch.Tensor, positions: torch.Tensor,
                         config: HashEncodingConfig) -> torch.Tensor:
     """Encode positions (..., 3) -> (..., num_levels * features_per_level),
-    level-major (level l's F features at columns l*F .. l*F + F - 1).
+    level-major (level l's F features at columns l*F .. l*F + F - 1):
+    ``ops.hash_grid.hash_grid``, once differentiable."""
+    return hash_grid(table, positions, config)
+
+
+def hash_encoding_plain(table: torch.Tensor, positions: torch.Tensor,
+                        config: HashEncodingConfig) -> torch.Tensor:
+    """``hash_encoding_apply`` in PyTorch operations, on any device and
+    differentiable twice (``models.fields._normals``).
 
     Positions are clamped into [0, 1] first: an outside point reads its edge
     cell (a caller that wants zero density outside multiplies a selector on

@@ -19,11 +19,12 @@ Two regimes (``csrc/segment_sum.cu`` writes both orders out):
 ``gather_columns`` and ``gather_column_sets`` gather table columns; their
 backward sorts the column indices (``sort_keys``: a stable LSD radix sort
 over only the key bits the span needs) and sums each column's cotangents
-with ``segment_sum_by_key``, read through the sort's permutation. The hash
-table's levels go through one ``gather_column_sets`` call a field, which
-writes each level's span of one gradient tensor once. The same inputs give
-the same bits on every launch, so a training step repeats bit for bit on one
-card.
+with ``segment_sum_by_key``, read through the sort's permutation. The plain
+hash encoding's levels go through one ``gather_column_sets`` call a field,
+which writes each level's span of one gradient tensor once; the hash grid's
+kernels (``ops/hash_grid.py``) call ``sort_keys`` and ``segment_sum_by_key``
+once a field. The same inputs give the same bits on every launch, so a
+training step repeats bit for bit on one card.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version (``torch.sort(stable=True)``,

@@ -3,6 +3,8 @@ card, at small shapes: the two forwards and the two backwards, every wgmma
 body also at the edge N values. Marked ``cuda``: they skip on hosts without a card.
 Run on a CUDA host with ``python -m pytest tests/test_torch_cuda_kernels.py``."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -779,3 +781,159 @@ def test_gather_column_sets_backward_on_the_card(dev, entry_major):
     assert torch.equal(got, again)
     # f32 sums of up to 200,000 cotangents in a tree order
     assert np.all(np.abs(got.cpu().numpy() - want) <= 1e-5 * scale + 1e-6)
+
+
+# the hash grid's cases (ops/hash_grid.py, csrc/hash_grid.cu): the features
+# a level of each template, dense levels whose far face reaches the next
+# level's slots or past the table's end, hashed levels whose corners collide
+HASH_GRID_CASES = {
+    # two dense levels, the second's far face past the table (clamped)
+    "f1_dense_past_the_table": dict(num_levels=2, features_per_level=1, log2_hashmap_size=10,
+                                    base_resolution=4, max_resolution=9),
+    # dense 2 and 3 (the second spills into level 2's slots), hashed 5 and 7
+    # in 64 slots: every slot of the hashed levels collides
+    "f2_spill_and_collide": dict(num_levels=4, features_per_level=2, log2_hashmap_size=6,
+                                 base_resolution=2, max_resolution=8),
+    "f4_spill_and_collide": dict(num_levels=4, features_per_level=4, log2_hashmap_size=6,
+                                 base_resolution=2, max_resolution=8),
+    "f8_spill_and_collide": dict(num_levels=3, features_per_level=8, log2_hashmap_size=9,
+                                 base_resolution=3, max_resolution=12),
+    # the semantic-nerfw field's levels at a smaller table
+    "f2_sixteen_levels": dict(num_levels=16, features_per_level=2, log2_hashmap_size=15,
+                              base_resolution=16, max_resolution=2048),
+}
+
+
+def _hash_grid_inputs(kw, dev, n=20_000, seed=7):
+    """(config, table, positions): points inside, exactly on faces (0 or 1
+    on an axis), on the cube's corners and outside it."""
+    from nerf_kbs_tpu_torch.ops.encoding import HashEncodingConfig
+
+    cfg = HashEncodingConfig(**kw)
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 3))
+    k = n // 10
+    pts[:k, 0], pts[k:2 * k, 1], pts[2 * k:3 * k, 2] = 1.0, 0.0, rng.integers(0, 2, k)
+    pts[3 * k:3 * k + 8] = [[c & 1, (c >> 1) & 1, (c >> 2) & 1] for c in range(8)]
+    pts[4 * k:5 * k] = rng.uniform(-0.5, 1.5, (k, 3))
+    size = cfg.features_per_level * cfg.num_levels * cfg.table_size
+    table = torch.tensor(rng.uniform(-1, 1, size), dtype=torch.float32, device=dev)
+    return cfg, table, torch.tensor(pts, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("case", sorted(HASH_GRID_CASES))
+def test_hash_grid_forward_kernel(dev, case):
+    """The forward kernel against its plain version run on the card (the
+    same products and adds in the same order, and the same keys: bit for
+    bit) and against the plain encoding (the 8 corners' products summed in
+    another order: within 8 ulps of the largest |entry|, the sum of the
+    corners' |weights| being 1); a repeat gives the same bits; one launch
+    counted a call."""
+    from nerf_kbs_tpu_torch.ops import hash_grid as hg
+    from nerf_kbs_tpu_torch.ops.encoding import hash_encoding_plain
+
+    cfg, table, pts = _hash_grid_inputs(HASH_GRID_CASES[case], dev)
+    before = hg.LAUNCHES["hash_grid_fwd"]
+    enc, keys, entries = hg.hash_grid_fwd(table, pts, cfg, True)
+    again, _, _ = hg.hash_grid_fwd(table, pts, cfg, False)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["hash_grid_fwd"] == before + 2
+    want, want_keys = hg.hash_grid_fwd_reference(entries, pts, cfg, True)
+    assert torch.equal(enc, want) and torch.equal(keys, want_keys) and torch.equal(enc, again)
+    plain = hash_encoding_plain(table, pts, cfg)
+    assert float((enc - plain).abs().max()) <= 8 * 2.0**-24 * float(table.abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(HASH_GRID_CASES))
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_hash_grid_backward_kernel(dev, case, need_dx):
+    """Through the autograd Function: the table's gradient against the
+    plain encoding's on the CPU in f64 (f32 products summed in another
+    order: within 1e-5 of each slot's sum of |cotangent x weight|), the
+    positions' gradient against the plain encoding's on the card (the
+    same products summed over levels and corners in another order: 1e-5 of
+    the largest), both bit for bit against the kernels' plain versions on
+    the card fed to the same sort and by-key sum, and on a repeat; the
+    launches (the forward, the backward, the backward's dx branch) counted."""
+    from nerf_kbs_tpu_torch.ops import hash_grid as hg
+    from nerf_kbs_tpu_torch.ops.encoding import hash_encoding_plain
+
+    cfg, table, pts = _hash_grid_inputs(HASH_GRID_CASES[case], dev)
+    cot = torch.tensor(np.random.default_rng(8).normal(size=(pts.shape[0], cfg.output_dim)),
+                       dtype=torch.float32, device=dev)
+
+    def grads(encode, device=dev, dtype=torch.float32, c=cot):
+        tb = table.to(device, dtype, copy=True).requires_grad_()
+        p = pts.to(device, copy=True).requires_grad_(need_dx)
+        (encode(tb, p, cfg) * c.to(device, dtype)).sum().backward()
+        return tb.grad, p.grad
+
+    before = dict(hg.LAUNCHES)
+    got, got_dx = grads(hg.hash_grid)
+    again, again_dx = grads(hg.hash_grid)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in hg.LAUNCHES.items()} == {
+        "hash_grid_fwd": 2, "hash_grid_bwd": 2, "hash_grid_bwd_dx": 2 * need_dx}
+    assert torch.equal(got, again) and (not need_dx or torch.equal(got_dx, again_dx))
+    assert (got_dx is None) == (not need_dx)
+
+    # the plain versions' entry cotangents and positions' gradient, the
+    # same sort and sum
+    _, keys, entries = hg.hash_grid_fwd(table, pts, cfg, True)
+    vals, ref_dx = hg.hash_grid_bwd_reference(entries, pts, cot, cfg, True, need_dx)
+    assert torch.equal(got, hg.table_gradient(keys, vals, cfg))
+    kvals, _ = hg.hash_grid_bwd(entries, pts, cot, cfg, True, False)
+    assert torch.equal(kvals, vals)
+
+    want = grads(hash_encoding_plain, "cpu", torch.float64)[0].numpy()
+    scale = grads(hash_encoding_plain, "cpu", torch.float64, cot.abs())[0].numpy()
+    assert np.all(np.abs(got.cpu().numpy() - want) <= 1e-5 * scale + 1e-6)
+    if need_dx:
+        assert torch.equal(got_dx, ref_dx)
+        plain_dx = grads(hash_encoding_plain)[1]
+        assert float((got_dx - plain_dx).abs().max()) <= 1e-5 * float(plain_dx.abs().max())
+
+
+# the JAX package's numbers for the hash grid, kept by tests/test_torch_fields.py
+# (which checks them against JAX on the CPU): this host has no JAX
+HASH_GRID_JAX_FILE = Path(__file__).resolve().parent / "data" / "hash_grid_jax.npz"
+HASH_GRID_JAX_KEYS = ("num_levels", "features_per_level", "log2_hashmap_size",
+                      "base_resolution", "max_resolution")
+
+
+@pytest.mark.parametrize("case", ["f1", "f2", "f4"])
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_hash_grid_kernels_match_jax(dev, case, need_dx):
+    """The kernels through ``hash_encoding_apply`` on the card, moved to the
+    CPU, against the JAX package's encoding and jax.grad of sum(enc * cot)
+    on the same inputs (points inside, on faces and outside; dense levels
+    spilling into the next level's slots, hashed levels colliding), with
+    test_torch_fields.py's tolerances for the JAX package: the encoding
+    within 1e-6 of its largest |value| (the 8 corners summed in another
+    order), the table's and the positions' gradients within 1e-5 of their
+    largest (another order of each slot's and each point's sum); both
+    kernels launched, the backward's dx branch as asked."""
+    from nerf_kbs_tpu_torch.ops import hash_grid as hg
+    from nerf_kbs_tpu_torch.ops.encoding import HashEncodingConfig, hash_encoding_apply
+
+    with np.load(HASH_GRID_JAX_FILE) as f:
+        a = {k.split("/")[1]: f[k] for k in f.files if k.startswith(case + "/")}
+    cfg = HashEncodingConfig(**dict(zip(HASH_GRID_JAX_KEYS, a["config"].tolist())))
+
+    def rel(got, want):
+        return float(np.abs(got.detach().cpu().numpy() - want).max()) / float(np.abs(want).max())
+
+    tb = torch.tensor(a["table"], device=dev).requires_grad_()
+    p = torch.tensor(a["pts"], device=dev).requires_grad_(need_dx)
+    before = dict(hg.LAUNCHES)
+    enc = hash_encoding_apply(tb, p, cfg)
+    (enc * torch.tensor(a["cot"], device=dev)).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in hg.LAUNCHES.items()} == {
+        "hash_grid_fwd": 1, "hash_grid_bwd": 1, "hash_grid_bwd_dx": int(need_dx)}
+    assert rel(enc, a["enc"]) <= 1e-6
+    assert rel(tb.grad, a["d_table"]) <= 1e-5
+    if need_dx:
+        assert rel(p.grad, a["d_pts"]) <= 1e-5
+    else:
+        assert p.grad is None

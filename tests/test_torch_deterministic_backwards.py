@@ -3,7 +3,8 @@ the interlevel bounds' cw gradient (``_outer_cw_bounds`` against
 ``_outer_cw_bwd``), the pdf sampler's brackets (``_bracket_values`` against
 ``_bracket_bwd``, and through ``pdf_sampler``, its running maximum too,
 with a jitter that rounds to 1), the hash table's gradient (against ``jax.grad`` of
-``hash_encoding_apply`` on a table small enough that hashes collide), and
+``hash_encoding_apply`` on a table small enough that hashes collide; the
+port's hash grid operation and its plain encoding), and
 the plain segment sum against an f64 loop. All four sites hand
 ``segment_sum`` index rows that are non-decreasing, which the kernel on the
 card needs (the CPU's ``scatter_add_`` does not): a recording stand-in
@@ -23,6 +24,7 @@ from nerf_kbs_tpu.ops import losses as jlosses
 from nerf_kbs_tpu.ops import samplers as jsamp
 from nerf_kbs_tpu_torch.cameras import cameras as tcam
 from nerf_kbs_tpu_torch.ops import encoding as tenc
+from nerf_kbs_tpu_torch.ops import hash_grid as thg
 from nerf_kbs_tpu_torch.ops import losses as tlosses
 from nerf_kbs_tpu_torch.ops import samplers as tsamp
 from nerf_kbs_tpu_torch.ops import segment_sum as tseg
@@ -57,7 +59,9 @@ def sorted_calls(monkeypatch):
     for mod in (tlosses, tsamp, tseg):
         monkeypatch.setattr(mod, "segment_sum", checked)
     # the gathers of the hash table's levels (ops.segment_sum.gather_column_sets)
-    monkeypatch.setattr(tseg, "segment_sum_by_key", checked_by_key)
+    # and the hash grid's table gradient (ops.hash_grid.table_gradient)
+    for mod in (tseg, thg):
+        monkeypatch.setattr(mod, "segment_sum_by_key", checked_by_key)
     return calls
 
 
@@ -264,8 +268,9 @@ HASH = dict(num_levels=4, features_per_level=2, log2_hashmap_size=6, base_resolu
             max_resolution=8)
 
 
+@pytest.mark.parametrize("encoding", ["hash_encoding_apply", "hash_encoding_plain"])
 @pytest.mark.parametrize("points", ["inside", "faces_and_outside"])
-def test_hash_table_gradient_matches_jax(points, sorted_calls):
+def test_hash_table_gradient_matches_jax(points, encoding, sorted_calls):
     jc, tc = jenc.HashEncodingConfig(**HASH), tenc.HashEncodingConfig(**HASH)
     assert [(r + 1) ** 3 <= 64 for r in tc.resolutions] == [True, True, False, False]
     rng = np.random.default_rng(5)
@@ -279,12 +284,19 @@ def test_hash_table_gradient_matches_jax(points, sorted_calls):
     jg = jax.grad(lambda tb: jnp.sum(jenc.hash_encoding_apply(tb, jnp.asarray(pts), jc) * cot))(
         jnp.asarray(table))
     tb = _leaf(table)
-    (tenc.hash_encoding_apply(tb, torch.as_tensor(pts), tc) * torch.as_tensor(cot)).sum().backward()
+    encode = getattr(tenc, encoding)
+    (encode(tb, torch.as_tensor(pts), tc) * torch.as_tensor(cot)).sum().backward()
     # a slot sums ~60 to ~500 products of order 1
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=2e-5)
-    # one sum a level over its 500 x 8 corners, F = 2 rows sharing the index
-    # row (the backward visits the levels last to first: level 1's far face
-    # adds into level 2's slots)
+    if encoding == "hash_encoding_apply":
+        # the hash grid's operation: one sum of F = 2 rows over the 4 x 500
+        # x 8 corners into all 4 x 64 columns (level 1's far face adds into
+        # level 2's slots in the same sorted run)
+        assert sorted_calls == [(2, 16000, 256)]
+        return
+    # the plain encoding: one sum a level over its 500 x 8 corners, F = 2
+    # rows sharing the index row (the backward visits the levels last to
+    # first: level 1's far face adds into level 2's slots)
     assert [c[:2] for c in sorted_calls] == [(2, 4000)] * 4
     assert [c[2] for c in sorted_calls] == [64, 64, 4 * (1 + 4 + 16) + 1, 64]
 

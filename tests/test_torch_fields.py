@@ -8,6 +8,7 @@ non-fused path (NKT_FUSED unset, so no Pallas call); both sides get the same
 seeded NumPy inputs and the JAX parameters."""
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -70,21 +71,36 @@ def _hash_pair():
     return jc, tc, table
 
 
-def test_hash_encoding_matches_jax_and_its_reference():
+# the two hash encodings of the port: ``hash_encoding_apply``, the hash
+# grid's operation (``ops.hash_grid.hash_grid``: on the CPU its kernels'
+# plain versions, which the kernels equal bit for bit, and the one sort and
+# by-key sum a field), and ``hash_encoding_plain``, the normals' encoding
+HASH_ENCODINGS = ["hash_encoding_apply", "hash_encoding_plain"]
+
+
+@pytest.mark.parametrize("encoding", HASH_ENCODINGS)
+def test_hash_encoding_matches_jax_and_its_reference(encoding):
+    encode = getattr(tenc, encoding)
     jc, tc, table = _hash_pair()
     pts, n_in = _points()
-    got = tenc.hash_encoding_apply(_t(table), _t(pts).reshape(4, -1, 3), tc)
+    tb = _t(table).requires_grad_()
+    got = encode(tb, _t(pts).reshape(4, -1, 3), tc)
     assert got.shape == (4, pts.shape[0] // 4, 8)
+    # the first is the hash grid's Function (its output reshaped to (4, -1))
+    is_function = type(got.grad_fn.next_functions[0][0]).__name__ == "_HashGridBackward"
+    assert is_function == (encoding == "hash_encoding_apply")
+    got = got.detach()
     want = jenc.hash_encoding_apply(jnp.asarray(table), jnp.asarray(pts), jc)
     assert _rel(got.reshape(-1, 8), want) <= 1e-6
     ref = jenc._hash_encoding_apply_reference(jnp.asarray(table), jnp.asarray(pts[:n_in]), jc)
     assert _rel(got.reshape(-1, 8)[:n_in], ref) <= 1e-6
     # outside points read their clamped point's cells
-    clamped = tenc.hash_encoding_apply(_t(table), _t(np.clip(pts, 0, 1)), tc)
+    clamped = encode(_t(table), _t(np.clip(pts, 0, 1)), tc)
     assert torch.equal(got.reshape(-1, 8), clamped)
 
 
-def test_hash_encoding_dense_far_face_stays_in_the_table():
+@pytest.mark.parametrize("encoding", HASH_ENCODINGS)
+def test_hash_encoding_dense_far_face_stays_in_the_table(encoding):
     """A dense level (10^3 <= 1024 slots) whose far-face corners (res + 1, the
     ones of weight 0) index past the table's end: JAX's gather fills those
     reads with NaN, so its second feature is NaN there; the port keeps the
@@ -96,14 +112,15 @@ def test_hash_encoding_dense_far_face_stays_in_the_table():
     jc, tc = jenc.HashEncodingConfig(**kw), tenc.HashEncodingConfig(**kw)
     table = np.random.default_rng(20).uniform(-1, 1, (2 * 1024,)).astype(np.float32)
     pts, _ = _points(seed=21)
-    got = tenc.hash_encoding_apply(_t(table), _t(pts), tc).numpy()
+    got = getattr(tenc, encoding)(_t(table), _t(pts), tc).numpy()
     want = np.asarray(jenc.hash_encoding_apply(jnp.asarray(table), jnp.asarray(pts), jc))
     assert np.isnan(want).any() and np.isfinite(got).all()
     ok = np.isfinite(want)
     np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-6)
 
 
-def test_hash_encoding_gradients_match_jax():
+@pytest.mark.parametrize("encoding", HASH_ENCODINGS)
+def test_hash_encoding_gradients_match_jax(encoding):
     """The table gradient (a scatter-add through the gather) and the
     position gradient, faces and outside points included, against jax.grad
     of the same weighted sum."""
@@ -114,9 +131,81 @@ def test_hash_encoding_gradients_match_jax():
         lambda tb, p: jnp.sum(jenc.hash_encoding_apply(tb, p, jc) * cot), argnums=(0, 1)
     )(jnp.asarray(table), jnp.asarray(pts))
     tb, p = _t(table).requires_grad_(), _t(pts).requires_grad_()
-    (tenc.hash_encoding_apply(tb, p, tc) * _t(cot)).sum().backward()
+    (getattr(tenc, encoding)(tb, p, tc) * _t(cot)).sum().backward()
     assert _rel(tb.grad, jg_table) <= 1e-5
     assert _rel(p.grad, jg_pts) <= 1e-5
+
+
+# The JAX package's hash encoding and its gradients on fixed inputs, kept for
+# the card's tests, which run without JAX (tests/test_torch_cuda_kernels.py
+# holds the kernels to them). ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/test_torch_fields.py`` writes the file; a case's F features a level name a kernel template, and its
+# levels are dense (level 1's far face reaching level 2's slots) and hashed
+# with colliding corners.
+HASH_GRID_JAX_FILE = Path(__file__).resolve().parent / "data" / "hash_grid_jax.npz"
+HASH_GRID_JAX_CASES = {
+    f"f{F}": dict(num_levels=4, features_per_level=F, log2_hashmap_size=6, base_resolution=2,
+                  max_resolution=8) for F in (1, 2, 4)
+}
+HASH_GRID_JAX_KEYS = ("num_levels", "features_per_level", "log2_hashmap_size",
+                      "base_resolution", "max_resolution")
+
+
+def hash_grid_jax_arrays() -> dict:
+    """Per case ``<case>/config`` (HASH_GRID_JAX_KEYS' values), the inputs
+    ``table``, ``pts`` (inside, on faces and outside), ``cot``, and JAX's
+    ``enc``, ``d_table`` and ``d_pts`` of sum(enc * cot)."""
+    out = {}
+    for i, (name, kw) in enumerate(sorted(HASH_GRID_JAX_CASES.items())):
+        jc = jenc.HashEncodingConfig(**kw)
+        pts, _ = _points(n=400, seed=30 + i)
+        rng = np.random.default_rng(40 + i)
+        size = jc.features_per_level * jc.num_levels * jc.table_size
+        table = rng.uniform(-1, 1, (size,)).astype(np.float32)
+        cot = rng.normal(size=(pts.shape[0], jc.num_levels * jc.features_per_level))
+        cot = cot.astype(np.float32)
+        enc = jenc.hash_encoding_apply(jnp.asarray(table), jnp.asarray(pts), jc)
+        d_table, d_pts = jax.grad(
+            lambda tb, p: jnp.sum(jenc.hash_encoding_apply(tb, p, jc) * cot), argnums=(0, 1)
+        )(jnp.asarray(table), jnp.asarray(pts))
+        arrays = dict(config=np.array([kw[k] for k in HASH_GRID_JAX_KEYS]), table=table, pts=pts,
+                      cot=cot, enc=enc, d_table=d_table, d_pts=d_pts)
+        out.update({f"{name}/{k}": np.asarray(v) for k, v in arrays.items()})
+    return out
+
+
+def test_hash_grid_jax_file_is_the_jax_packages():
+    """The kept file holds what the JAX package computes now (its inputs
+    equal, its numbers within 1e-6 of the largest of each), finite."""
+    with np.load(HASH_GRID_JAX_FILE) as f:
+        kept = dict(f)
+    fresh = hash_grid_jax_arrays()
+    assert sorted(kept) == sorted(fresh)
+    for k, v in fresh.items():
+        assert np.isfinite(kept[k]).all(), k
+        if k.split("/")[1] in ("config", "table", "pts", "cot"):
+            np.testing.assert_array_equal(kept[k], v, err_msg=k)
+        else:
+            assert _rel(kept[k], v) <= 1e-6, k
+
+
+@pytest.mark.parametrize("encoding", HASH_ENCODINGS)
+@pytest.mark.parametrize("case", sorted(HASH_GRID_JAX_CASES))
+def test_hash_encoding_matches_the_kept_jax_numbers(encoding, case):
+    """The CPU side of the card's check against the kept JAX numbers, with
+    its tolerances: the encoding within 1e-6 of the largest |value| (the 8
+    corners summed in another order), the table's and the positions'
+    gradients within 1e-5 of their largest (another order of each slot's
+    and each point's sum)."""
+    with np.load(HASH_GRID_JAX_FILE) as f:
+        a = {k.split("/")[1]: f[k] for k in f.files if k.startswith(case + "/")}
+    tc = tenc.HashEncodingConfig(**dict(zip(HASH_GRID_JAX_KEYS, a["config"].tolist())))
+    tb, p = _t(a["table"]).requires_grad_(), _t(a["pts"]).requires_grad_()
+    enc = getattr(tenc, encoding)(tb, p, tc)
+    (enc * _t(a["cot"])).sum().backward()
+    assert _rel(enc, a["enc"]) <= 1e-6
+    assert _rel(tb.grad, a["d_table"]) <= 1e-5
+    assert _rel(p.grad, a["d_pts"]) <= 1e-5
 
 
 def test_cp_encoding_and_gradients_match_jax():
@@ -477,3 +566,9 @@ def test_route_is_the_jax_packages():
     for change in (dict(field_type="hash"), dict(field_type="cp"),
                    dict(predict_normals=True), dict(disable_scene_contraction=True)):
         assert not tnerf.uses_fused_path(dataclasses.replace(f, **change)), change
+
+
+if __name__ == "__main__":
+    HASH_GRID_JAX_FILE.parent.mkdir(exist_ok=True)
+    np.savez_compressed(HASH_GRID_JAX_FILE, **hash_grid_jax_arrays())
+    print(HASH_GRID_JAX_FILE)
